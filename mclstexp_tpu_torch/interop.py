@@ -1,0 +1,134 @@
+"""Flax (params, batch_stats) trees -> the port's ``state_dict``.
+
+The input is the JAX build's ``MclSTExp`` variables as nested dicts of
+NumPy arrays (``jax.device_get`` of the trees); the output uses the
+reference torch keys that ``mclstexp_tpu/models/image/torch_export.py``
+writes, and loads into the port's ``MclSTExp`` with ``strict=True``:
+  * conv kernels HWIO -> OIHW; dense kernels (in, out) -> (out, in);
+  * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+    ``running_mean``/``running_var``, plus a zero ``num_batches_tracked``;
+  * LayerNorm ``scale``/``bias`` -> ``weight``/``bias``.
+The densenet block layout is read from the tree, so ``tiny_densenet`` is
+covered as well as densenet121. Position tables keep their ``pos_vocab``
+rows. Every leaf must be consumed, or the conversion raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from mclstexp_tpu_torch.config import ModelConfig
+
+
+class _Converter:
+    def __init__(self, params: Mapping[str, Any], batch_stats: Mapping[str, Any]):
+        self.params, self.batch_stats = params, batch_stats
+        self.out: Dict[str, torch.Tensor] = {}
+        self.consumed = set()
+
+    def get(self, stats: bool, *path: str) -> np.ndarray:
+        node = self.batch_stats if stats else self.params
+        for p in path:
+            node = node[p]
+        self.consumed.add((stats, path))
+        return np.asarray(node)
+
+    def put(self, key: str, value: np.ndarray):
+        self.out[key] = torch.from_numpy(np.array(value, order="C"))  # a writable copy
+
+    def conv(self, key: str, *path: str):
+        self.put(f"{key}.weight", np.transpose(self.get(False, *path, "kernel"), (3, 2, 0, 1)))
+
+    def linear(self, key: str, *path: str, bias: bool = True):
+        self.put(f"{key}.weight", self.get(False, *path, "kernel").T)
+        if bias:
+            self.put(f"{key}.bias", self.get(False, *path, "bias"))
+
+    def ln(self, key: str, *path: str):
+        self.put(f"{key}.weight", self.get(False, *path, "scale"))
+        self.put(f"{key}.bias", self.get(False, *path, "bias"))
+
+    def bn(self, key: str, *path: str):
+        self.ln(key, *path)
+        self.put(f"{key}.running_mean", self.get(True, *path, "mean"))
+        self.put(f"{key}.running_var", self.get(True, *path, "var"))
+        self.out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def leftovers(self):
+        def walk(tree, stats, prefix=()):
+            missing = []
+            for k, v in tree.items():
+                if isinstance(v, Mapping):
+                    missing += walk(v, stats, (*prefix, k))
+                elif (stats, (*prefix, k)) not in self.consumed:
+                    missing.append(".".join((*prefix, k)))
+            return missing
+
+        return walk(self.params, False) + walk(self.batch_stats, True)
+
+
+def _numbered(tree: Mapping[str, Any], stem: str) -> int:
+    """How many children ``<stem>1 .. <stem>n`` the tree holds."""
+    n = 0
+    while f"{stem}{n + 1}" in tree:
+        n += 1
+    return n
+
+
+def _densenet(c: _Converter, prefix: str, src: str):
+    tree = c.params[src]
+    c.conv(f"{prefix}.conv0", src, "conv0")
+    c.bn(f"{prefix}.norm0", src, "norm0")
+    n_blocks = _numbered(tree, "denseblock")
+    for bi in range(1, n_blocks + 1):
+        for li in range(1, _numbered(tree[f"denseblock{bi}"], "denselayer") + 1):
+            base = f"{prefix}.denseblock{bi}.denselayer{li}"
+            d = (src, f"denseblock{bi}", f"denselayer{li}")
+            c.bn(f"{base}.norm1", *d, "norm1")
+            c.conv(f"{base}.conv1", *d, "conv1")
+            c.bn(f"{base}.norm2", *d, "norm2")
+            c.conv(f"{base}.conv2", *d, "conv2")
+        if bi < n_blocks:
+            c.bn(f"{prefix}.transition{bi}.norm", src, f"transition{bi}", "norm")
+            c.conv(f"{prefix}.transition{bi}.conv", src, f"transition{bi}", "conv")
+    c.bn(f"{prefix}.norm5", src, "norm5")
+
+
+def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                    model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Convert the JAX build's ``MclSTExp`` variables to the port's
+    ``state_dict`` (reference key layout)."""
+    if model_cfg.encoder_name not in ("densenet121", "tiny_densenet"):
+        raise NotImplementedError(f"encoder {model_cfg.encoder_name!r} is not ported yet")
+    c = _Converter(params, batch_stats)
+    tower = "image_encoder" if model_cfg.variant == "attention" else "image_ecode"
+    _densenet(c, f"{tower}.model.0", "image_encoder")
+
+    if model_cfg.variant == "attention":
+        for i in range(model_cfg.head_layers):
+            base, src = f"spot_encoder.{i}", ("spot_encoder", f"block{i}")
+            c.ln(f"{base}.attn.norm", *src, "norm_attn")
+            c.linear(f"{base}.attn.fn.to_qkv", *src, "attn", "to_qkv", bias=False)
+            if "to_out" in c.params["spot_encoder"][f"block{i}"]["attn"]:
+                c.linear(f"{base}.attn.fn.to_out.0", *src, "attn", "to_out")
+            c.ln(f"{base}.ff.norm", *src, "norm_ff")
+            c.linear(f"{base}.ff.fn.net.0", *src, "ff", "fc1")
+            c.linear(f"{base}.ff.fn.net.3", *src, "ff", "fc2")
+        pos = ("spot_encoder", "pos")
+    else:
+        pos = ("pos",)
+    c.put("x_embed.weight", c.get(False, *pos, "x_embed"))
+    c.put("y_embed.weight", c.get(False, *pos, "y_embed"))
+
+    for head in ("image_projection", "spot_projection"):
+        c.linear(f"{head}.projection", head, "projection")
+        c.linear(f"{head}.fc", head, "fc")
+        c.ln(f"{head}.layer_norm", head, "layer_norm")
+
+    leftovers = c.leftovers()
+    if leftovers:
+        raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")
+    return c.out

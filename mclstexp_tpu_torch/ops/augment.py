@@ -1,0 +1,164 @@
+"""Train-time image augmentation on the device, as pure functions of draws.
+
+Port of the "st" path of ``mclstexp_tpu/ops/augment.py``: ColorJitter(0.5,
+0.5, 0.5) with a per-image random op order, horizontal flip, and rotation
+by U(-180, 180) degrees (nearest neighbour, zero fill, positive = CCW).
+
+torch cannot reproduce ``jax.random`` draws, so every transform takes its
+random numbers explicitly (``StDraws``), and ``sample_st_draws`` draws them
+from a ``torch.Generator``. Tests hand both packages the same draws.
+
+The default rotation (``rotate_batch_paeth``) is Paeth's three shears, each
+one launch of the ``row_shift`` kernel (two in its row layout, one in its
+column layout).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from mclstexp_tpu_torch.ops.row_shift import row_shift
+
+_LUMA = (0.299, 0.587, 0.114)  # ITU-R 601-2
+
+# The six orders of (brightness, contrast, saturation), indexed by the
+# per-image order draw (the JAX build's _PERMS).
+_PERMS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
+
+
+@dataclasses.dataclass
+class StDraws:
+    """The random numbers of one "st" augmentation of a batch of B images."""
+
+    jitter: torch.Tensor  # (B, 3) float: brightness, contrast, saturation factors
+    order: torch.Tensor  # (B,) int in [0, 6): index into _PERMS
+    hflip: torch.Tensor  # (B,) bool
+    angles: torch.Tensor  # (B,) float degrees
+
+
+def sample_st_draws(generator: torch.Generator, batch: int, device) -> StDraws:
+    """Draw the "st" augmentation: factors U(0.5, 1.5), a uniform op order,
+    a fair-coin flip and an angle U(-180, 180), independently per image."""
+    def u(shape, lo, hi):
+        return torch.rand(shape, generator=generator, device=device) * (hi - lo) + lo
+
+    return StDraws(
+        jitter=u((batch, 3), 0.5, 1.5),
+        order=torch.randint(0, len(_PERMS), (batch,), generator=generator, device=device),
+        hflip=torch.rand((batch,), generator=generator, device=device) < 0.5,
+        angles=u((batch,), -180.0, 180.0),
+    )
+
+
+def _blend(img1: torch.Tensor, img2: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(ratio * img1 + (1.0 - ratio) * img2, 0.0, 1.0)
+
+
+def _luma_cm(x: torch.Tensor) -> torch.Tensor:
+    """Grayscale, channel-major: (B, 3, H, W) -> (B, H, W)."""
+    return x[:, 0] * _LUMA[0] + x[:, 1] * _LUMA[1] + x[:, 2] * _LUMA[2]
+
+
+def color_jitter(imgs: torch.Tensor, factors: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """ColorJitter over a (B, H, W, 3) batch with per-image factors (B, 3) and
+    per-image op order (B,), torchvision semantics (brightness blends toward
+    0, contrast toward the mean gray level, saturation toward the gray
+    image)."""
+    x = imgs.permute(0, 3, 1, 2)  # (B, 3, H, W)
+    f = factors.to(imgs.dtype)[:, :, None, None, None]  # (B, 3, 1, 1, 1)
+    fb, fc, fs = f[:, 0], f[:, 1], f[:, 2]
+    perms = torch.tensor(_PERMS, device=imgs.device)[order.long()]  # (B, 3)
+
+    def apply(op: int, x: torch.Tensor) -> torch.Tensor:
+        if op == 0:
+            return _blend(x, torch.zeros_like(x), fb)
+        if op == 1:
+            gm = _luma_cm(x).mean(dim=(-2, -1))[:, None, None, None]
+            return _blend(x, gm, fc)
+        return _blend(x, _luma_cm(x)[:, None], fs)
+
+    for step in range(3):
+        which = perms[:, step][:, None, None, None]
+        x = torch.where(which == 0, apply(0, x),
+                        torch.where(which == 1, apply(1, x), apply(2, x)))
+    return x.permute(0, 2, 3, 1)
+
+
+def rotate_batch(imgs: torch.Tensor, angles_deg: torch.Tensor,
+                 hflip: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotate a (B, H, W, C) batch about image centers by nearest-neighbour
+    inverse mapping (round half to even), zero fill; ``hflip`` (B,) flips
+    horizontally before the rotation by mirroring the source x."""
+    b, h, w = imgs.shape[:3]
+    theta = angles_deg * (math.pi / 180.0)
+    cos, sin = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=imgs.device)[:, None].expand(h, w) - cy
+    xx = torch.arange(w, dtype=torch.float32, device=imgs.device)[None, :].expand(h, w) - cx
+    sxr = torch.round(cos * xx - sin * yy + cx)
+    syr = torch.round(sin * xx + cos * yy + cy)
+    valid = (sxr >= 0) & (sxr <= w - 1) & (syr >= 0) & (syr <= h - 1)
+    sxc = sxr.clamp(0, w - 1).long()
+    syc = syr.clamp(0, h - 1).long()
+    if hflip is not None:
+        sxc = torch.where(hflip[:, None, None], w - 1 - sxc, sxc)
+    boff = (torch.arange(b, device=imgs.device) * (h * w))[:, None, None]
+    flat = (boff + syc * w + sxc).reshape(-1)
+    out = imgs.reshape(b * h * w, -1)[flat].reshape(imgs.shape)
+    return torch.where(valid[..., None], out, torch.zeros((), dtype=imgs.dtype,
+                                                          device=imgs.device))
+
+
+def rotate_batch_paeth(imgs: torch.Tensor, angles_deg: torch.Tensor,
+                       hflip: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotate a square (B, H, H, C) batch by Paeth's three shears.
+
+    R(t) = ShearX(a) . ShearY(b) . ShearX(a), a = tan(t/2), b = -sin(t),
+    after reducing the angle to [-45, 45] with an exact rot90. Each shear is
+    one ``row_shift`` launch: the two row shears run the kernel's row layout
+    on a contiguous image, the column shear its column layout on the
+    transposed view. Multiples of 90 degrees are exact; other angles
+    resample slightly differently from ``rotate_batch`` (same distribution
+    of transforms).
+    """
+    b, h, w = imgs.shape[:3]
+    if h != w:
+        raise ValueError(f"paeth rotation needs square images, got {tuple(imgs.shape)}")
+    if hflip is not None:
+        imgs = torch.where(hflip[:, None, None, None], imgs.flip(2), imgs)
+
+    k90 = torch.round(angles_deg / 90.0)
+    theta = (angles_deg - k90 * 90.0) * (math.pi / 180.0)  # [-45, 45] residual
+    k = torch.remainder(k90, 4).long()[:, None, None, None]
+    # The row shears need a contiguous base. torch.where takes its output
+    # layout from its leading operands, so the contiguous ones come before
+    # the rot90 views (transposed strides) and .contiguous() copies nothing.
+    base = torch.where(
+        k == 0, imgs,
+        torch.where(k == 2, imgs.flip(1, 2),
+                    torch.where(k == 1, torch.rot90(imgs, 1, dims=(1, 2)),
+                                torch.rot90(imgs, 3, dims=(1, 2)))),
+    ).contiguous()
+
+    centered = torch.arange(h, dtype=torch.float32, device=imgs.device) - (h - 1) / 2.0
+    shear_x = torch.round(torch.tan(theta / 2.0)[:, None] * centered).int()  # (B, H)
+    shear_y = torch.round(-torch.sin(theta)[:, None] * centered).int()  # (B, W)
+
+    out = row_shift(base, shear_x)
+    out = row_shift(out.transpose(1, 2), shear_y).transpose(1, 2)  # column shear
+    return row_shift(out, shear_x)
+
+
+def train_augment_inline(patches_u8: torch.Tensor, draws: StDraws,
+                         dtype: torch.dtype = torch.float32,
+                         rot_impl: str = "paeth") -> torch.Tensor:
+    """uint8 (B, H, W, 3) patches -> jittered, flipped, rotated float [0, 1]."""
+    imgs = patches_u8.to(dtype) / 255.0
+    imgs = color_jitter(imgs, draws.jitter, draws.order)
+    h, w = imgs.shape[1], imgs.shape[2]
+    if rot_impl == "paeth" and h == w and h % 8 == 0:
+        return rotate_batch_paeth(imgs, draws.angles, hflip=draws.hflip)
+    return rotate_batch(imgs, draws.angles, hflip=draws.hflip)

@@ -1,0 +1,147 @@
+"""Where the time of one train step goes, at the her2st widths, on the card.
+
+    python -m mclstexp_tpu_torch.profile_step
+
+Builds the her2st-width model (densenet121, 224 px, spot_dim 785,
+pos_vocab 1024, 2 blocks of 8x64 heads, projection 256, batch 128) from a
+seed on synthetic sections, warms up, times 10 steps on the host clock
+(ending in a synchronize), then records 3 steps with ``torch.profiler``.
+Prints one JSON object:
+  * ``ms_per_step``: host wall time per step, unprofiled;
+  * ``device_busy_ms_per_step`` and ``idle_share``: the union of kernel
+    intervals against the profiled window;
+  * ``phases``: device time of the kernels launched inside each of the
+    step's named ranges (augment, forward, backward, optimizer);
+  * ``categories`` and ``top_kernels``: device time by kernel family/name.
+Needs a CUDA card; the Chrome trace goes to
+``<checkout>/build/profile_step_trace.json``.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import re
+import time
+
+import numpy as np
+import torch
+
+from mclstexp_tpu_torch.config import her2st_config
+from mclstexp_tpu_torch.data import synthetic
+from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData
+from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.ops.build import BUILD_DIR
+from mclstexp_tpu_torch.train.state import create_train_state
+from mclstexp_tpu_torch.train.step import make_train_step
+
+PHASES = ("augment", "forward", "backward", "optimizer")
+TIMED_STEPS, PROFILED_STEPS = 10, 3
+TRACE = BUILD_DIR.parent / "profile_step_trace.json"  # <checkout>/build/
+# First match wins: cuDNN's batch-norm and convolution kernels share the
+# "cudnn" prefix, and its convolutions also carry "gemm" in their names.
+CATEGORIES = (
+    ("row_shift", r"shift_rows|shift_cols"),
+    ("batch_norm", r"batch_norm|batchnorm|bn_fw|bn_bw|welford"),
+    ("layout_transpose", r"nchwToNhwc|nhwcToNchw"),
+    ("convolution", r"conv|fprop|dgrad|wgrad|implicit"),
+    ("matmul", r"gemm|cutlass|cublas|splitK"),
+    ("optimizer", r"multi_tensor|adam"),
+    ("copy_cat", r"[Cc]at|[Cc]opy"),
+    ("reduce", r"reduce|Reduce"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+)
+
+
+def _category(name: str) -> str:
+    for cat, pattern in CATEGORIES:
+        if re.search(pattern, name):
+            return cat
+    return "other"
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def summarize(trace: dict, steps: int) -> dict:
+    """Device time by phase, category and kernel from a Chrome trace."""
+    events = trace["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    ranges = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in PHASES]
+    phase_us = collections.Counter()
+    cat_us = collections.Counter()
+    name_us, name_n = collections.Counter(), collections.Counter()
+    for k in kernels:
+        t = launches.get(k["args"].get("correlation"))
+        phase = next((n for n, s, e in ranges if t is not None and s <= t <= e), "outside")
+        phase_us[phase] += k["dur"]
+        cat_us[_category(k["name"])] += k["dur"]
+        name_us[k["name"]] += k["dur"]
+        name_n[k["name"]] += 1
+    busy = _union_us((k["ts"], k["ts"] + k["dur"]) for k in kernels)
+    window = (max(k["ts"] + k["dur"] for k in kernels) - min(k["ts"] for k in kernels))
+    per = 1e-3 / steps
+    return {
+        "device_busy_ms_per_step": busy * per,
+        "window_ms_per_step": window * per,
+        "idle_share": 1.0 - busy / window,
+        "kernels_per_step": len(kernels) / steps,
+        "phases": {p: phase_us[p] * per for p in (*PHASES, "outside") if p in phase_us},
+        "categories": {c: u * per for c, u in cat_us.most_common()},
+        "top_kernels": [{"name": n[:120], "ms_per_step": u * per, "launches_per_step":
+                         name_n[n] / steps} for n, u in name_us.most_common(15)],
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+
+    cfg = her2st_config()
+    sections = synthetic.make_dataset(num_sections=2, num_spots=128,
+                                      num_genes=cfg.model.spot_dim,
+                                      patch_size=cfg.data.patch_size, seed=0)
+    data = DeviceResidentData(ConcatSections.from_sections(sections), "cuda")
+    state = create_train_state(cfg.model, cfg.train, "cuda")
+    step = make_train_step("st", rot_impl=cfg.train.rot_impl)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b = cfg.train.batch_size
+
+    def run(i):
+        idx = np.arange(i * b, (i + 1) * b) % len(data.expression)
+        return step(state, data.take(idx), augment.sample_st_draws(g, b, "cuda"))
+
+    for i in range(3):
+        run(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        run(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(PROFILED_STEPS):
+            run(i)
+        torch.cuda.synchronize()
+    TRACE.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(TRACE))
+    with open(TRACE) as f:
+        summary = summarize(json.load(f), PROFILED_STEPS)
+    print(json.dumps({"ms_per_step": ms, "timed_steps": TIMED_STEPS,
+                      "profiled_steps": PROFILED_STEPS, "device": torch.cuda.get_device_name(0),
+                      **summary}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

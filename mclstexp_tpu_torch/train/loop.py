@@ -1,0 +1,102 @@
+"""Fold-loop trainer, port of ``train_fold`` of
+``mclstexp_tpu/train/loop.py``.
+
+Leave-one-section-out retraining from scratch per fold, with periodic and
+final checkpoints, JSONL metrics and seeded determinism: the batch order
+comes from ``SeedSequence([seed, epoch])`` and the augmentation draws from a
+``torch.Generator`` seeded with ``seed + 1000 * fold`` on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from mclstexp_tpu_torch.config import Config
+from mclstexp_tpu_torch.data.pipeline import (
+    ConcatSections,
+    DeviceResidentData,
+    device_train_batches,
+    split_fold,
+)
+from mclstexp_tpu_torch.data.section import Section
+from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.train import checkpoint as ckpt
+from mclstexp_tpu_torch.train.state import TrainState, create_train_state
+from mclstexp_tpu_torch.train.step import make_train_step
+from mclstexp_tpu_torch.utils.logging import MetricLogger
+from mclstexp_tpu_torch.utils.meters import AvgMeter, Stopwatch
+
+
+def check_positions_in_vocab(sections: Sequence[Section], pos_vocab: int) -> None:
+    """Raise if any spot coordinate would index past the positional tables
+    or is negative (an embedding lookup would fail far from the cause)."""
+    for s in sections:
+        m = int(np.max(s.positions)) if s.num_spots else 0
+        if m >= pos_vocab:
+            raise ValueError(
+                f"section {s.name}: position coordinate {m} >= pos_vocab "
+                f"{pos_vocab}; raise ModelConfig.pos_vocab, or remap raw "
+                f"coords to dense rows first (DataConfig.pos_remap)"
+            )
+        lo = int(np.min(s.positions)) if s.num_spots else 0
+        if lo < 0:
+            raise ValueError(
+                f"section {s.name}: negative position coordinate {lo} — "
+                f"corrupted spot file or a bad coordinate remap"
+            )
+
+
+def train_fold(cfg: Config, sections: Sequence[Section], fold: int,
+               logger: Optional[MetricLogger] = None, device="cuda") -> TrainState:
+    """Train one leave-one-out fold from scratch on ``device``; returns the
+    final state. Checkpoints land in ``<checkpoint_dir>/<dataset>/<test
+    section>/best_<fold>``."""
+    if cfg.data.dataset == "visium":
+        raise NotImplementedError("the visium 'tenx' augmentation is not ported yet")
+    logger = logger or MetricLogger()
+    device = torch.device(device)
+    check_positions_in_vocab(sections, cfg.model.pos_vocab)
+    train_secs, test_sec = split_fold(sections, fold)
+    data = DeviceResidentData(ConcatSections.from_sections(train_secs), device)
+    state = create_train_state(cfg.model, cfg.train, device)
+    ckpt_dir = ckpt.fold_checkpoint_dir(
+        cfg.train.checkpoint_dir, cfg.data.dataset, test_sec.name, fold
+    )
+    step_fn = make_train_step("st", rot_impl=cfg.train.rot_impl)
+    generator = torch.Generator(device=device).manual_seed(cfg.train.seed + 1000 * fold)
+
+    for epoch in range(cfg.train.max_epochs):
+        loss_meter = AvgMeter("train_loss")
+        watch = Stopwatch()  # per-epoch rate (epoch 0 includes warm-up)
+        # Losses stay on the device until a sync point: a per-step float()
+        # waits for the step to finish.
+        pending = []  # (loss tensor, batch size)
+        batches = device_train_batches(data, cfg.train.batch_size, cfg.train.seed, epoch)
+        for i, batch in enumerate(batches):
+            bs = len(batch["expression"])
+            draws = augment.sample_st_draws(generator, bs, device)
+            pending.append((step_fn(state, batch, draws), bs))
+            watch.update(bs)
+            if cfg.train.log_every and (i + 1) % cfg.train.log_every == 0:
+                for val, n in pending:
+                    loss_meter.update(float(val), n)
+                pending.clear()
+                logger.log(fold=fold, epoch=epoch, step=i + 1,
+                           loss=loss_meter.avg, spots_per_sec=watch.rate)
+        for val, n in pending:
+            loss_meter.update(float(val), n)
+        logger.log(fold=fold, epoch=epoch, epoch_loss=loss_meter.avg,
+                   spots_per_sec=watch.rate)
+        if cfg.train.checkpoint_every_epochs and (epoch + 1) % cfg.train.checkpoint_every_epochs == 0:
+            ckpt_watch = Stopwatch()
+            ckpt.save_checkpoint(ckpt_dir, state)
+            logger.log(event="checkpoint", fold=fold, epoch=epoch,
+                       seconds=ckpt_watch.elapsed)
+
+    final_watch = Stopwatch()
+    ckpt.save_checkpoint(ckpt_dir, state)
+    logger.log(event="final_checkpoint", fold=fold, seconds=final_watch.elapsed)
+    return state
