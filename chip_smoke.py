@@ -20,7 +20,24 @@ order; any failure exits non-zero and prints no result line:
      layout, once in its column layout);
   5. reference: the trained model on the card against the same weights on
      the CPU at a small batch (TF32 off for the comparison);
-  6. step time: steady-state ms per train step.
+  6. step time: steady-state ms per train step;
+  7. eval: the trained fold's checkpoint (``load_checkpoint``) in a model
+     with ``attn_backend="flash"``, ``compute_embeddings`` over the
+     sections (every B=32 spot batch one attention sequence through the
+     flash kernel, launched head_layers x ceil(N/32) times) and
+     ``evaluate_fold_resident`` for every fold with
+     host and device metrics (finite, agreeing); the flash tower's spot
+     embeddings against the "xla" tower's, and the card's top-K indices
+     against the CPU's on the same embeddings;
+  8. serve: ``PredictionService.from_sections`` over a her2st-scale spot
+     database (32 sections of 300-700 spots) through the flash kernel, one
+     LOO fold over it (``evaluate_fold_resident``, the first section held
+     out, random patches as its queries; host and device metrics agreeing,
+     each timed), and ``make_server`` on a free local port answering /healthz, /predict (1,
+     37 and 256 patches), /embed and a malformed body (400); every answer
+     equal to the service's own, with its latency.
+The kernels phase also holds the flash-attention kernel to its plain
+version at the eval sweep's, the training and a ragged sequence length.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -35,6 +52,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+FP32_FLOPS_PER_S = 67e12  # H100 SXM published fp32 rate outside the tensor cores
 FLAGSHIP = (128, 224, 224, 3)  # the Paeth shears' images at the her2st widths
 
 
@@ -65,6 +83,33 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 20) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``iters`` times, so that the host's cost of launching
+    (which dominates a call of a few microseconds) is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def phase_device():
     import torch
 
@@ -76,14 +121,26 @@ def phase_device():
 
 
 def phase_build():
-    from mclstexp_tpu_torch.ops import build, row_shift
+    """Every kernel source at once: one nvcc process each, started together,
+    so that the build takes the slowest source's time, not the sum."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from mclstexp_tpu_torch.ops import build, flash_attention, row_shift
+
+    def timed_build(source):
+        t = time.perf_counter()
+        return (*build.build_library(source), time.perf_counter() - t)
+
+    sources = (row_shift.SOURCE, flash_attention.SOURCE)
     t0 = time.perf_counter()
-    path, out = build.build_library(row_shift.SOURCE)
-    log(f"[build] {row_shift.SOURCE} -> {path}")
-    for line in out.strip().splitlines():
-        log(f"[build]   {line}")
-    log(f"[build] done in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(timed_build, sources))
+    for source, (path, out, seconds) in zip(sources, built):
+        log(f"[build] {source} -> {path} in {seconds:.2f} s")
+        for line in out.strip().splitlines():
+            log(f"[build]   {line}")
+    log(f"[build] done in {time.perf_counter() - t0:.2f} s "
+        f"(the sources' own times sum to {sum(b[2] for b in built):.2f} s)")
 
 
 def _shifts(g, b, h, w):
@@ -264,6 +321,299 @@ def phase_step_time(cfg, state, sections):
         f"peak memory {peak:.1f} GiB, on {card_line()}")
 
 
+FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64))  # eval sweep, train, ragged
+FLASH_ATOL = 2e-5
+
+
+def phase_flash_kernels() -> dict:
+    """flash_attention against attention_plain in fp32 at the eval sweep's
+    shape (b, h, n, d) = (1, 8, 32, 64), the training shape n=128 and a
+    length that is no multiple of the 32-row tile, read in place from a
+    (b, n, 3, h, d) qkv buffer as the spot tower gives it. atol 2e-5: both
+    are fp32, with the sums in another order and the kernel's online
+    softmax rescaling. Times are device times of CUDA-graph replays; the
+    yardstick is F.scaled_dot_product_attention on the same views. The
+    entry carries the eval shape's numbers and the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    entry = None
+    for b, h, n, d in FLASH_SHAPES:
+        qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        scale = d**-0.5
+        got, want = flash_attention(q, k, v, scale), attention_plain(q, k, v, scale)
+        sdpa = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        sdpa_err = float((sdpa - want).abs().max())
+        if not err <= FLASH_ATOL:
+            raise AssertionError(f"flash_attention {(b, h, n, d)}: max abs err {err:.3e} "
+                                 f"> {FLASH_ATOL}")
+        if not sdpa_err <= 1e-4:
+            raise AssertionError(f"the SDPA yardstick computes another function ({sdpa_err})")
+        ms = graph_ms(lambda: flash_attention(q, k, v, scale))
+        plain_ms = graph_ms(lambda: attention_plain(q, k, v, scale))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        call_ms = cuda_ms(lambda: flash_attention(q, k, v, scale))
+        nbytes = 4 * b * h * n * d * 4  # q, k, v read once, out written once
+        flops = 4 * b * h * n * n * d  # two products of 2*n*n*d each per head
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"[kernels] flash_attention fp32 {(b, h, n, d)}: max abs err {err:.3e} "
+            f"(atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"SDPA {library_ms:.5f} ms (err {sdpa_err:.1e}), bound {bound_ms:.6f} ms by "
+            f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), "
+            f"{bound_ms / ms:.1%} of bound; eager call incl. launch {call_ms:.5f} ms")
+        if entry is None:
+            entry = {"name": "flash_attention[fwd]", "route": "cuda",
+                     "source": "mclstexp_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "mclstexp_tpu/core/layers.py:201",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
+def phase_eval(cfg, sections):
+    """The retrieval path at the her2st widths with attn_backend="flash":
+    the eval sweep and the LOO folds over the trained weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.infer import embed, evaluate
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.ops import retrieval
+    from mclstexp_tpu_torch.ops.flash_attention import flash_attention
+    from mclstexp_tpu_torch.train import checkpoint
+
+    m, ev = cfg.model, cfg.eval
+    # [train]'s final checkpoint (the [step] phase trained the state further
+    # since): once into the flash model, once into an "xla" one to hold it to
+    saved = checkpoint.fold_checkpoint_dir(cfg.train.checkpoint_dir, cfg.data.dataset,
+                                           sections[0].name, 0)
+    model = MclSTExp(dataclasses.replace(m, attn_backend="flash"), device="cuda")
+    xla_model = MclSTExp(dataclasses.replace(m, attn_backend="xla"), device="cuda")
+    step = checkpoint.load_checkpoint(saved, model)
+    checkpoint.load_checkpoint(saved, xla_model)
+    log(f"[eval] loaded {saved} (step {step}) into a model with attn_backend='flash'")
+    n = sum(s.num_spots for s in sections)
+    prepared = embed.prepare_eval_arrays(sections, device="cuda")
+
+    flash_attention.launches = 0
+    img, spot = embed.compute_embeddings(model, sections, ev.batch_size, prepared=prepared,
+                                         as_device=True, device="cuda")
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    want = m.head_layers * -(-n // ev.batch_size)
+    if launches != want:
+        raise AssertionError(f"flash_attention launched {launches} times in the sweep of {n} "
+                             f"spots; head_layers x ceil(N/{ev.batch_size}) = {want}")
+    for name, e in (("image", img), ("spot", spot)):
+        if e.shape != (n, m.projection_dim) or not torch.isfinite(e).all():
+            raise AssertionError(f"{name} embeddings: shape {tuple(e.shape)} or non-finite")
+    rates = {}
+    for tower in ("image", "spot"):
+        t0 = time.perf_counter()
+        embed.compute_embeddings(model, sections, ev.batch_size, prepared=prepared,
+                                 as_device=True, tower=tower, device="cuda")
+        torch.cuda.synchronize()
+        rates[tower] = n / (time.perf_counter() - t0)
+    _, spot_xla = embed.compute_embeddings(xla_model, sections, ev.batch_size,
+                                           prepared=prepared, as_device=True, tower="spot",
+                                           device="cuda")
+    flash_err = float((spot - spot_xla).abs().max())
+    log(f"[eval] sweep of {n} spots (B={ev.batch_size}, {-(-n // ev.batch_size)} spot "
+        f"batches, remainder {n % ev.batch_size}): flash_attention launches {launches}; "
+        f"image tower {rates['image']:.1f} spots/s, spot tower {rates['spot']:.1f} spots/s; "
+        f"spot embeddings flash vs xla max abs err {flash_err:.3e} (atol 1e-5)")
+    if not flash_err <= 1e-5:
+        raise AssertionError(f"flash and xla spot towers differ by {flash_err}")
+
+    bounds = evaluate.section_bounds([s.num_spots for s in sections])
+    same_rows = 0
+    for f, (start, stop) in enumerate(bounds):
+        gt = sections[f].eval_expression
+        args = (f, img, spot, prepared["eval_expression"], bounds, gt, ev.top_k, ev.weight_ord)
+        t0 = time.perf_counter()
+        host = evaluate.evaluate_fold_resident(*args, device="cuda")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dev = evaluate.evaluate_fold_resident(*args, device_metrics=True, device="cuda")
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        for k in host:
+            if not (math.isfinite(host[k]) and math.isfinite(dev[k])):
+                raise AssertionError(f"fold {f}: non-finite {k}: host {host[k]}, device {dev[k]}")
+            if not math.isclose(host[k], dev[k], rel_tol=1e-4, abs_tol=1e-5):
+                raise AssertionError(f"fold {f}: {k} host {host[k]} vs device {dev[k]}")
+        mask = np.ones(n, bool)
+        mask[start:stop] = False
+        k_eff = min(ev.top_k, int(mask.sum()))
+        _, idx_card = retrieval.find_matches(spot, img[start:stop], k_eff,
+                                             torch.from_numpy(mask).cuda())
+        _, idx_cpu = retrieval.find_matches(spot.cpu(), img[start:stop].cpu(), k_eff,
+                                            torch.from_numpy(mask))
+        same = int((idx_card.cpu() == idx_cpu).all(dim=1).sum())
+        same_rows += same
+        log(f"[eval] fold {f}: {stop - start} queries, K={k_eff}; host metrics "
+            f"{ {k: round(v, 6) for k, v in host.items()} } in {host_ms:.2f} ms, device "
+            f"metrics {dev_ms:.2f} ms; top-K card vs cpu identical on {same}/{stop - start} rows")
+    log(f"[eval] top-K indices identical on card and cpu for {same_rows}/{n} query rows "
+        f"(at least 99% required)")
+    if same_rows < 0.99 * n:
+        raise AssertionError(f"card and cpu retrieval agree on {same_rows}/{n} rows only")
+    return model, launches
+
+
+def phase_serve(cfg, model):
+    """PredictionService over a her2st-scale database and its HTTP server."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.data import synthetic
+    from mclstexp_tpu_torch.infer import evaluate, serve
+    from mclstexp_tpu_torch.ops.flash_attention import flash_attention
+
+    m, ev, patch = cfg.model, cfg.eval, cfg.data.patch_size
+    t0 = time.perf_counter()
+    db = synthetic.make_spot_database(m.spot_dim)
+    n = sum(s.num_spots for s in db)
+    log(f"[serve] database: {len(db)} sections, {n} spots "
+        f"({min(s.num_spots for s in db)}-{max(s.num_spots for s in db)} each), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    service = serve.PredictionService.from_sections(
+        model, db, batch_size=ev.batch_size, top_k=ev.top_k, weight_ord=ev.weight_ord,
+        max_batch=256, patch_size=patch, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    want = m.head_layers * -(-n // ev.batch_size)
+    if launches != want:
+        raise AssertionError(f"flash_attention launched {launches} times building the "
+                             f"database of {n} spots; head_layers x ceil(N/32) = {want}")
+    log(f"[serve] database built in {build_s:.2f} s ({n / build_s:.1f} spots/s), "
+        f"flash_attention launches {launches}")
+
+    # One LOO fold at her2st scale: the first section held out (its rows
+    # masked out of the keys), its queries the image embeddings of random
+    # patches; host and device metrics, each timed as a median.
+    rng = np.random.default_rng(11)
+    stop = db[0].num_spots
+    queries = service.embed_patches(
+        rng.integers(0, 256, size=(stop, patch, patch, 3), dtype=np.uint8))
+    img = torch.zeros_like(service.key_emb)
+    img[:stop] = torch.from_numpy(queries).cuda()
+    args = (0, img, service.key_emb, service.key_expr,
+            evaluate.section_bounds([s.num_spots for s in db]), db[0].eval_expression,
+            ev.top_k, ev.weight_ord)
+    fold_ms, fold_metrics = {}, {}
+    for name, device_metrics, reps in (("host", False, 3), ("device", True, 5)):
+        times = []
+        for _ in range(reps + 1):  # the first call is a warm-up
+            t0 = time.perf_counter()
+            fold_metrics[name] = evaluate.evaluate_fold_resident(
+                *args, device_metrics=device_metrics, device="cuda")
+            times.append((time.perf_counter() - t0) * 1e3)
+        fold_ms[name] = sorted(times[1:])[reps // 2]
+    for k, v in fold_metrics["host"].items():
+        d = fold_metrics["device"][k]
+        if not (math.isfinite(v) and math.isfinite(d)
+                and math.isclose(v, d, rel_tol=1e-4, abs_tol=1e-5)):
+            raise AssertionError(f"her2st-scale fold: {k} host {v} vs device {d}")
+    log(f"[serve] LOO fold at her2st scale: {stop} queries against {n - stop} keys, "
+        f"K={ev.top_k}: {fold_ms['device']:.2f} ms with device metrics, "
+        f"{fold_ms['host']:.2f} ms with host metrics (medians); host and device metrics agree")
+
+    server = serve.make_server(service, "127.0.0.1", 0)
+    host, port = server.server_address[:2]
+    base = f"http://{host}:{port}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    def result(out):
+        if "result_b64" in out:
+            return np.frombuffer(base64.b64decode(out["result_b64"]),
+                                 np.float32).reshape(out["shape"])
+        return np.asarray(out["result"], np.float32)
+
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            info = json.loads(r.read())
+        if r.status != 200 or info["num_keys"] != n or info["top_k"] != ev.top_k:
+            raise AssertionError(f"/healthz answered {r.status} {info}")
+        for count, b64 in ((1, False), (37, True), (256, True)):
+            patches = rng.integers(0, 256, size=(count, patch, patch, 3), dtype=np.uint8)
+            if b64:
+                body = {"patches_b64": base64.b64encode(patches.tobytes()).decode(),
+                        "shape": list(patches.shape), "b64": True}
+            else:
+                body = {"patches": patches.tolist()}
+            times = []
+            for _ in range(4):  # the first request of a bucket shape is cold
+                t0 = time.perf_counter()
+                status, out = post("/predict", body)
+                times.append((time.perf_counter() - t0) * 1e3)
+            direct_times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                direct = service.predict(patches)
+                direct_times.append((time.perf_counter() - t0) * 1e3)
+            got = result(out)
+            if status != 200 or got.shape != (count, m.spot_dim) or not np.isfinite(got).all():
+                raise AssertionError(f"/predict {count}: {status}, shape {got.shape}")
+            err = float(np.abs(got - direct).max())
+            if not err <= 1e-6:
+                raise AssertionError(f"/predict {count} differs from service.predict by {err}")
+            log(f"[serve] /predict {count} patches ({'base64' if b64 else 'JSON lists'}): "
+                f"{times[0]:.1f} ms cold, then {', '.join(f'{t:.1f}' for t in times[1:])} ms "
+                f"(median {sorted(times[1:])[1]:.1f}); service.predict "
+                f"{', '.join(f'{t:.1f}' for t in direct_times)} ms; equal to "
+                f"service.predict (max abs diff {err:.1e})")
+        patches = rng.integers(0, 256, size=(8, patch, patch, 3), dtype=np.uint8)
+        status, out = post("/embed", {"patches_b64": base64.b64encode(patches.tobytes()).decode(),
+                                      "shape": list(patches.shape), "b64": True})
+        err = float(np.abs(result(out) - service.embed_patches(patches)).max())
+        if status != 200 or result(out).shape != (8, m.projection_dim) or not err <= 1e-6:
+            raise AssertionError(f"/embed: {status}, max abs diff {err}")
+        log(f"[serve] /embed 8 patches: equal to service.embed_patches (max abs diff {err:.1e})")
+        try:
+            post("/predict", {"patches_b64": "AAAA", "shape": [1, patch, patch, 3]})
+            raise AssertionError("a malformed body was answered 200")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise AssertionError(f"a malformed body got {e.code}, not 400") from e
+            log(f"[serve] malformed body: 400 {json.loads(e.read())['error']!r}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    log(f"[serve] server stopped ({'thread still alive' if thread.is_alive() else 'joined'})")
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -277,11 +627,15 @@ def main() -> int:
     phase_device()
     phase_build()
     entries = phase_kernels()
+    flash_entry = phase_flash_kernels()
     cfg, state, sections, launches = phase_train()
     for entry, layout in zip(entries, ("rows", "cols")):
         entry["launches"] = launches[layout]
     phase_reference(cfg, state, sections)
     phase_step_time(cfg, state, sections)
+    eval_model, flash_entry["launches"] = phase_eval(cfg, sections)
+    phase_serve(cfg, eval_model)
+    entries.append(flash_entry)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

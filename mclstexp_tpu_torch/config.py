@@ -35,8 +35,10 @@ class ModelConfig:
     # Compute dtype for the towers. The port runs "float32" only; the bf16
     # tower path is queued (ROADMAP.md) and "bfloat16" raises.
     dtype: str = "float32"
-    # Spot-attention backend. The port runs the plain fp32-softmax path for
-    # every value; "flash" and "ring" kernels are queued (ROADMAP.md).
+    # Spot-attention backend: "xla" runs the plain fp32-softmax path,
+    # "flash" the CUDA flash-attention kernel on the card (forward only; the
+    # plain path on the CPU), and "ring" raises until the port has a device
+    # mesh (ROADMAP.md).
     attn_backend: str = "xla"
     pretrained_path: Optional[str] = None  # tower import is queued; the port raises if set
     # TPU layout knobs, accepted and ignored by the port: rematerialization

@@ -8,8 +8,12 @@ a reference-layout ``state_dict`` loads into them with ``strict=True``:
   ``ff.norm``, ``ff.fn.net.0``, ``ff.fn.net.3``;
 * ``ProjectionHead``: ``projection``, ``fc``, ``layer_norm``.
 
-Attention is the fused-matmul ("xla") path of the JAX build: fp32 softmax,
-scale ``dim_head**-0.5``, masked keys filled with -1e30.
+Attention takes the JAX module's ``backend``: "xla" is the fused-matmul path
+of the JAX build (fp32 softmax, scale ``dim_head**-0.5``, masked keys filled
+with -1e30; ``ops.flash_attention.attention_plain``), "flash" the CUDA
+flash-attention kernel (``ops.flash_attention``; the plain path for a CPU
+tensor, as the JAX build falls back off a TPU). "ring" raises: the port has
+no device mesh yet.
 
 Initialization reproduces torch defaults as the JAX build does (Linear
 U(+-1/sqrt(fan_in)), Embedding N(0, 1)), drawn from an explicit
@@ -24,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
 # variance_scaling(2.0, "fan_out", "truncated_normal") of the JAX build:
 # the std of a unit normal truncated to [-2, 2].
@@ -81,12 +87,22 @@ def LayerNormT(dim: int, device=None) -> nn.LayerNorm:
 class MultiHeadSelfAttention(nn.Module):
     """Softmax MHA over a (batch, seq, dim) activation: fused qkv projection
     without bias, per-head scale ``dim_head**-0.5``, output projection
-    (present whenever heads != 1 or dim_head != dim)."""
+    (present whenever heads != 1 or dim_head != dim).
+
+    backend: "xla" (plain path) or "flash" (the CUDA kernel on a CUDA
+    tensor, the plain path on a CPU one); "ring" raises NotImplementedError.
+    """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 dropout: float = 0.0, device=None):
+                 dropout: float = 0.0, device=None, backend: str = "xla"):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        if backend == "ring":
+            raise NotImplementedError(
+                "attn_backend='ring' (sequence-parallel attention over a device mesh) is not "
+                "ported yet (ROADMAP.md Queue 1 item 10)")
+        if backend not in ("xla", "flash"):
+            raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash'")
+        self.heads, self.dim_head, self.backend = heads, dim_head, backend
         inner = heads * dim_head
         self.to_qkv = DenseT(dim, inner * 3, bias=False, device=device)
         if heads == 1 and dim_head == dim:
@@ -98,15 +114,10 @@ class MultiHeadSelfAttention(nn.Module):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         qkv = self.to_qkv(x).reshape(b, n, 3, h, d)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d**-0.5)
-        if mask is not None:
-            # mask: (b, n) or (n,) key validity; padded keys get no weight
-            key_mask = torch.broadcast_to(mask, (b, n))[:, None, None, :]
-            logits = torch.where(key_mask, logits, torch.full_like(logits, -1e30))
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, h * d)
-        return self.to_out(out)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
+        attend = flash_attention if self.backend == "flash" else attention_plain
+        out = attend(q, k, v, d**-0.5, mask)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
 
 
 class FeedForward(nn.Module):
@@ -142,10 +153,11 @@ class AttnBlock(nn.Module):
     """Pre-LN transformer block: x + MHA(LN(x)); x + FF(LN(x))."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
-                 dropout: float = 0.0, device=None):
+                 dropout: float = 0.0, device=None, backend: str = "xla"):
         super().__init__()
-        self.attn = PreNorm(dim, MultiHeadSelfAttention(dim, heads, dim_head, dropout, device),
-                            device)
+        self.attn = PreNorm(
+            dim, MultiHeadSelfAttention(dim, heads, dim_head, dropout, device, backend), device
+        )
         self.ff = PreNorm(dim, FeedForward(dim, mlp_dim, dropout, device), device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

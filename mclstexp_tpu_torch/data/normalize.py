@@ -1,6 +1,6 @@
 """Expression normalization (NumPy): the port's own copy of the helpers of
-``mclstexp_tpu/data/normalize.py`` that the ported slice reads (the
-per-gene eval normalization comes with the eval slice).
+``mclstexp_tpu/data/normalize.py`` that the ported slices read: the
+per-spot train normalization and the per-gene eval normalization.
 
 The reference normalizes every section with scprep's library-size
 normalization (rescale 10,000) then log10(x + 1).
@@ -31,3 +31,13 @@ def logcpm_panel(counts_panel: np.ndarray) -> np.ndarray:
     panel. Returns float32 (N, G)."""
     return log_transform(library_size_normalize(counts_panel))
 
+
+def pergene_logcpm(counts_panel: np.ndarray) -> np.ndarray:
+    """Per-GENE library-size normalization: the reference's eval-phase
+    matrices (retrieval keys and ground truth).
+
+    The reference's hvg scripts transpose to genes x spots before the row
+    normalizer, so every gene row is scaled to a 10,000 "library", unlike
+    the per-spot normalization of training. Returns float32 (N, G).
+    """
+    return log_transform(library_size_normalize(counts_panel.T)).T

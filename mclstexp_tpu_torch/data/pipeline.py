@@ -1,9 +1,10 @@
 """Batching: host-side index shuffling, device-side batch gathers.
 
-Port of the training half of ``mclstexp_tpu/data/pipeline.py``. Batch
-semantics are the JAX build's, for parity:
-  * a global shuffle over the concatenated training sections, permuted by
-    ``SeedSequence([seed, epoch])``;
+Port of ``mclstexp_tpu/data/pipeline.py``. Batch semantics are the JAX
+build's, for parity:
+  * training: a global shuffle over the concatenated training sections,
+    permuted by ``SeedSequence([seed, epoch])``;
+  * eval: sequential batches over the concatenation, no shuffle;
   * the final partial batch is kept (torch DataLoader drop_last=False).
 
 The port keeps the whole training set on the device (``DeviceResidentData``)
@@ -71,6 +72,13 @@ def train_batches(data: ConcatSections, batch_size: int, seed: int,
     """One epoch of shuffled host batches (uint8 patches)."""
     for idx in epoch_order(len(data), batch_size, seed, epoch):
         yield data.take(idx)
+
+
+def eval_batches(data: ConcatSections, batch_size: int) -> Iterator[Batch]:
+    """Sequential batches over the concatenation (no shuffle, remainder kept)."""
+    n = len(data)
+    for start in range(0, n, batch_size):
+        yield data.take(np.arange(start, min(start + batch_size, n)))
 
 
 class DeviceResidentData:

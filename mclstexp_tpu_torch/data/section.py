@@ -11,6 +11,8 @@ from typing import Optional
 
 import numpy as np
 
+from mclstexp_tpu_torch.data.normalize import pergene_logcpm
+
 
 @dataclasses.dataclass
 class Section:
@@ -21,6 +23,18 @@ class Section:
     patches: Optional[np.ndarray] = None  # (N, P, P, 3) uint8, pre-cut
     labels: Optional[np.ndarray] = None  # pathologist annotations (strings)
     counts: Optional[np.ndarray] = None  # (N, G) raw counts over the panel
+
+    @property
+    def eval_expression(self) -> np.ndarray:
+        """Expression in the eval protocol's normalization: per gene
+        (``normalize.pergene_logcpm``) where raw counts exist, else
+        ``expression`` unchanged (readers that load per-gene matrices
+        directly carry no counts). Computed once per section."""
+        if self.counts is None:
+            return self.expression
+        if getattr(self, "_eval_expression", None) is None:
+            self._eval_expression = pergene_logcpm(self.counts)
+        return self._eval_expression
 
     def __post_init__(self):
         n = len(self.expression)

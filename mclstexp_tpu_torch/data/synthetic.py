@@ -3,10 +3,12 @@
 Port of ``make_section``/``make_dataset`` of ``mclstexp_tpu/data/synthetic.py``
 (same seeds, same arrays): a latent z per spot drives both the patch
 texture and the counts, so image patches are predictive of expression.
+``make_spot_database`` builds a her2st-scale spot-side database from them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -77,4 +79,21 @@ def make_dataset(
             gene_loadings=loadings,
         )
         for i in range(num_sections)
+    ]
+
+
+def make_spot_database(num_genes: int, num_sections: int = 32, seed: int = 5) -> List[Section]:
+    """A her2st-scale retrieval database: ``num_sections`` sections of
+    300-700 spots (her2st's sections span about that range), the spot side
+    only: made at a 2 px patch size, the patches dropped. Sections share
+    gene loadings, as in ``make_dataset``."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(300, 701, size=num_sections)
+    loadings = rng.normal(size=(4, num_genes))
+    return [
+        dataclasses.replace(
+            make_section(f"D{i + 1}", int(size), num_genes, patch_size=2,
+                         seed=seed + 100 + i, gene_loadings=loadings),
+            patches=None)
+        for i, size in enumerate(sizes)
     ]

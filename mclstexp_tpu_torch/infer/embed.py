@@ -1,0 +1,159 @@
+"""Embedding sweep: run every section through both towers of one model.
+
+Port of ``mclstexp_tpu/infer/embed.py`` (the reference's phase A). All
+sections are concatenated and batched sequentially at B=32; the spot tower
+sees *each batch as one attention sequence*, so batch boundaries, including
+ones that straddle two sections, are part of the model's input, and the
+remainder batch is kept. The image tower is independent per spot in eval
+mode (BatchNorm on running statistics), so it runs at a larger batch.
+
+Output layout matches the reference: ``<out_dir>/img_embeddings_<i+1>.npy``
+and ``spot_embeddings_<i+1>.npy``, stored transposed (P, N_i) per section.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mclstexp_tpu_torch.data.pipeline import ConcatSections
+from mclstexp_tpu_torch.data.section import Section
+from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+
+
+def prepare_eval_arrays(sections: Sequence[Section], with_patches: bool = True,
+                        device="cuda") -> Dict[str, object]:
+    """Move the concatenated eval arrays to ``device`` once.
+
+    The LOO protocol embeds the same sections under every fold's model, so
+    one upload serves every fold. ``with_patches=False`` skips the patches
+    (the largest transfer) for spot-tower-only consumers such as the serving
+    database. "expression" is the model input (per-spot normalization);
+    "eval_expression" the retrieval-key and ground-truth normalization (per
+    gene, ``Section.eval_expression``), the same tensor when no section
+    carries raw counts.
+    """
+    device = torch.device(device)
+    if with_patches:
+        data = ConcatSections.from_sections(sections)
+        n, patches = len(data), torch.from_numpy(np.ascontiguousarray(data.patches))
+        expression, positions = data.expression, data.positions
+    else:
+        n, patches = sum(s.num_spots for s in sections), None
+        expression = np.concatenate([s.expression for s in sections], axis=0)
+        positions = np.concatenate([s.positions for s in sections], axis=0)
+    prepared = {
+        "n": n,
+        "patches": None if patches is None else patches.to(device),
+        "expression": torch.from_numpy(expression).to(device),
+        "positions": torch.from_numpy(positions).long().to(device),
+    }
+    if any(s.counts is not None for s in sections):
+        prepared["eval_expression"] = torch.from_numpy(
+            np.concatenate([s.eval_expression for s in sections], axis=0)).to(device)
+    else:
+        prepared["eval_expression"] = prepared["expression"]
+    return prepared
+
+
+def _check_model_device(model: MclSTExp, device: torch.device) -> None:
+    param = next(model.parameters())
+    if param.device.type != device.type:
+        raise ValueError(f"the model is on {param.device}, the sweep on {device}")
+
+
+@torch.no_grad()
+def compute_embeddings(
+    model: MclSTExp,
+    sections: Sequence[Section],
+    batch_size: int = 32,
+    eval_augment: bool = False,
+    prepared=None,
+    raw_scale: bool = False,
+    image_batch_size: Optional[int] = None,
+    as_device: bool = False,
+    tower: str = "both",
+    device="cuda",
+) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """(image_embeddings, spot_embeddings), each (sum N_i, P) in section
+    order; batches of ``batch_size`` cross section boundaries.
+
+    The model runs in eval mode (its previous mode is restored). raw_scale
+    keeps the raw 0-255 float input scale. ``as_device=True`` returns
+    tensors on ``device`` instead of ndarrays. ``tower="image"``/``"spot"``
+    runs only that sweep (the other return is None); the spot sweep needs no
+    patches. ``eval_augment`` (the Visium inference-time flips/rotations)
+    raises until the "tenx" augmentation is ported.
+    """
+    if eval_augment:
+        raise NotImplementedError(
+            "eval_augment needs the visium 'tenx' augmentation, not ported yet "
+            "(ROADMAP.md Queue 1 item 2)")
+    if tower not in ("both", "image", "spot"):
+        raise ValueError(f"tower must be 'both', 'image' or 'spot', got {tower!r}")
+    device = torch.device(device)
+    _check_model_device(model, device)
+    if prepared is None:
+        prepared = prepare_eval_arrays(sections, with_patches=(tower != "spot"), device=device)
+    n = prepared["n"]
+    was_training = model.training
+    model.eval()
+    try:
+        img = spot = None
+        if tower in ("both", "image"):
+            patches = prepared["patches"]
+            bs = image_batch_size or max(batch_size, 256)
+            # A contiguous NHWC float batch: the tower's NCHW view of it is
+            # channels_last, the layout cuDNN runs fastest.
+            img = torch.cat([
+                model.encode_image(patches[s:s + bs].float() if raw_scale
+                                   else patches[s:s + bs].float() / 255.0)
+                for s in range(0, n, bs)
+            ])
+        if tower in ("both", "spot"):
+            expr, pos = prepared["expression"], prepared["positions"]
+            spot = torch.cat([
+                model.encode_spots(expr[s:s + batch_size], pos[s:s + batch_size])
+                for s in range(0, n, batch_size)
+            ])
+    finally:
+        model.train(was_training)
+    if as_device:
+        return img, spot
+    return (None if img is None else img.cpu().numpy(),
+            None if spot is None else spot.cpu().numpy())
+
+
+def split_by_section(embeddings, section_sizes: Sequence[int]) -> List:
+    """Rows of the concatenation, one piece per section (ndarray or tensor)."""
+    if sum(section_sizes) != len(embeddings):
+        raise ValueError(f"section sizes sum to {sum(section_sizes)}, "
+                         f"embeddings have {len(embeddings)} rows")
+    out, start = [], 0
+    for n in section_sizes:
+        out.append(embeddings[start:start + n])
+        start += n
+    return out
+
+
+def save_embedding_files(img: np.ndarray, spot: np.ndarray, sizes: Sequence[int],
+                         out_dir: str) -> None:
+    """Write embeddings in the reference's per-section transposed (P, N_i)
+    .npy layout."""
+    img, spot = np.asarray(img), np.asarray(spot)
+    os.makedirs(out_dir, exist_ok=True)
+    for i, (im, sp) in enumerate(zip(split_by_section(img, sizes),
+                                     split_by_section(spot, sizes))):
+        np.save(os.path.join(out_dir, f"img_embeddings_{i + 1}.npy"), im.T)
+        np.save(os.path.join(out_dir, f"spot_embeddings_{i + 1}.npy"), sp.T)
+
+
+def dump_embeddings(model: MclSTExp, sections: Sequence[Section], out_dir: str,
+                    batch_size: int = 32, raw_scale: bool = False, device="cuda") -> None:
+    """Write the reference-compatible per-section transposed .npy files."""
+    img, spot = compute_embeddings(model, sections, batch_size, raw_scale=raw_scale,
+                                   device=device)
+    save_embedding_files(img, spot, [s.num_spots for s in sections], out_dir)

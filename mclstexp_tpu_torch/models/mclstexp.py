@@ -47,7 +47,7 @@ class MclSTExp(PositionTables):
             self.image_encoder = encoder
             self.spot_encoder = SpotEncoder(
                 cfg.spot_dim, cfg.heads_num, cfg.heads_dim, cfg.head_layers,
-                cfg.dropout, device=device,
+                cfg.dropout, device=device, backend=cfg.attn_backend,
             )
         elif cfg.variant == "mlp":
             self.image_ecode = encoder  # the reference's attribute name

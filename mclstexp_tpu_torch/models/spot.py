@@ -18,10 +18,11 @@ from mclstexp_tpu_torch.core.layers import AttnBlock
 
 class SpotEncoder(nn.Sequential):
     def __init__(self, spot_dim: int, heads_num: int = 8, heads_dim: int = 64,
-                 head_layers: int = 2, dropout: float = 0.0, device=None):
+                 head_layers: int = 2, dropout: float = 0.0, device=None,
+                 backend: str = "xla"):
         super().__init__(*(
             AttnBlock(spot_dim, heads_num, heads_dim, mlp_dim=spot_dim,
-                      dropout=dropout, device=device)
+                      dropout=dropout, device=device, backend=backend)
             for _ in range(head_layers)
         ))
 

@@ -69,14 +69,15 @@ def _union_us(intervals) -> float:
     return total
 
 
-def summarize(trace: dict, steps: int) -> dict:
-    """Device time by phase, category and kernel from a Chrome trace."""
+def summarize(trace: dict, steps: int, phases=PHASES) -> dict:
+    """Device time by phase (the ``record_function`` ranges named in
+    ``phases``), category and kernel from a Chrome trace."""
     events = trace["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     launches = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
     ranges = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") == "user_annotation" and e.get("name") in PHASES]
+              if e.get("cat") == "user_annotation" and e.get("name") in phases]
     phase_us = collections.Counter()
     cat_us = collections.Counter()
     name_us, name_n = collections.Counter(), collections.Counter()
@@ -95,7 +96,7 @@ def summarize(trace: dict, steps: int) -> dict:
         "window_ms_per_step": window * per,
         "idle_share": 1.0 - busy / window,
         "kernels_per_step": len(kernels) / steps,
-        "phases": {p: phase_us[p] * per for p in (*PHASES, "outside") if p in phase_us},
+        "phases": {p: phase_us[p] * per for p in (*phases, "outside") if p in phase_us},
         "categories": {c: u * per for c, u in cat_us.most_common()},
         "top_kernels": [{"name": n[:120], "ms_per_step": u * per, "launches_per_step":
                          name_n[n] / steps} for n, u in name_us.most_common(15)],

@@ -1,0 +1,136 @@
+"""Spot attention backends: the port's ``MultiHeadSelfAttention(backend=)``
+against the JAX module, and the flash wrapper's CPU path and shape rule.
+
+On the CPU "flash" runs the plain fp32-softmax path (the JAX module does
+the same off a TPU), so "flash" in the port equals the JAX module run with
+``backend="flash"`` on the CPU. Float math is held to rtol/atol 1e-5 (both
+fp32; only the summation order differs). "ring" raises in the port: it has
+no device mesh yet, and the JAX module raises without one too. The CUDA
+kernel itself is tested on the card (``tests/test_torch_port_kernels.py``).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mclstexp_tpu import config as jax_config
+from mclstexp_tpu.core import layers as jax_layers
+from mclstexp_tpu.models.mclstexp import MclSTExp as JaxMclSTExp
+from mclstexp_tpu_torch import config
+from mclstexp_tpu_torch.core import layers
+from mclstexp_tpu_torch.interop import params_from_jax
+from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+from mclstexp_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TINY = dict(encoder_name="tiny_densenet", image_dim=16, spot_dim=24, projection_dim=32,
+            heads_num=2, heads_dim=16, head_layers=2, pos_vocab=64, dense_block_impl="concat")
+
+
+def _mhsa_pair(backend, x, mask=None, seed=0):
+    """(JAX module output, port module) with the same weights."""
+    jmod = jax_layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, backend=backend)
+    p = jax.device_get(jmod.init(jax.random.PRNGKey(seed), x, mask=mask))["params"]
+    want = np.asarray(jmod.apply({"params": p}, x, mask=mask))
+    tmod = layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, device="cpu",
+                                         backend=backend)
+    with torch.no_grad():
+        tmod.to_qkv.weight.copy_(torch.from_numpy(np.array(p["to_qkv"]["kernel"].T)))
+        tmod.to_out[0].weight.copy_(torch.from_numpy(np.array(p["to_out"]["kernel"].T)))
+        tmod.to_out[0].bias.copy_(torch.from_numpy(np.array(p["to_out"]["bias"])))
+    return want, tmod
+
+
+@pytest.mark.parametrize("n", [1, 32, 50])
+def test_flash_backend_on_cpu_matches_jax_flash(n):
+    x = np.random.default_rng(n).normal(size=(1, n, 24)).astype(np.float32)
+    want, tmod = _mhsa_pair("flash", x)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_flash_backend_with_mask_on_cpu_matches_jax():
+    x = np.random.default_rng(9).normal(size=(2, 6, 24)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 1, 0, 0], [1, 1, 1, 1, 1, 0]], bool)
+    want, tmod = _mhsa_pair("flash", x, mask)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_ring_backend_raises_like_jax_without_a_mesh():
+    """The JAX module needs an active mesh for "ring" and raises without
+    one; the port has no mesh yet and raises for every "ring" module."""
+    x = np.zeros((1, 8, 24), np.float32)
+    jmod = jax_layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, backend="ring")
+    with pytest.raises(ValueError, match="mesh"):
+        jmod.init(jax.random.PRNGKey(0), x)
+    with pytest.raises(NotImplementedError, match="ring"):
+        layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, device="cpu", backend="ring")
+    with pytest.raises(NotImplementedError, match="ring"):
+        MclSTExp(config.ModelConfig(**{**TINY, "attn_backend": "ring"}), device="cpu")
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        layers.MultiHeadSelfAttention(24, device="cpu", backend="sdpa")
+
+
+def test_spot_tower_with_flash_matches_jax():
+    """The whole spot tower (position tables, 2 blocks, projection) with
+    attn_backend="flash", weights carried from the JAX model."""
+    kw = {**TINY, "attn_backend": "flash"}
+    jm = JaxMclSTExp(jax_config.ModelConfig(**kw))
+    r = np.random.default_rng(1)
+    batch = {"image": r.uniform(size=(32, 16, 16, 3)).astype(np.float32),
+             "expression": r.normal(size=(32, 24)).astype(np.float32),
+             "position": r.integers(0, 64, size=(32, 2)).astype(np.int32)}
+    variables = jax.device_get(jm.init(jax.random.PRNGKey(0), batch, train=False))
+    want = jm.apply(variables, batch["expression"], batch["position"],
+                    method=JaxMclSTExp.encode_spots)
+    cfg = config.ModelConfig(**kw)
+    tm = MclSTExp(cfg, device="cpu")
+    tm.load_state_dict(params_from_jax(variables["params"], variables["batch_stats"], cfg),
+                       strict=True)
+    assert all(m.fn.backend == "flash" for m in (b.attn for b in tm.spot_encoder))
+    with torch.no_grad():
+        got = tm.encode_spots(torch.from_numpy(batch["expression"]),
+                              torch.from_numpy(batch["position"]).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    """A CPU tensor goes to attention_plain, strided qkv views included,
+    and launches nothing."""
+    r = np.random.default_rng(2)
+    qkv = torch.from_numpy(r.normal(size=(2, 37, 3, 4, 16)).astype(np.float32))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, 0.25)
+    assert fa.flash_attention.launches == before
+    want = fa.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), 0.25)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the plain version is softmax(q k^T * scale) v
+    ref = torch.softmax(q @ k.transpose(-1, -2) * 0.25, dim=-1) @ v
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+def test_flash_kernel_shape_rule():
+    """What the CUDA kernel takes (checked before any launch): one (b, h, n,
+    d) shape, float32, 1 <= d <= 128, any n >= 1, last dimension
+    contiguous."""
+    ok = torch.zeros((1, 8, 300, 64))
+    fa.check_kernel_inputs(ok, ok, ok)
+    fa.check_kernel_inputs(*(torch.zeros((2, 3, 1, 128)),) * 3)
+    with pytest.raises(ValueError, match="d <= 128"):
+        fa.check_kernel_inputs(*(torch.zeros((1, 1, 4, 129)),) * 3)
+    with pytest.raises(TypeError, match="float32"):
+        fa.check_kernel_inputs(*(torch.zeros((1, 1, 4, 8), dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match="one \\(b, h, n, d\\) shape"):
+        fa.check_kernel_inputs(ok, ok, ok[:, :, :299])
+    with pytest.raises(ValueError, match="non-empty"):
+        fa.check_kernel_inputs(*(torch.zeros((1, 1, 0, 8)),) * 3)
+    strided = torch.zeros((1, 1, 4, 16))[..., ::2]
+    with pytest.raises(ValueError, match="last dimension contiguous"):
+        fa.check_kernel_inputs(strided, strided, strided)
