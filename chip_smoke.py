@@ -6,12 +6,16 @@
 Run from the root of a checkout on a machine with a CUDA card. Phases, in
 order; any failure exits non-zero and prints no result line:
   1. device: the card, its power limit, the TF32 flags;
-  2. build: the CUDA kernel source of the port, compiled with nvcc for
-     sm_90a;
+  2. build: the port's CUDA kernel sources, compiled with nvcc for sm_90a,
+     one nvcc each, in parallel;
   3. kernels: each kernel against its plain PyTorch version at the shapes
-     the main path gives it (bit-equal), in each of its layouts, with its
-     time, the plain version's time, a one-call PyTorch yardstick and the
-     memory bound;
+     the main path gives it, in each of its layouts, with its time, the
+     plain version's time, a PyTorch yardstick and its bound: row_shift
+     (bit-equal); the flash-attention forward, with and without residuals,
+     at the eval sweep's, the training and a ragged sequence length; the
+     backward kernels (dK/dV, dQ) at the training length, the remainder
+     batch's and a ragged one, the forward-and-backward pair timed against
+     ``F.scaled_dot_product_attention``'s;
   4. train: ``train_fold`` at the her2st widths (densenet121, 224 px,
      spot_dim 785, pos_vocab 1024, 2 blocks of 8x64 heads, projection 256,
      batch 128) on synthetic sections made from a seed, one epoch of three
@@ -21,23 +25,32 @@ order; any failure exits non-zero and prints no result line:
   5. reference: the trained model on the card against the same weights on
      the CPU at a small batch (TF32 off for the comparison);
   6. step time: steady-state ms per train step;
-  7. eval: the trained fold's checkpoint (``load_checkpoint``) in a model
+  7. train-flash: ``train_fold`` at the same widths and on the same 450
+     spots with ``attn_backend="flash"``: every softmax attention of the
+     spot tower, forward and backward, in the flash kernels (forward with
+     residuals, dK/dV and dQ, each launched head_layers x steps times);
+     one step's spot-tower gradients against the "xla" model's from the
+     same weights and batch; ms/step flash against xla;
+  8. resume: the flash fold resumed from its checkpoint for one more
+     epoch (start epoch, step count, finite losses, kernels launched);
+  9. tenx: one ``augment_mode="tenx"`` step (the Visium augmentation, raw
+     0-255 scale) on the card, its augmented images bit-equal to the
+     CPU's for the same draws;
+ 10. eval: the trained fold's checkpoint (``load_checkpoint``) in a model
      with ``attn_backend="flash"``, ``compute_embeddings`` over the
      sections (every B=32 spot batch one attention sequence through the
      flash kernel, launched head_layers x ceil(N/32) times) and
-     ``evaluate_fold_resident`` for every fold with
-     host and device metrics (finite, agreeing); the flash tower's spot
-     embeddings against the "xla" tower's, and the card's top-K indices
-     against the CPU's on the same embeddings;
-  8. serve: ``PredictionService.from_sections`` over a her2st-scale spot
+     ``evaluate_fold_resident`` for every fold with host and device
+     metrics (finite, agreeing); the flash tower's spot embeddings against
+     the "xla" tower's, and the card's top-K indices against the CPU's on
+     the same embeddings;
+ 11. serve: ``PredictionService.from_sections`` over a her2st-scale spot
      database (32 sections of 300-700 spots) through the flash kernel, one
      LOO fold over it (``evaluate_fold_resident``, the first section held
      out, random patches as its queries; host and device metrics agreeing,
-     each timed), and ``make_server`` on a free local port answering /healthz, /predict (1,
-     37 and 256 patches), /embed and a malformed body (400); every answer
-     equal to the service's own, with its latency.
-The kernels phase also holds the flash-attention kernel to its plain
-version at the eval sweep's, the training and a ragged sequence length.
+     each timed), and ``make_server`` on a free local port answering
+     /healthz, /predict (1, 37 and 256 patches), /embed and a malformed
+     body (400); every answer equal to the service's own, with its latency.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -131,7 +144,7 @@ def phase_build():
         t = time.perf_counter()
         return (*build.build_library(source), time.perf_counter() - t)
 
-    sources = (row_shift.SOURCE, flash_attention.SOURCE)
+    sources = (row_shift.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed_build, sources))
@@ -237,8 +250,7 @@ def phase_train():
     n_train = sum(s.num_spots for s in sections[1:])
     steps = num_train_steps(n_train, cfg.train.batch_size)
 
-    row_shift.launches = 0
-    row_shift.layout_launches = {"rows": 0, "cols": 0}
+    _reset_counts()
     logger = MetricLogger(echo=True)
     t0 = time.perf_counter()
     state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda")
@@ -292,23 +304,30 @@ def phase_reference(cfg, state, sections):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
 
 
-def phase_step_time(cfg, state, sections):
+def _step_batch(cfg, sections):
+    """One full training batch on the card and "st" draws for it."""
     import torch
 
     from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData
     from mclstexp_tpu_torch.ops import augment
-    from mclstexp_tpu_torch.train.step import make_train_step
 
     data = DeviceResidentData(ConcatSections.from_sections(sections[1:]), "cuda")
     batch = data.take(list(range(cfg.train.batch_size)))
-    step = make_train_step("st", rot_impl=cfg.train.rot_impl)
     g = torch.Generator(device="cuda").manual_seed(1)
-    draws = augment.sample_st_draws(g, cfg.train.batch_size, "cuda")
+    return batch, augment.sample_st_draws(g, cfg.train.batch_size, "cuda")
+
+
+def _step_ms(cfg, state, batch, draws, n: int = 5) -> float:
+    """Steady-state host ms per "st" train step (after two warm-up steps),
+    each run ending in a synchronize."""
+    import torch
+
+    from mclstexp_tpu_torch.train.step import make_train_step
+
+    step = make_train_step("st", rot_impl=cfg.train.rot_impl)
     for _ in range(2):
         step(state, batch, draws)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    n = 5
     t0 = time.perf_counter()
     for _ in range(n):
         loss = step(state, batch, draws)
@@ -316,8 +335,17 @@ def phase_step_time(cfg, state, sections):
     ms = (time.perf_counter() - t0) / n * 1e3
     if not math.isfinite(float(loss)):
         raise AssertionError("non-finite loss in the timed steps")
+    return ms
+
+
+def phase_step_time(cfg, state, sections):
+    import torch
+
+    batch, draws = _step_batch(cfg, sections)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(cfg, state, batch, draws)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[step] her2st widths B={cfg.train.batch_size}: {ms:.1f} ms/step over {n} steps, "
+    log(f"[step] her2st widths B={cfg.train.batch_size}: {ms:.1f} ms/step over 5 steps, "
         f"peak memory {peak:.1f} GiB, on {card_line()}")
 
 
@@ -331,24 +359,42 @@ def phase_flash_kernels() -> dict:
     length that is no multiple of the 32-row tile, read in place from a
     (b, n, 3, h, d) qkv buffer as the spot tower gives it. atol 2e-5: both
     are fp32, with the sums in another order and the kernel's online
-    softmax rescaling. Times are device times of CUDA-graph replays; the
-    yardstick is F.scaled_dot_product_attention on the same views. The
-    entry carries the eval shape's numbers and the largest error."""
+    softmax rescaling. The forward with residuals (what training runs) is
+    held to ``flash_forward_plain``: out and m to atol 2e-5, l relative.
+    Times are device times of CUDA-graph replays; the yardstick is
+    F.scaled_dot_product_attention on the same views. The entry carries the
+    eval shape's numbers, the residual forward's time at every shape and
+    the largest error."""
     import torch
     import torch.nn.functional as F
 
-    from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from mclstexp_tpu_torch.ops.flash_attention import (
+        attention_plain,
+        flash_attention,
+        flash_forward,
+        flash_forward_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    entry = None
+    entry, residuals_ms = None, {}
     for b, h, n, d in FLASH_SHAPES:
         qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         scale = d**-0.5
         got, want = flash_attention(q, k, v, scale), attention_plain(q, k, v, scale)
         sdpa = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        res_out, res_l, res_m = flash_forward(q, k, v, scale, residuals=True)
+        _, want_l, want_m = flash_forward_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        res_err = max(float((res_out - want).abs().max()),
+                      float(((res_l - want_l) / want_l).abs().max()),
+                      float((res_m - want_m).abs().max()))
+        if not res_err <= FLASH_ATOL:
+            raise AssertionError(f"flash forward with residuals {(b, h, n, d)}: out, l "
+                                 f"(relative) or m off by {res_err:.3e} > {FLASH_ATOL}")
+        residuals_ms[str((b, h, n, d))] = graph_ms(
+            lambda: flash_forward(q, k, v, scale, residuals=True))
         sdpa_err = float((sdpa - want).abs().max())
         if not err <= FLASH_ATOL:
             raise AssertionError(f"flash_attention {(b, h, n, d)}: max abs err {err:.3e} "
@@ -368,15 +414,290 @@ def phase_flash_kernels() -> dict:
             f"(atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
             f"SDPA {library_ms:.5f} ms (err {sdpa_err:.1e}), bound {bound_ms:.6f} ms by "
             f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), "
-            f"{bound_ms / ms:.1%} of bound; eager call incl. launch {call_ms:.5f} ms")
+            f"{bound_ms / ms:.1%} of bound; eager call incl. launch {call_ms:.5f} ms; "
+            f"with residuals (l, m) {residuals_ms[str((b, h, n, d))]:.5f} ms, out/l/m within "
+            f"{res_err:.1e} of the plain version")
         if entry is None:
             entry = {"name": "flash_attention[fwd]", "route": "cuda",
                      "source": "mclstexp_tpu_torch/csrc/flash_attention.cu",
                      "replaces": "mclstexp_tpu/core/layers.py:201",
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err}
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err, res_err)
+    entry["residuals_ms"] = residuals_ms
     return entry
+
+
+BWD_SHAPES = ((1, 8, 128, 64), (1, 8, 66, 64), (1, 8, 300, 64))  # train, remainder, ragged
+# The TPU kernels the backward kernels replace (jax 0.9.0's
+# jax/experimental/pallas/ops/tpu/flash_attention.py: the pallas_call lines).
+BWD_REPLACES = {
+    "bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+    "bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+}
+
+
+def phase_flash_bwd_kernels() -> list:
+    """The flash backward kernels, dK/dV and dQ, against their plain
+    versions in fp32 at the training shape (1, 8, 128, 64), the remainder
+    batch's n=66 and a ragged n=300, on the views of a (b, n, 3, h, d) qkv
+    buffer, fed the kernel forward's l and m and di = rowsum(out * dout).
+    atol 2e-5, as for the forward (fp32, sums in another order). Device
+    times of CUDA-graph replays. Bound = max(bytes at 3.35 TB/s, flops at
+    67 TFLOP/s): dK/dV reads q, k, v, dout, l, m, di and writes dk, dv
+    (8*b*h*n^2*d flops); dQ reads the same and writes dq (6*b*h*n^2*d).
+    No one PyTorch call computes dK/dV or dQ alone, so ``library_ms`` is
+    null; the yardstick is the pair: forward with residuals + dK/dV + dQ
+    (``pair_ms``) against ``torch.autograd.grad`` of
+    F.scaled_dot_product_attention (``library_pair_ms``) on the same views.
+    The entries carry the training shape's numbers and the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    entries = {}
+    for b, h, n, d in BWD_SHAPES:
+        shape = (b, h, n, d)
+        qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn((b, h, n, d), generator=g, device="cuda")
+        scale = d**-0.5
+        out, l, m = fa.flash_forward(q, k, v, scale, residuals=True)
+        di = (out * do).sum(-1).contiguous()
+        args = (q, k, v, do, l, m, di, scale)
+        got = {"bwd_dkv": fa.flash_bwd_dkv(*args), "bwd_dq": (fa.flash_bwd_dq(*args),)}
+        want = {"bwd_dkv": fa.flash_bwd_dkv_plain(*args),
+                "bwd_dq": (fa.flash_bwd_dq_plain(*args),)}
+        torch.cuda.synchronize()
+
+        qkv_g = qkv.clone().requires_grad_()
+
+        def library_pair():
+            # The views are taken inside, so that under graph capture every
+            # op that autograd replays backward ran on the capturing stream.
+            sq, sk, sv = (qkv_g[:, :, i].transpose(1, 2) for i in range(3))
+            return torch.autograd.grad(
+                (F.scaled_dot_product_attention(sq, sk, sv, scale=scale) * do).sum(), qkv_g)[0]
+
+        sdpa_grads = library_pair()
+        ours = (got["bwd_dq"][0], *got["bwd_dkv"])
+        sdpa_err = max(float((a - sdpa_grads[:, :, i].transpose(1, 2)).abs().max())
+                       for i, a in enumerate(ours))
+        if not sdpa_err <= 1e-4:
+            raise AssertionError(f"the SDPA pair computes other gradients ({sdpa_err})")
+
+        def pair():
+            o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
+            dd = (o * do).sum(-1).contiguous()
+            fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
+            fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
+
+        pair_ms, library_pair_ms = graph_ms(pair), graph_ms(library_pair)
+        row_bytes = 3 * b * h * n * 4  # l, m, di
+        for name, kernel, plain, n_out, flops in (
+                ("bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8 * b * h * n * n * d),
+                ("bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6 * b * h * n * n * d)):
+            err = max(float((x - y).abs().max()) for x, y in zip(got[name], want[name]))
+            if not err <= FLASH_ATOL:
+                raise AssertionError(f"flash_attention[{name}] {shape}: max abs err {err:.3e} "
+                                     f"> {FLASH_ATOL}")
+            ms = graph_ms(lambda: kernel(*args))
+            plain_ms = graph_ms(lambda: plain(*args))
+            nbytes = (4 + n_out) * b * h * n * d * 4 + row_bytes
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            log(f"[kernels] flash_attention[{name}] fp32 {shape}: max abs err {err:.3e} "
+                f"(atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                f"{bound_ms:.6f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e6:.1f} MFLOP), {bound_ms / ms:.1%} of bound")
+            if name not in entries:
+                entries[name] = {
+                    "name": f"flash_attention[{name}]", "route": "cuda",
+                    "source": "mclstexp_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": BWD_REPLACES[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "max_abs_err": err, "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+        log(f"[kernels] flash forward with residuals + dK/dV + dQ {shape}: {pair_ms:.5f} ms; "
+            f"SDPA forward + backward (torch.autograd.grad) {library_pair_ms:.5f} ms "
+            f"(gradients within {sdpa_err:.1e} of the kernels')")
+    return [entries["bwd_dkv"], entries["bwd_dq"]]
+
+
+
+def _flash_counts() -> tuple:
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+
+
+def _reset_counts() -> None:
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+
+    fa.flash_attention.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+    row_shift.launches = 0
+    row_shift.layout_launches = {"rows": 0, "cols": 0}
+
+
+def _train_flash_fold(cfg, sections, resume: bool):
+    """train_fold with the counts set to 0 just before it and read just
+    after: (state, losses, resume records, (fwd, dkv, dq) launches,
+    row_shift launches by layout)."""
+    import torch
+
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+    from mclstexp_tpu_torch.train.loop import train_fold
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    logger = MetricLogger(echo=True)
+    _reset_counts()
+    state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda", resume=resume)
+    torch.cuda.synchronize()
+    counts, shifts = _flash_counts(), dict(row_shift.layout_launches)
+    losses = [r["loss"] for r in logger.records if "loss" in r]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite or missing training losses: {losses}")
+    resumed = [r for r in logger.records if r.get("event") == "resume"]
+    return state, losses, resumed, counts, shifts
+
+
+GRAD_RTOL = 1e-4  # of each gradient tensor's largest magnitude
+
+
+def _spot_grads(model, img_emb, batch):
+    """The spot tower's parameter gradients of the InfoNCE loss against
+    fixed image embeddings (train mode; the image tower is left out so that
+    only the attention backend differs between two models)."""
+    from mclstexp_tpu_torch.core.losses import symmetric_infonce
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    spot = model.encode_spots(batch["expression"], batch["position"])
+    symmetric_infonce(spot, img_emb, model.config.temperature).backward()
+    return {name: p.grad.clone() for name, p in model.named_parameters() if p.grad is not None}
+
+
+def phase_train_flash(cfg, sections, xla_state):
+    """train_fold at the her2st widths with attn_backend="flash": every
+    softmax attention of the spot tower, forward and backward, in the flash
+    kernels; then the spot tower's gradients and the step time against the
+    "xla" model."""
+    import dataclasses
+
+    import torch
+
+    from mclstexp_tpu_torch.data.pipeline import num_train_steps
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.ops import augment
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fcfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, attn_backend="flash"),
+        train=dataclasses.replace(cfg.train, checkpoint_dir=os.path.join(
+            root, "build", "chip_smoke", "model_result_flash")))
+    m = fcfg.model
+    steps = num_train_steps(sum(s.num_spots for s in sections[1:]), cfg.train.batch_size)
+    t0 = time.perf_counter()
+    state, losses, _, counts, shifts = _train_flash_fold(fcfg, sections, resume=False)
+    seconds = time.perf_counter() - t0
+    want = m.head_layers * steps
+    if state.step != steps or len(losses) != steps:
+        raise AssertionError(f"expected {steps} steps, took {state.step}")
+    if counts != (want, want, want):
+        raise AssertionError(f"flash forward, dK/dV, dQ launched {counts} times in {steps} "
+                             f"steps; head_layers x steps = {want} each")
+    if shifts != {"rows": 2 * steps, "cols": steps}:
+        raise AssertionError(f"row_shift launched {shifts} in {steps} steps")
+    log(f"[train-flash] train_fold attn_backend='flash': {steps} steps in {seconds:.1f} s "
+        f"incl. set-up; running losses {losses}; launches forward/dK-dV/dQ {counts} "
+        f"(head_layers x steps = {want}); row_shift {shifts}")
+
+    # One step's spot-tower gradients, flash against xla, same weights and batch.
+    batch, draws = _step_batch(cfg, sections)
+    xla_model = MclSTExp(dataclasses.replace(m, attn_backend="xla"), device="cuda")
+    xla_model.load_state_dict(state.model.state_dict())
+    with torch.no_grad():
+        images = augment.train_augment_inline(batch["image_u8"], draws)
+        img_emb = state.model.eval().encode_image(images)
+    got, want_grads = _spot_grads(state.model, img_emb, batch), _spot_grads(xla_model, img_emb,
+                                                                            batch)
+    if set(got) != set(want_grads) or not any("spot_encoder" in k for k in got):
+        raise AssertionError(f"spot-tower gradients differ in their parameters: {sorted(got)}")
+    worst, worst_name = 0.0, None
+    for name, g in got.items():
+        scale = float(want_grads[name].abs().max())
+        err = float((g - want_grads[name]).abs().max()) / max(scale, 1e-30)
+        if not (torch.isfinite(g).all() and err <= GRAD_RTOL):
+            raise AssertionError(f"{name}: flash vs xla gradient off by {err:.3e} of its "
+                                 f"largest magnitude {scale:.3e} (allowed {GRAD_RTOL})")
+        if err >= worst:
+            worst, worst_name = err, name
+    log(f"[train-flash] spot-tower gradients, flash vs xla, {len(got)} tensors: largest "
+        f"error {worst:.3e} of the tensor's largest magnitude ({worst_name}; allowed "
+        f"{GRAD_RTOL})")
+
+    times = {"xla": [], "flash": []}
+    for name in ("xla", "flash", "flash", "xla"):
+        times[name].append(_step_ms(cfg, xla_state if name == "xla" else state, batch, draws))
+    log(f"[train-flash] ms/step at B={cfg.train.batch_size} (xla, flash, flash, xla, 5 steps "
+        f"each): xla {times['xla']}, flash {times['flash']} on {card_line()}")
+    return fcfg, steps, counts
+
+
+def phase_resume(fcfg, sections, steps):
+    """The flash fold resumed from its final checkpoint for one more epoch."""
+    import dataclasses
+
+    rcfg = fcfg.replace(train=dataclasses.replace(fcfg.train, max_epochs=2))
+    state, losses, resumed, counts, _ = _train_flash_fold(rcfg, sections, resume=True)
+    want = fcfg.model.head_layers * steps
+    if [r["epoch"] for r in resumed] != [1]:
+        raise AssertionError(f"resume records {resumed}; expected one at epoch 1")
+    if state.step != 2 * steps or len(losses) != steps or counts != (want, want, want):
+        raise AssertionError(f"resumed fold: step {state.step} (want {2 * steps}), "
+                             f"{len(losses)} losses, launches {counts}")
+    log(f"[resume] from step {steps}: start epoch 1, {len(losses)} more steps to step "
+        f"{state.step}, losses {losses}, launches forward/dK-dV/dQ {counts}")
+
+
+def phase_tenx(cfg, sections, state):
+    """One augment_mode="tenx" step (raw scale) on the card; its augmented
+    images against the CPU's for the same draws, bit for bit."""
+    import torch
+
+    from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.train.step import make_train_step
+
+    data = DeviceResidentData(ConcatSections.from_sections(sections[1:]), "cuda")
+    batch = data.take(list(range(cfg.train.batch_size)))
+    g = torch.Generator(device="cuda")
+    draws = augment.sample_tenx_draws(augment.reseed(g, 0, 0, 0), cfg.train.batch_size, "cuda")
+    tenx, seen = augment.tenx_augment, []
+
+    def record(*args, **kw):
+        seen.append(tenx(*args, **kw))
+        return seen[-1]
+
+    augment.tenx_augment = record
+    try:
+        loss = float(make_train_step("tenx", tenx_raw_scale=True)(state, batch, draws))
+    finally:
+        augment.tenx_augment = tenx
+    cpu_draws = augment.TenxDraws(draws.hflip.cpu(), draws.vflip.cpu(), draws.rot.cpu())
+    want = augment.tenx_augment(batch["image_u8"].cpu(), cpu_draws, raw_scale=True)
+    if len(seen) != 1 or not torch.equal(seen[0].cpu(), want):
+        raise AssertionError("the card's tenx images differ from the CPU's")
+    if not math.isfinite(loss):
+        raise AssertionError(f"tenx step loss {loss}")
+    turns = torch.bincount(draws.rot.cpu(), minlength=4).tolist()
+    log(f"[tenx] one raw-scale step at B={cfg.train.batch_size}: loss {loss:.4f}; images "
+        f"bit-equal to the CPU's (max {float(want.max()):.0f}; flips h/v "
+        f"{int(draws.hflip.sum())}/{int(draws.vflip.sum())}, rotation draws {turns})")
 
 
 def phase_eval(cfg, sections):
@@ -628,14 +949,25 @@ def main() -> int:
     phase_build()
     entries = phase_kernels()
     flash_entry = phase_flash_kernels()
+    bwd_entries = phase_flash_bwd_kernels()
     cfg, state, sections, launches = phase_train()
     for entry, layout in zip(entries, ("rows", "cols")):
         entry["launches"] = launches[layout]
     phase_reference(cfg, state, sections)
     phase_step_time(cfg, state, sections)
-    eval_model, flash_entry["launches"] = phase_eval(cfg, sections)
-    phase_serve(cfg, eval_model)
-    entries.append(flash_entry)
+    fcfg, steps, counts = phase_train_flash(cfg, sections, state)
+    phase_resume(fcfg, sections, steps)
+    phase_tenx(cfg, sections, state)
+    eval_model, eval_launches = phase_eval(cfg, sections)
+    serve_launches = phase_serve(cfg, eval_model)
+    # Launches on this slice's main path, flash training; the forward's
+    # counts on the eval and serving paths beside them.
+    flash_entry["launches"] = counts[0]
+    flash_entry["launches_by_path"] = {"train_flash": counts[0], "eval": eval_launches,
+                                       "serve": serve_launches}
+    for entry, count in zip(bwd_entries, counts[1:]):
+        entry["launches"] = count
+    entries += [flash_entry, *bwd_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

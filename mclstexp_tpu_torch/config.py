@@ -36,9 +36,9 @@ class ModelConfig:
     # tower path is queued (ROADMAP.md) and "bfloat16" raises.
     dtype: str = "float32"
     # Spot-attention backend: "xla" runs the plain fp32-softmax path,
-    # "flash" the CUDA flash-attention kernel on the card (forward only; the
-    # plain path on the CPU), and "ring" raises until the port has a device
-    # mesh (ROADMAP.md).
+    # "flash" the CUDA flash-attention kernels on the card (forward, and the
+    # dK/dV and dQ kernels when training; the plain versions on the CPU),
+    # and "ring" raises until the port has a device mesh (ROADMAP.md).
     attn_backend: str = "xla"
     pretrained_path: Optional[str] = None  # tower import is queued; the port raises if set
     # TPU layout knobs, accepted and ignored by the port: rematerialization

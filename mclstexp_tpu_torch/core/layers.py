@@ -11,9 +11,10 @@ a reference-layout ``state_dict`` loads into them with ``strict=True``:
 Attention takes the JAX module's ``backend``: "xla" is the fused-matmul path
 of the JAX build (fp32 softmax, scale ``dim_head**-0.5``, masked keys filled
 with -1e30; ``ops.flash_attention.attention_plain``), "flash" the CUDA
-flash-attention kernel (``ops.flash_attention``; the plain path for a CPU
-tensor, as the JAX build falls back off a TPU). "ring" raises: the port has
-no device mesh yet.
+flash-attention kernels (``ops.flash_attention``: the forward, and under
+autograd the dK/dV and dQ kernels in the backward; on a CPU tensor the plain
+versions, as the JAX build falls back off a TPU). "ring" raises: the port
+has no device mesh yet.
 
 Initialization reproduces torch defaults as the JAX build does (Linear
 U(+-1/sqrt(fan_in)), Embedding N(0, 1)), drawn from an explicit
@@ -89,8 +90,9 @@ class MultiHeadSelfAttention(nn.Module):
     without bias, per-head scale ``dim_head**-0.5``, output projection
     (present whenever heads != 1 or dim_head != dim).
 
-    backend: "xla" (plain path) or "flash" (the CUDA kernel on a CUDA
-    tensor, the plain path on a CPU one); "ring" raises NotImplementedError.
+    backend: "xla" (plain path) or "flash" (the CUDA kernels on a CUDA
+    tensor, forward and backward; the plain versions on a CPU one); "ring"
+    raises NotImplementedError.
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
@@ -99,7 +101,7 @@ class MultiHeadSelfAttention(nn.Module):
         if backend == "ring":
             raise NotImplementedError(
                 "attn_backend='ring' (sequence-parallel attention over a device mesh) is not "
-                "ported yet (ROADMAP.md Queue 1 item 10)")
+                "ported yet (ROADMAP.md Queue 1, multi-device)")
         if backend not in ("xla", "flash"):
             raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash'")
         self.heads, self.dim_head, self.backend = heads, dim_head, backend

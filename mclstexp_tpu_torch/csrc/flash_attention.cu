@@ -10,6 +10,12 @@
 // and sum in fp32 and the output normalized once at the end. Segment ids
 // (the key mask) are not supported yet; the wrapper raises for them.
 //
+// Residuals: given non-null `l_out` and `m_out`, the kernel also writes each
+// row's final max m and sum l = sum_j exp(s_j - m) as contiguous fp32
+// (b, h, n) arrays, what the TPU kernel keeps with save_residuals for its
+// backward (csrc/flash_attention_bwd.cu recomputes p = exp(s - m) / l from
+// them). With null pointers it writes the output only.
+//
 // Bound: at the spot tower's shapes (b=1, h=8, d=64, n=32 on the eval
 // sweep, n=128 at train) the kernel moves 4*b*h*n*d*4 bytes (q, k, v read,
 // out written; 262 KB at n=32) and does 4*b*h*n^2*d flops (2.1 MFLOP at
@@ -56,8 +62,9 @@ struct Tile {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, Strides sq, Strides sk,
-              Strides sv, Strides so, int heads, int n, int d, float scale) {
+              const float* __restrict__ v, float* __restrict__ out, float* __restrict__ l_out,
+              float* __restrict__ m_out, Strides sq, Strides sk, Strides sv, Strides so,
+              int heads, int n, int d, float scale) {
   constexpr int BK = Tile<D>::kBlockK;
   constexpr int kScores = BK / kRowLanes;  // scores per thread per tile
   constexpr int kCols = D / kRowLanes;     // output columns per thread
@@ -154,33 +161,41 @@ __global__ void __launch_bounds__(kThreads)
       const int col = lane + kRowLanes * e;
       if (col < d) ob[col] = acc[e] * inv;
     }
+    // Every lane of the row holds the same m and l (reduced by shuffles).
+    if (l_out != nullptr && lane == 0) {
+      const long long r = static_cast<long long>(bh) * n + qi;
+      l_out[r] = l;
+      m_out[r] = m;
+    }
   }
 }
 
 template <int D>
-void launch(const float* q, const float* k, const float* v, float* out, Strides sq,
-            Strides sk, Strides sv, Strides so, int batch, int heads, int n, int d,
-            float scale, cudaStream_t stream) {
+void launch(const float* q, const float* k, const float* v, float* out, float* l_out,
+            float* m_out, Strides sq, Strides sk, Strides sv, Strides so, int batch, int heads,
+            int n, int d, float scale, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned int>(batch) * static_cast<unsigned int>(heads),
                   static_cast<unsigned int>((n + kBlockQ - 1) / kBlockQ));
-  flash_fwd<D><<<grid, kThreads, 0, stream>>>(q, k, v, out, sq, sk, sv, so, heads, n, d,
-                                              scale);
+  flash_fwd<D><<<grid, kThreads, 0, stream>>>(q, k, v, out, l_out, m_out, sq, sk, sv, so,
+                                              heads, n, d, scale);
 }
 
 }  // namespace
 
 // q, k, v: device fp32 buffers read as (batch, heads, n, d) through the
 // given element strides (the last dimension contiguous); out: written as
-// (batch, heads, n, d) through its strides. 1 <= d <= 128, n >= 1,
-// ceil(n / 32) <= 65535. Launches on `stream` and returns
+// (batch, heads, n, d) through its strides; l_out, m_out: null, or both
+// contiguous fp32 (batch, heads, n) buffers for the residuals. 1 <= d <=
+// 128, n >= 1, ceil(n / 32) <= 65535. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, void* out, long long sq_b, long long sq_h,
-    long long sq_n, long long sk_b, long long sk_h, long long sk_n, long long sv_b,
-    long long sv_h, long long sv_n, long long so_b, long long so_h, long long so_n, int batch,
-    int heads, int n, int d, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* l_out, void* m_out,
+    long long sq_b, long long sq_h, long long sq_n, long long sk_b, long long sk_h,
+    long long sk_n, long long sv_b, long long sv_h, long long sv_n, long long so_b,
+    long long so_h, long long so_n, int batch, int heads, int n, int d, float scale,
+    void* stream) {
   if (batch < 1 || heads < 1 || n < 1 || d < 1 || d > 128 ||
-      (n + kBlockQ - 1) / kBlockQ > 65535) {
+      (n + kBlockQ - 1) / kBlockQ > 65535 || (l_out == nullptr) != (m_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides sq{sq_b, sq_h, sq_n}, sk{sk_b, sk_h, sk_n}, sv{sv_b, sv_h, sv_n},
@@ -189,13 +204,15 @@ extern "C" int flash_attention_fwd_launch(
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(l_out);
+  float* mf = static_cast<float*>(m_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 32) {
-    launch<32>(qf, kf, vf, of, sq, sk, sv, so, batch, heads, n, d, scale, s);
+    launch<32>(qf, kf, vf, of, lf, mf, sq, sk, sv, so, batch, heads, n, d, scale, s);
   } else if (d <= 64) {
-    launch<64>(qf, kf, vf, of, sq, sk, sv, so, batch, heads, n, d, scale, s);
+    launch<64>(qf, kf, vf, of, lf, mf, sq, sk, sv, so, batch, heads, n, d, scale, s);
   } else {
-    launch<128>(qf, kf, vf, of, sq, sk, sv, so, batch, heads, n, d, scale, s);
+    launch<128>(qf, kf, vf, of, lf, mf, sq, sk, sv, so, batch, heads, n, d, scale, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,7 @@ import torch
 from mclstexp_tpu_torch.data.pipeline import ConcatSections
 from mclstexp_tpu_torch.data.section import Section
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+from mclstexp_tpu_torch.ops import augment
 
 
 def prepare_eval_arrays(sections: Sequence[Section], with_patches: bool = True,
@@ -65,12 +66,30 @@ def _check_model_device(model: MclSTExp, device: torch.device) -> None:
         raise ValueError(f"the model is on {param.device}, the sweep on {device}")
 
 
+def sample_eval_draws(seed: int, batch_index: int, batch: int, device) -> augment.TenxDraws:
+    """The "tenx" draws of image batch ``batch_index`` of a sweep seeded by
+    ``seed``, keyed by both as the JAX sweep keys them (``fold_in(PRNGKey(
+    seed), batch_index)``): the same images get the same transform
+    whatever was swept before."""
+    generator = augment.reseed(torch.Generator(device=device), seed, batch_index)
+    return augment.sample_tenx_draws(generator, batch, device)
+
+
+def _image_input(patches_u8: torch.Tensor, eval_augment: bool, raw_scale: bool, seed: int,
+                 batch_index: int) -> torch.Tensor:
+    if eval_augment:
+        draws = sample_eval_draws(seed, batch_index, len(patches_u8), patches_u8.device)
+        return augment.tenx_augment(patches_u8, draws, raw_scale=raw_scale)
+    return patches_u8.float() if raw_scale else augment.to_float(patches_u8)
+
+
 @torch.no_grad()
 def compute_embeddings(
     model: MclSTExp,
     sections: Sequence[Section],
     batch_size: int = 32,
     eval_augment: bool = False,
+    seed: int = 0,
     prepared=None,
     raw_scale: bool = False,
     image_batch_size: Optional[int] = None,
@@ -82,16 +101,13 @@ def compute_embeddings(
     order; batches of ``batch_size`` cross section boundaries.
 
     The model runs in eval mode (its previous mode is restored). raw_scale
-    keeps the raw 0-255 float input scale. ``as_device=True`` returns
-    tensors on ``device`` instead of ndarrays. ``tower="image"``/``"spot"``
-    runs only that sweep (the other return is None); the spot sweep needs no
-    patches. ``eval_augment`` (the Visium inference-time flips/rotations)
-    raises until the "tenx" augmentation is ported.
+    keeps the raw 0-255 float input scale. ``eval_augment`` applies the
+    Visium inference-time "tenx" flips and rotations to each image batch,
+    its draws from ``sample_eval_draws(seed, batch index)``.
+    ``as_device=True`` returns tensors on ``device`` instead of ndarrays.
+    ``tower="image"``/``"spot"`` runs only that sweep (the other return is
+    None); the spot sweep needs no patches.
     """
-    if eval_augment:
-        raise NotImplementedError(
-            "eval_augment needs the visium 'tenx' augmentation, not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
     if tower not in ("both", "image", "spot"):
         raise ValueError(f"tower must be 'both', 'image' or 'spot', got {tower!r}")
     device = torch.device(device)
@@ -109,9 +125,9 @@ def compute_embeddings(
             # A contiguous NHWC float batch: the tower's NCHW view of it is
             # channels_last, the layout cuDNN runs fastest.
             img = torch.cat([
-                model.encode_image(patches[s:s + bs].float() if raw_scale
-                                   else patches[s:s + bs].float() / 255.0)
-                for s in range(0, n, bs)
+                model.encode_image(_image_input(patches[s:s + bs], eval_augment, raw_scale,
+                                                seed, i))
+                for i, s in enumerate(range(0, n, bs))
             ])
         if tower in ("both", "spot"):
             expr, pos = prepared["expression"], prepared["positions"]
@@ -152,8 +168,9 @@ def save_embedding_files(img: np.ndarray, spot: np.ndarray, sizes: Sequence[int]
 
 
 def dump_embeddings(model: MclSTExp, sections: Sequence[Section], out_dir: str,
-                    batch_size: int = 32, raw_scale: bool = False, device="cuda") -> None:
+                    batch_size: int = 32, eval_augment: bool = False,
+                    raw_scale: bool = False, device="cuda") -> None:
     """Write the reference-compatible per-section transposed .npy files."""
-    img, spot = compute_embeddings(model, sections, batch_size, raw_scale=raw_scale,
-                                   device=device)
+    img, spot = compute_embeddings(model, sections, batch_size, eval_augment,
+                                   raw_scale=raw_scale, device=device)
     save_embedding_files(img, spot, [s.num_spots for s in sections], out_dir)

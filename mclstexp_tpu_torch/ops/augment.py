@@ -1,12 +1,15 @@
 """Train-time image augmentation on the device, as pure functions of draws.
 
-Port of the "st" path of ``mclstexp_tpu/ops/augment.py``: ColorJitter(0.5,
+Port of ``mclstexp_tpu/ops/augment.py``: the "st" path, ColorJitter(0.5,
 0.5, 0.5) with a per-image random op order, horizontal flip, and rotation
-by U(-180, 180) degrees (nearest neighbour, zero fill, positive = CCW).
+by U(-180, 180) degrees (nearest neighbour, zero fill, positive = CCW); and
+the Visium "tenx" path, horizontal and vertical flips and a rotation by a
+multiple of 90 degrees, optionally on the raw 0-255 scale.
 
 torch cannot reproduce ``jax.random`` draws, so every transform takes its
-random numbers explicitly (``StDraws``), and ``sample_st_draws`` draws them
-from a ``torch.Generator``. Tests hand both packages the same draws.
+random numbers explicitly (``StDraws``, ``TenxDraws``), and
+``sample_st_draws`` / ``sample_tenx_draws`` draw them from a
+``torch.Generator``. Tests hand both packages the same draws.
 
 The default rotation (``rotate_batch_paeth``) is Paeth's three shears, each
 one launch of the ``row_shift`` kernel (two in its row layout, one in its
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from mclstexp_tpu_torch.ops.row_shift import row_shift
@@ -37,6 +41,16 @@ class StDraws:
     order: torch.Tensor  # (B,) int in [0, 6): index into _PERMS
     hflip: torch.Tensor  # (B,) bool
     angles: torch.Tensor  # (B,) float degrees
+
+
+def reseed(generator: torch.Generator, *key: int) -> torch.Generator:
+    """Seed ``generator`` from the non-negative integers ``key`` (hashed by
+    numpy's ``SeedSequence``) and return it. Draws keyed by where they are
+    taken (seed, fold, epoch, step), as the JAX build keys them with
+    ``fold_in``, do not depend on what was drawn before: a resumed fold
+    draws what an uninterrupted one would."""
+    seed = np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0]
+    return generator.manual_seed(int(seed))
 
 
 def sample_st_draws(generator: torch.Generator, batch: int, device) -> StDraws:
@@ -162,3 +176,65 @@ def train_augment_inline(patches_u8: torch.Tensor, draws: StDraws,
     if rot_impl == "paeth" and h == w and h % 8 == 0:
         return rotate_batch_paeth(imgs, draws.angles, hflip=draws.hflip)
     return rotate_batch(imgs, draws.angles, hflip=draws.hflip)
+
+
+# The "tenx" rotation draw r indexes these quarter turns of torch.rot90 (k
+# counter-clockwise): 180, 90, 0 and -90 degrees, the reference's choices.
+TENX_QUARTER_TURNS = (2, 1, 0, 3)
+
+
+@dataclasses.dataclass
+class TenxDraws:
+    """The random numbers of one "tenx" augmentation of a batch of B images."""
+
+    hflip: torch.Tensor  # (B,) bool
+    vflip: torch.Tensor  # (B,) bool
+    rot: torch.Tensor  # (B,) int in [0, 4): index into TENX_QUARTER_TURNS
+
+
+def sample_tenx_draws(generator: torch.Generator, batch: int, device) -> TenxDraws:
+    """Draw the "tenx" augmentation: two fair-coin flips and a uniform choice
+    of four rotations, independently per image."""
+    return TenxDraws(
+        hflip=torch.rand((batch,), generator=generator, device=device) < 0.5,
+        vflip=torch.rand((batch,), generator=generator, device=device) < 0.5,
+        rot=torch.randint(0, len(TENX_QUARTER_TURNS), (batch,), generator=generator,
+                          device=device),
+    )
+
+
+def tenx_augment(patches_u8: torch.Tensor, draws: TenxDraws,
+                 raw_scale: bool = False) -> torch.Tensor:
+    """The Visium transform (port of ``tenx_augment_inline``): per image a
+    horizontal flip, a vertical flip, then a rotation by 180, 90, 0 or -90
+    degrees, of a square uint8 (B, H, H, C) batch -> float32.
+
+    ``raw_scale`` keeps the raw 0-255 values (the reference feeds Visium
+    patches unscaled); otherwise ``to_float`` scales them as the JAX
+    function does. Data movement only, so it equals the JAX function bit
+    for bit for the same draws.
+    """
+    b, h, w = patches_u8.shape[:3]
+    if h != w:
+        raise ValueError(f"tenx rotation needs square images, got {tuple(patches_u8.shape)}")
+    imgs = patches_u8.float() if raw_scale else to_float(patches_u8)
+    per_image = (b, 1, 1, 1)
+    imgs = torch.where(draws.hflip.reshape(per_image), imgs.flip(2), imgs)
+    imgs = torch.where(draws.vflip.reshape(per_image), imgs.flip(1), imgs)
+    k = torch.tensor(TENX_QUARTER_TURNS, device=imgs.device)[draws.rot.long()].reshape(per_image)
+    # The contiguous operand leads each torch.where, so the output keeps its
+    # layout rather than a rot90 view's transposed strides (see
+    # rotate_batch_paeth); .contiguous() then copies nothing.
+    out = imgs
+    for turns in (1, 2, 3):
+        out = torch.where(k != turns, out, torch.rot90(imgs, turns, dims=(1, 2)))
+    return out.contiguous()
+
+
+def to_float(patches_u8: torch.Tensor) -> torch.Tensor:
+    """Eval-time ToTensor: uint8 NHWC -> float32 [0, 1], as the JAX
+    function computes it: XLA compiles its division by 255 into a
+    multiplication by float32(1 / 255), which differs from the division in
+    the last bit for about half of the values."""
+    return patches_u8.float() * torch.tensor(1.0 / 255.0, dtype=torch.float32,
+                                             device=patches_u8.device)

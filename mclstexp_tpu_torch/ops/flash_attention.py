@@ -1,49 +1,83 @@
-"""Softmax attention: the CUDA flash-attention forward and its plain version.
+"""Softmax attention: the CUDA flash-attention kernels and their plain versions.
 
-Port of the TPU kernel that ``mclstexp_tpu/core/layers.py:201-219`` calls for
-``attn_backend="flash"`` (``jax.experimental.pallas.ops.tpu.flash_attention``):
+Port of the TPU kernels that ``mclstexp_tpu/core/layers.py:201-219`` reaches
+for ``attn_backend="flash"`` (``jax.experimental.pallas.ops.tpu.
+flash_attention``, jax 0.9.0), forward and backward:
 
     out = softmax(q @ k^T * scale) @ v      q, k, v, out: (b, h, n, d)
 
-with the softmax in fp32. ``attention_plain`` is the spot tower's
-fused-matmul path ("xla"); it serves CPU tensors, the key mask, and is the
-oracle the kernel is held to. ``flash_attention`` launches the kernel in
-``csrc/flash_attention.cu`` (built at first use) for a CUDA tensor, or
-raises; it never runs the plain version on the card.
+* forward, ``csrc/flash_attention.cu`` (``_flash_attention_impl``, call
+  :758): fp32 online softmax; with residuals it also writes each row's max
+  ``m`` and sum ``l`` (the TPU kernel's ``save_residuals``), (b, h, n) fp32;
+* dK/dV, ``csrc/flash_attention_bwd.cu`` (``_flash_attention_bwd_dkv``,
+  call :1121) and dQ, same file (``_flash_attention_bwd_dq``, call :1456):
+  from q, k, v, dout, l, m and ``di = rowsum(out * dout)`` they recompute
+  ``p = exp(s - m) / l`` and give ``dv = p^T dout``, ``dk = ds^T q`` and
+  ``dq = ds k`` with ``ds = p * (dout v^T - di) * scale``.
 
-The kernel's shape rule (the TPU kernel's ``n % 128 == 0 and d >= 64`` is a
-TPU tiling limit and does not apply): float32 q, k, v of one shape
-(b, h, n, d) on one card, any n >= 1 with ceil(n / 32) <= 65535, and
-1 <= d <= 128; each tensor's last dimension contiguous, any strides
-otherwise, so the (b, n, 3, h, d) qkv buffer's views are read in place. The
-output is a (b, n, h, d) buffer returned as its (b, h, n, d) view. A CUDA
-call outside the rule raises, and so do two cases the kernel does not cover
-yet: a key mask (the TPU kernel's segment ids) and inputs that need a
-gradient.
+``attention_plain`` is the spot tower's fused-matmul path ("xla"): it serves
+CPU tensors without a gradient and the key mask. ``flash_forward_plain``,
+``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain`` compute exactly what the
+three kernels compute, with the same decomposition: they serve CPU tensors
+and are the oracles the kernels are held to. Each wrapper launches its
+kernel (built at first use) for a CUDA tensor, counted in its ``launches``,
+or raises; it never runs a plain version on the card.
+
+``flash_attention`` is differentiable: where an input needs a gradient it
+runs ``FlashAttention``, a ``torch.autograd.Function`` whose forward keeps
+the residuals and whose backward launches dK/dV and dQ (on the CPU, the same
+Function over the plain versions). It is once-differentiable, as the TPU
+kernel is (higher-order AD raises there too). The Function takes q, k and v
+as three tensors, so autograd adds the three view gradients into the qkv
+projection's buffer itself.
+
+The kernels' shape rule (the TPU kernel's ``n % 128 == 0 and d >= 64`` is a
+TPU tiling limit and does not apply): float32 q, k, v of one shape (b, h, n,
+d) on one card, any n >= 1 with ceil(n / 32) <= 65535, and 1 <= d <= 128;
+each tensor's last dimension contiguous, any strides otherwise, so the (b,
+n, 3, h, d) qkv buffer's views are read in place. Outputs are (b, n, h, d)
+buffers returned as their (b, h, n, d) views. A CUDA call outside the rule
+raises, and so does a key mask (the TPU kernel's segment ids), not ported
+yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mclstexp_tpu_torch.ops.build import load_library
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
-BLOCK_Q = 32  # query rows per CTA: the grid's second dimension is ceil(n / 32)
+BLOCK_Q = 32  # query rows per forward CTA: the grid's second dimension is ceil(n / 32)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.flash_attention_fwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library(BWD_SOURCE)
+    head = [ctypes.c_void_p] * 7  # q, k, v, dout, l, m, di
+    tail = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                        ctypes.c_void_p]
+    lib.flash_attention_bwd_dkv_launch.argtypes = head + [ctypes.c_void_p] * 2 + tail
+    lib.flash_attention_bwd_dq_launch.argtypes = head + [ctypes.c_void_p] + tail
+    lib.flash_attention_bwd_dkv_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_dq_launch.restype = ctypes.c_int
     return lib
 
 
@@ -58,6 +92,39 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         logits = torch.where(key_mask, logits, torch.full_like(logits, -1e30))
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(attn, v)
+
+
+def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward with its residuals: (out, l, m), l and m (b, h, n) fp32,
+    ``out = (exp(s - m) / l) @ v`` for ``s = q @ k^T * scale``."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    return torch.matmul(p * (1.0 / l)[..., None], v), l, m
+
+
+def _probs_and_ds(q, k, v, do, l, m, di, scale):
+    """The backward kernels' common part: p = exp(s - m) / l and
+    ds = p * (do @ v^T - di) * scale, both (b, h, n, n)."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    return p, (dp - di[..., None]) * p * scale
+
+
+def flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) = (ds^T @ q, p^T @ do): what the dK/dV kernel computes."""
+    p, ds = _probs_and_ds(q, k, v, do, l, m, di, scale)
+    return torch.matmul(ds.transpose(-1, -2), q), torch.matmul(p.transpose(-1, -2), do)
+
+
+def flash_bwd_dq_plain(q, k, v, do, l, m, di, scale: float) -> torch.Tensor:
+    """dq = ds @ k: what the dQ kernel computes."""
+    _, ds = _probs_and_ds(q, k, v, do, l, m, di, scale)
+    return torch.matmul(ds, k)
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -82,39 +149,144 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
                          f"strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (b, h, n, d) tensors.
+def _on_cuda(q: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for any other."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {q.device}")
+    return q.device.type == "cuda"
 
-    A CPU tensor goes to ``attention_plain`` (mask included); a CUDA tensor
-    launches the kernel, counted in ``flash_attention.launches``, or raises.
-    """
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    if mask is not None:
-        raise NotImplementedError(
-            "flash_attention with a key mask (the TPU kernel's segment ids) is not ported "
-            "yet (ROADMAP.md Queue 1 item 11, with the baselines that need it); use "
-            "attn_backend='xla'")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernels yet (ROADMAP.md Queue 1 item 1, "
-            "flash training); run it under torch.no_grad() or use attn_backend='xla'")
+
+def _bhnd_like(q: torch.Tensor) -> torch.Tensor:
+    """An output for q's shape: the (b, h, n, d) view of a (b, n, h, d) buffer."""
+    b, h, n, d = q.shape
+    return torch.empty((b, n, h, d), dtype=torch.float32, device=q.device).transpose(1, 2)
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  residuals: bool = False):
+    """Launch the forward kernel on CUDA tensors: ``out``, or ``(out, l, m)``
+    with ``residuals``. Counted in ``flash_attention.launches``."""
     check_kernel_inputs(q, k, v)
     b, h, n, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device).transpose(1, 2)
+    out = _bhnd_like(q)
+    l = m = None
+    if residuals:
+        l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-            b, h, n, d, float(scale), torch.cuda.current_stream().cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
+            *strides, b, h, n, d, float(scale), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, l, m) if residuals else out
+
+
+def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
+    check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != torch.float32 or do.stride(-1) != 1:
+        raise ValueError(f"dout must be float32 {tuple(q.shape)} with the last dimension "
+                         f"contiguous, got {do.dtype} {tuple(do.shape)} {do.stride()}")
+    for name, t in (("l", l), ("m", m), ("di", di)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {tuple(q.shape[:3])}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if any(t.device != q.device for t in (do, l, m, di)):
+        raise ValueError("the backward's inputs lie on more than one device")
+
+
+def _bwd_launch(fn, outs, q, k, v, do, l, m, di, scale: float) -> None:
+    tensors = (q, k, v, do, *outs)
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+    b, h, n, d = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in (q, k, v, do, l, m, di)),
+                 *(t.data_ptr() for t in outs), strides, b, h, n, d, float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA error {err}")
+
+
+def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv): ``flash_bwd_dkv_plain`` for CPU tensors; the dK/dV kernel,
+    counted in ``flash_bwd_dkv.launches``, for CUDA ones."""
+    if not _on_cuda(q, "flash_bwd_dkv"):
+        return flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
+    _check_bwd_inputs(q, k, v, do, l, m, di)
+    dk, dv = _bhnd_like(q), _bhnd_like(q)
+    _bwd_launch(_bwd_library().flash_attention_bwd_dkv_launch, (dk, dv),
+                q, k, v, do, l, m, di, scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, l, m, di, scale: float) -> torch.Tensor:
+    """dq: ``flash_bwd_dq_plain`` for CPU tensors; the dQ kernel, counted in
+    ``flash_bwd_dq.launches``, for CUDA ones."""
+    if not _on_cuda(q, "flash_bwd_dq"):
+        return flash_bwd_dq_plain(q, k, v, do, l, m, di, scale)
+    _check_bwd_inputs(q, k, v, do, l, m, di)
+    dq = _bhnd_like(q)
+    _bwd_launch(_bwd_library().flash_attention_bwd_dq_launch, (dq,),
+                q, k, v, do, l, m, di, scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T * scale) v with the flash backward: the forward keeps
+    (out, l, m), the backward computes ``di = rowsum(out * dout)`` (outside
+    the kernels, as the JAX library does) and runs dK/dV and dQ."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        if _on_cuda(q, "flash_attention"):
+            out, l, m = flash_forward(q, k, v, scale, residuals=True)
+        else:
+            out, l, m = flash_forward_plain(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, l, m)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, l, m = ctx.saved_tensors
+        if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+            do = do.contiguous()
+        di = (out * do).sum(dim=-1).contiguous()
+        dk, dv = flash_bwd_dkv(q, k, v, do, l, m, di, ctx.scale)
+        dq = flash_bwd_dq(q, k, v, do, l, m, di, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (b, h, n, d) tensors.
+
+    Where an input needs a gradient, ``FlashAttention`` (kernels on the card,
+    plain versions on the CPU). Otherwise a CPU tensor goes to
+    ``attention_plain`` (mask included) and a CUDA tensor launches the
+    forward kernel without residuals. A key mask on the card raises.
+    """
+    on_cuda = _on_cuda(q, "flash_attention")
+    if mask is not None:
+        if not on_cuda:
+            return attention_plain(q, k, v, scale, mask)
+        raise NotImplementedError(
+            "flash_attention with a key mask (the TPU kernel's segment ids) is not ported "
+            "yet (ROADMAP.md Queue 1, baselines); use attn_backend='xla'")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale)
+    if not on_cuda:
+        return attention_plain(q, k, v, scale)
+    return flash_forward(q, k, v, scale)
 
 
 flash_attention.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0

@@ -4,13 +4,15 @@ The layout mirrors the JAX build and the reference:
 ``<root>/<dataset>/<section>/best_<fold>/``. The port writes one file,
 ``state.pt``, holding the step, the model ``state_dict`` (reference keys)
 and the optimizer state. ``load_checkpoint`` restores the model from it
-(what eval and serving need); resuming training with the optimizer state is
-queued in ROADMAP.md.
+(what eval and serving need); ``restore_checkpoint`` + ``apply_checkpoint``
+restore the whole train state (what resuming a fold needs), as the JAX
+build's functions of the same names do.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any, Dict
 
 import torch
 from torch import nn
@@ -36,11 +38,26 @@ def save_checkpoint(path: str, state: TrainState) -> str:
     return out
 
 
+def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
+    """Read ``<path>/state.pt`` onto ``device``: {"step", "model",
+    "optimizer"}."""
+    return torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
+
+
+def apply_checkpoint(state: TrainState, restored: Dict[str, Any]) -> TrainState:
+    """Put a restored checkpoint into ``state`` in place (the model with
+    ``strict=True``, the Adam moments and step counts, the step); returns
+    it."""
+    state.model.load_state_dict(restored["model"], strict=True)
+    state.optimizer.load_state_dict(restored["optimizer"])
+    state.step = int(restored["step"])
+    return state
+
+
 def load_checkpoint(path: str, model: nn.Module) -> int:
     """Load the model ``state_dict`` of ``<path>/state.pt`` into ``model``
     with ``strict=True``, onto the model's device; returns the saved step.
     The optimizer state is not restored."""
-    device = next(model.parameters()).device
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
+    saved = restore_checkpoint(path, next(model.parameters()).device)
     model.load_state_dict(saved["model"], strict=True)
     return int(saved["step"])

@@ -1,15 +1,21 @@
-"""Fold-loop trainer, port of ``train_fold`` of
+"""Fold-loop trainer, port of ``train_fold`` and ``train_all_folds`` of
 ``mclstexp_tpu/train/loop.py``.
 
 Leave-one-section-out retraining from scratch per fold, with periodic and
-final checkpoints, JSONL metrics and seeded determinism: the batch order
-comes from ``SeedSequence([seed, epoch])`` and the augmentation draws from a
-``torch.Generator`` seeded with ``seed + 1000 * fold`` on the device.
+final checkpoints, resume from the fold's checkpoint, JSONL metrics and
+seeded determinism: the batch order comes from ``SeedSequence([seed,
+epoch])``, and each step's augmentation draws from a ``torch.Generator`` on
+the device seeded by (``seed + 1000 * fold``, epoch, step), as the JAX
+build's ``fold_in(PRNGKey(seed + 1000 * fold), epoch * 100000 + step)``, so
+that a resumed fold takes the draws of an uninterrupted one. The ST
+datasets train with the "st" augmentation, Visium with "tenx"
+(``DataConfig.visium_raw_scale`` picks its input scale).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +25,7 @@ from mclstexp_tpu_torch.data.pipeline import (
     ConcatSections,
     DeviceResidentData,
     device_train_batches,
+    num_train_steps,
     split_fold,
 )
 from mclstexp_tpu_torch.data.section import Section
@@ -50,12 +57,13 @@ def check_positions_in_vocab(sections: Sequence[Section], pos_vocab: int) -> Non
 
 
 def train_fold(cfg: Config, sections: Sequence[Section], fold: int,
-               logger: Optional[MetricLogger] = None, device="cuda") -> TrainState:
-    """Train one leave-one-out fold from scratch on ``device``; returns the
-    final state. Checkpoints land in ``<checkpoint_dir>/<dataset>/<test
-    section>/best_<fold>``."""
-    if cfg.data.dataset == "visium":
-        raise NotImplementedError("the visium 'tenx' augmentation is not ported yet")
+               logger: Optional[MetricLogger] = None, device="cuda",
+               resume: bool = False) -> TrainState:
+    """Train one leave-one-out fold on ``device``; returns the final state.
+    Checkpoints land in ``<checkpoint_dir>/<dataset>/<test
+    section>/best_<fold>``. With ``resume`` and a checkpoint there, the
+    state (model, Adam, step) is restored and training goes on from epoch
+    ``step // steps_per_epoch``; otherwise the fold starts from scratch."""
     logger = logger or MetricLogger()
     device = torch.device(device)
     check_positions_in_vocab(sections, cfg.model.pos_vocab)
@@ -65,10 +73,22 @@ def train_fold(cfg: Config, sections: Sequence[Section], fold: int,
     ckpt_dir = ckpt.fold_checkpoint_dir(
         cfg.train.checkpoint_dir, cfg.data.dataset, test_sec.name, fold
     )
-    step_fn = make_train_step("st", rot_impl=cfg.train.rot_impl)
-    generator = torch.Generator(device=device).manual_seed(cfg.train.seed + 1000 * fold)
+    start_epoch = 0
+    if resume and os.path.exists(os.path.join(ckpt_dir, ckpt.STATE_FILE)):
+        ckpt.apply_checkpoint(state, ckpt.restore_checkpoint(ckpt_dir, device))
+        start_epoch = state.step // max(num_train_steps(data.n, cfg.train.batch_size), 1)
+        logger.log(event="resume", fold=fold, epoch=start_epoch)
 
-    for epoch in range(cfg.train.max_epochs):
+    if cfg.data.dataset == "visium":
+        step_fn = make_train_step("tenx", tenx_raw_scale=cfg.data.visium_raw_scale)
+        sample_draws = augment.sample_tenx_draws
+    else:
+        step_fn = make_train_step("st", rot_impl=cfg.train.rot_impl)
+        sample_draws = augment.sample_st_draws
+    generator = torch.Generator(device=device)
+    base_seed = cfg.train.seed + 1000 * fold
+
+    for epoch in range(start_epoch, cfg.train.max_epochs):
         loss_meter = AvgMeter("train_loss")
         watch = Stopwatch()  # per-epoch rate (epoch 0 includes warm-up)
         # Losses stay on the device until a sync point: a per-step float()
@@ -77,7 +97,7 @@ def train_fold(cfg: Config, sections: Sequence[Section], fold: int,
         batches = device_train_batches(data, cfg.train.batch_size, cfg.train.seed, epoch)
         for i, batch in enumerate(batches):
             bs = len(batch["expression"])
-            draws = augment.sample_st_draws(generator, bs, device)
+            draws = sample_draws(augment.reseed(generator, base_seed, epoch, i), bs, device)
             pending.append((step_fn(state, batch, draws), bs))
             watch.update(bs)
             if cfg.train.log_every and (i + 1) % cfg.train.log_every == 0:
@@ -100,3 +120,19 @@ def train_fold(cfg: Config, sections: Sequence[Section], fold: int,
     ckpt.save_checkpoint(ckpt_dir, state)
     logger.log(event="final_checkpoint", fold=fold, seconds=final_watch.elapsed)
     return state
+
+
+def train_all_folds(cfg: Config, sections: Sequence[Section],
+                    folds: Optional[Sequence[int]] = None,
+                    logger: Optional[MetricLogger] = None, device="cuda") -> List[str]:
+    """The reference's outer loop: every fold (all sections by default)
+    trained from scratch, one after another. Returns the folds' checkpoint
+    directories."""
+    logger = logger or MetricLogger()
+    folds = folds if folds is not None else range(len(sections))
+    out = []
+    for fold in folds:
+        train_fold(cfg, sections, fold, logger=logger, device=device)
+        out.append(ckpt.fold_checkpoint_dir(
+            cfg.train.checkpoint_dir, cfg.data.dataset, sections[fold].name, fold))
+    return out

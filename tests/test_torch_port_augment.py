@@ -1,9 +1,11 @@
-"""Port parity: the row_shift kernel's plain version and the "st" augmentation.
+"""Port parity: the row_shift kernel's plain version and the "st" and "tenx"
+augmentations.
 
 Inputs are made by numpy from a seed and go through both packages; the JAX
-side runs its Pallas kernel in interpret mode on the CPU. Data movement is
-held exact; the jitter arithmetic to atol 1e-6 (the two frameworks may sum
-the per-image gray mean in another order, ~1 ulp at [0, 1]).
+side runs its Pallas kernel in interpret mode on the CPU. Data movement
+(rotations, flips, "tenx" and its 0-255 or [0, 1] scale) is held exact; the
+jitter arithmetic to atol 1e-6 (the two frameworks may sum the per-image
+gray mean in another order, ~1 ulp at [0, 1]).
 """
 
 import jax
@@ -79,6 +81,16 @@ def _jax_st_draws(key, b):
         hflip=torch.from_numpy(np.array(jax.random.bernoulli(k_flip, 0.5, (b,)))),
         angles=torch.from_numpy(np.array(
             jax.random.uniform(k_rot, (b,), minval=-180.0, maxval=180.0))),
+    )
+
+
+def _jax_tenx_draws(key, b):
+    """The draws jax tenx_augment_inline takes from `key` (its splits)."""
+    k_h, k_v, k_r = jax.random.split(key, 3)
+    return augment.TenxDraws(
+        hflip=torch.from_numpy(np.array(jax.random.bernoulli(k_h, 0.5, (b,)))),
+        vflip=torch.from_numpy(np.array(jax.random.bernoulli(k_v, 0.5, (b,)))),
+        rot=torch.from_numpy(np.array(jax.random.randint(k_r, (b,), 0, 4))),
     )
 
 
@@ -175,6 +187,56 @@ def test_train_augment_inline_matches_jax(rng):
     assert _shears_agree(jnp.asarray(draws.angles.numpy()))
     got = augment.train_augment_inline(torch.from_numpy(patches), draws)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("raw_scale", [False, True])
+def test_tenx_augment_matches_jax_in_every_combination(rng, raw_scale):
+    """Bit-equal to the JAX function for the draws derived from its key,
+    over a batch whose draws hold all 16 flip/rotation combinations; each
+    image also equals the numpy flips and rotation its draws name."""
+    patches = rng.integers(0, 256, size=(128, 12, 12, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(5)
+    want = np.asarray(jax_augment.tenx_augment(key, jnp.asarray(patches), raw_scale=raw_scale))
+    draws = _jax_tenx_draws(key, 128)
+    combos = list(zip(draws.hflip.tolist(), draws.vflip.tolist(), draws.rot.tolist()))
+    assert len(set(combos)) == 16
+    got = augment.tenx_augment(torch.from_numpy(patches), draws, raw_scale)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    scale = np.float32(1.0) if raw_scale else np.float32(1.0 / 255.0)
+    for (h, v, r), im, out in zip(combos, patches.astype(np.float32) * scale, want):
+        im = im[:, ::-1] if h else im
+        im = im[::-1] if v else im
+        np.testing.assert_array_equal(out, np.rot90(im, k=augment.TENX_QUARTER_TURNS[r]))
+
+
+def test_tenx_augment_rejects_non_square():
+    draws = augment.sample_tenx_draws(torch.Generator().manual_seed(0), 2, "cpu")
+    with pytest.raises(ValueError, match="square"):
+        augment.tenx_augment(torch.zeros((2, 8, 6, 3), dtype=torch.uint8), draws)
+
+
+def test_to_float_matches_jax(rng):
+    patches = rng.integers(0, 256, size=(4, 8, 8, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(augment.to_float(torch.from_numpy(patches)).numpy(),
+                                  np.asarray(jax_augment.to_float(jnp.asarray(patches))))
+
+
+def test_sample_tenx_draws_ranges_and_reseed():
+    g = torch.Generator().manual_seed(0)
+    d = augment.sample_tenx_draws(g, 512, "cpu")
+    assert d.hflip.dtype == d.vflip.dtype == torch.bool
+    assert set(d.rot.tolist()) == {0, 1, 2, 3}
+    assert 0.35 < float(d.hflip.float().mean()) < 0.65
+    assert 0.35 < float(d.vflip.float().mean()) < 0.65
+    # keyed draws depend on the key only, not on what was drawn before
+    a = augment.sample_tenx_draws(augment.reseed(g, 7, 1, 2), 64, "cpu")
+    augment.sample_st_draws(g, 99, "cpu")
+    b = augment.sample_tenx_draws(augment.reseed(g, 7, 1, 2), 64, "cpu")
+    c = augment.sample_tenx_draws(augment.reseed(g, 7, 2, 1), 64, "cpu")
+    assert torch.equal(a.rot, b.rot) and torch.equal(a.hflip, b.hflip)
+    assert not torch.equal(a.rot, c.rot)
 
 
 def test_sample_st_draws_ranges():

@@ -34,6 +34,7 @@ from mclstexp_tpu_torch.interop import params_from_jax
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
 from mclstexp_tpu_torch.train import checkpoint
 from mclstexp_tpu_torch.train.state import TrainState, torch_adam
+from test_torch_port_augment import _jax_tenx_draws
 
 torch.set_num_threads(1)
 
@@ -127,13 +128,51 @@ def test_compute_embeddings_as_device_and_prepared(slice_setup):
     np.testing.assert_array_equal(spot_only["positions"].numpy(), np.asarray(jprep["positions"]))
 
 
-def test_compute_embeddings_rejects_what_it_does_not_run(slice_setup):
-    with pytest.raises(NotImplementedError, match="tenx"):
-        embed.compute_embeddings(slice_setup["tm"], slice_setup["sections"], eval_augment=True,
-                                 device="cpu")
+def test_compute_embeddings_rejects_what_it_does_not_run(slice_setup, monkeypatch):
+    """eval_augment=True (the Visium inference-time "tenx" flips and
+    rotations per image batch, on the raw 0-255 scale and on [0, 1])
+    equals the JAX sweep when both take the same draws: the port's sampler
+    is replaced by the JAX sweep's, image batch i keyed by
+    fold_in(PRNGKey(seed), i). An unknown tower still raises."""
+    jv = slice_setup["variables"]
+    batches = []
+
+    def jax_draws(seed, batch_index, batch, device):
+        batches.append((batch_index, batch))
+        return _jax_tenx_draws(jax.random.fold_in(jax.random.PRNGKey(seed), batch_index), batch)
+
+    monkeypatch.setattr(embed, "sample_eval_draws", jax_draws)
+    for raw_scale in (False, True):
+        jimg, jspot = jax_embed.compute_embeddings(
+            slice_setup["jm"], jv["params"], jv["batch_stats"], slice_setup["jax_sections"],
+            BATCH, eval_augment=True, seed=3, raw_scale=raw_scale, image_batch_size=64)
+        batches.clear()
+        img, spot = embed.compute_embeddings(slice_setup["tm"], slice_setup["sections"], BATCH,
+                                             eval_augment=True, seed=3, raw_scale=raw_scale,
+                                             image_batch_size=64, device="cpu")
+        assert batches == [(0, 64), (1, 64), (2, 22)]
+        np.testing.assert_allclose(img, jimg, err_msg=f"raw_scale={raw_scale}", **EMB_TOL)
+        np.testing.assert_allclose(spot, jspot, err_msg=f"raw_scale={raw_scale}", **EMB_TOL)
+        plain, _ = embed.compute_embeddings(slice_setup["tm"], slice_setup["sections"], BATCH,
+                                            raw_scale=raw_scale, image_batch_size=64,
+                                            tower="image", device="cpu")
+        assert not np.allclose(img, plain, **EMB_TOL)  # the flips and rotations took effect
     with pytest.raises(ValueError, match="tower"):
         embed.compute_embeddings(slice_setup["tm"], slice_setup["sections"], tower="text",
                                  device="cpu")
+
+
+def test_eval_augment_draws_are_keyed_by_seed_and_batch():
+    """The port's own eval draws: one generator per (seed, image batch), so
+    a sweep repeats itself for a seed and batch i's draws do not depend on
+    the batches before it."""
+    a = embed.sample_eval_draws(3, 1, 64, "cpu")
+    embed.sample_eval_draws(3, 0, 64, "cpu")
+    b = embed.sample_eval_draws(3, 1, 64, "cpu")
+    c = embed.sample_eval_draws(4, 1, 64, "cpu")
+    for field in ("hflip", "vflip", "rot"):
+        assert torch.equal(getattr(a, field), getattr(b, field))
+    assert not torch.equal(a.rot, c.rot)
 
 
 def test_dump_embeddings_reference_layout(slice_setup, tmp_path):

@@ -3,7 +3,12 @@
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one. On the card:
 
-    python -m pytest tests/test_torch_port_kernels.py -m gpu
+    python -m pytest --noconftest tests/test_torch_port_kernels.py -m gpu
+
+Flash-attention tolerances: atol 2e-5 for the forward and both backward
+kernels against their plain versions (fp32 on both sides; sums in another
+order, and the forward's online softmax rescaling; the plain versions are
+within ~2e-6 of float64 at these shapes).
 """
 
 import pytest
@@ -11,6 +16,7 @@ import torch
 
 from mclstexp_tpu_torch.core.layers import MultiHeadSelfAttention
 from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.ops import flash_attention as fa
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
 
@@ -98,14 +104,20 @@ def test_flash_attention_reads_the_qkv_buffer_in_place(cuda):
 
 @pytest.mark.gpu
 def test_flash_attention_raises_for_mask_grad_and_shape(cuda):
+    """A gradient now runs (the backward kernels), a key mask still raises."""
     q = torch.randn((1, 2, 32, 16), generator=cuda, device="cuda")
     with pytest.raises(NotImplementedError, match="key mask"):
         flash_attention(q, q, q, 0.25, torch.ones(32, dtype=torch.bool, device="cuda"))
     qg = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(qg, qg, qg, 0.25)
+    before = (flash_attention.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    (g,) = torch.autograd.grad(flash_attention(qg, qg, qg, 0.25).sum(), qg)
+    assert torch.isfinite(g).all()
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == tuple(c + 1 for c in before)
+    with pytest.raises(NotImplementedError, match="key mask"):
+        flash_attention(qg, qg, qg, 0.25, torch.ones(32, dtype=torch.bool, device="cuda"))
     with torch.no_grad():
-        flash_attention(qg, qg, qg, 0.25)  # no gradient wanted: the kernel runs
+        flash_attention(qg, qg, qg, 0.25)  # no gradient wanted: the forward alone runs
     with pytest.raises(ValueError, match="d <= 128"):
         x = torch.zeros((1, 1, 4, 160), device="cuda")
         flash_attention(x, x, x, 1.0)
@@ -127,3 +139,95 @@ def test_flash_module_on_card_matches_xla_module(cuda):
         got, want = flash(x), xla(x)
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+FLASH_ATOL = 2e-5
+
+
+def _bwd_inputs(cuda, n, d, strided):
+    """q, k, v (as views of one (b, n, 3, h, d) qkv buffer when strided),
+    dout, and the forward's out, l, m and di from the plain version."""
+    if strided:
+        qkv = torch.randn((2, n, 3, 4, d), generator=cuda, device="cuda")
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.randn((2, 4, n, d), generator=cuda, device="cuda") for _ in range(3))
+    do = torch.randn((2, 4, n, d), generator=cuda, device="cuda")
+    out, l, m = fa.flash_forward_plain(q, k, v, d**-0.5)
+    return q, k, v, do, out, l, m, (out * do).sum(-1).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "qkv_views"])
+@pytest.mark.parametrize("n", [1, 32, 66, 128, 300])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_backward_kernels_match_plain(cuda, n, d, strided):
+    """dK/dV and dQ against their plain versions from the same l, m, di;
+    the forward's residuals against the plain l and m. One launch each."""
+    q, k, v, do, out, l, m, di = _bwd_inputs(cuda, n, d, strided)
+    scale = d**-0.5
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale)
+    dq = fa.flash_bwd_dq(q, k, v, do, l, m, di, scale)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    torch.cuda.synchronize()
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, fa.flash_bwd_dq_plain(
+            q, k, v, do, l, m, di, scale))):
+        torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL)
+    kout, kl, km = fa.flash_forward(q, k, v, scale, residuals=True)
+    torch.testing.assert_close(kout, out, rtol=0, atol=FLASH_ATOL)
+    torch.testing.assert_close(km, m, rtol=0, atol=FLASH_ATOL)
+    torch.testing.assert_close(kl, l, rtol=1e-5, atol=FLASH_ATOL)
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two runs give the same bits."""
+    q, k, v, do, _, l, m, di = _bwd_inputs(cuda, 300, 64, True)
+    first = (*fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125),
+             fa.flash_bwd_dq(q, k, v, do, l, m, di, 0.125))
+    second = (*fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125),
+              fa.flash_bwd_dq(q, k, v, do, l, m, di, 0.125))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [66, 128])
+def test_flash_autograd_matches_plain_autograd(cuda, n):
+    """torch.autograd.grad through the Function (forward with residuals,
+    dK/dV, dQ: one launch each) against autograd of the plain path, on the
+    views of one qkv buffer, into which autograd adds the three gradients."""
+    qkv = torch.randn((1, n, 3, 8, 64), generator=cuda, device="cuda", requires_grad=True)
+    cot = torch.randn((1, 8, n, 64), generator=cuda, device="cuda")
+
+    def grad(attend):
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        return torch.autograd.grad((attend(q, k, v, 0.125) * cot).sum(), qkv)[0]
+
+    counts = lambda: (flash_attention.launches, fa.flash_bwd_dkv.launches,  # noqa: E731
+                      fa.flash_bwd_dq.launches)
+    before = counts()
+    got = grad(flash_attention)
+    assert counts() == tuple(c + 1 for c in before)
+    torch.testing.assert_close(got, grad(attention_plain), rtol=0, atol=FLASH_ATOL)
+
+
+@pytest.mark.gpu
+def test_flash_module_trains_like_xla_module(cuda):
+    """MultiHeadSelfAttention(backend="flash") at the training shape: the
+    parameter and input gradients of the "xla" module with the same weights."""
+    torch.manual_seed(0)
+    xla = MultiHeadSelfAttention(785, heads=8, dim_head=64, device="cuda", backend="xla")
+    flash = MultiHeadSelfAttention(785, heads=8, dim_head=64, device="cuda", backend="flash")
+    flash.load_state_dict(xla.state_dict())
+    x = torch.randn((1, 128, 785), generator=cuda, device="cuda")
+    grads = []
+    for mod in (flash, xla):
+        xx = x.clone().requires_grad_()
+        mod(xx).square().sum().backward()
+        grads.append([xx.grad] + [p.grad for p in mod.parameters()])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
