@@ -16,27 +16,32 @@ order; any failure exits non-zero and prints no result line:
      backward kernels (dK/dV, dQ) at the training length, the remainder
      batch's and a ragged one, the forward-and-backward pair timed against
      ``F.scaled_dot_product_attention``'s;
-  4. train: ``train_fold`` at the her2st widths (densenet121, 224 px,
+  4. patches: extract_patches (the patch gather) bit-equal to its plain
+     version in small cases (P 15/16/32/224, C 1/3/4, centers inside, on
+     the border, far outside and at -2147483648, N = 0) and on a 20,000 x
+     20,000 x 3 slide with 4,992 + 64 centers at P = 224, timed against
+     indexing a pre-padded copy;
+  5. train: ``train_fold`` at the her2st widths (densenet121, 224 px,
      spot_dim 785, pos_vocab 1024, 2 blocks of 8x64 heads, projection 256,
      batch 128) on synthetic sections made from a seed, one epoch of three
      full batches and a remainder; every loss finite, and every kernel of
      the path launched (row_shift three times per step: twice in its row
      layout, once in its column layout);
-  5. reference: the trained model on the card against the same weights on
+  6. reference: the trained model on the card against the same weights on
      the CPU at a small batch (TF32 off for the comparison);
-  6. step time: steady-state ms per train step;
-  7. train-flash: ``train_fold`` at the same widths and on the same 450
+  7. step time: steady-state ms per train step;
+  8. train-flash: ``train_fold`` at the same widths and on the same 450
      spots with ``attn_backend="flash"``: every softmax attention of the
      spot tower, forward and backward, in the flash kernels (forward with
      residuals, dK/dV and dQ, each launched head_layers x steps times);
      one step's spot-tower gradients against the "xla" model's from the
      same weights and batch; ms/step flash against xla;
-  8. resume: the flash fold resumed from its checkpoint for one more
+  9. resume: the flash fold resumed from its checkpoint for one more
      epoch (start epoch, step count, finite losses, kernels launched);
-  9. tenx: one ``augment_mode="tenx"`` step (the Visium augmentation, raw
+ 10. tenx: one ``augment_mode="tenx"`` step (the Visium augmentation, raw
      0-255 scale) on the card, its augmented images bit-equal to the
      CPU's for the same draws;
- 10. eval: the trained fold's checkpoint (``load_checkpoint``) in a model
+ 11. eval: the trained fold's checkpoint (``load_checkpoint``) in a model
      with ``attn_backend="flash"``, ``compute_embeddings`` over the
      sections (every B=32 spot batch one attention sequence through the
      flash kernel, launched head_layers x ceil(N/32) times) and
@@ -44,13 +49,24 @@ order; any failure exits non-zero and prints no result line:
      metrics (finite, agreeing); the flash tower's spot embeddings against
      the "xla" tower's, and the card's top-K indices against the CPU's on
      the same embeddings;
- 11. serve: ``PredictionService.from_sections`` over a her2st-scale spot
+ 12. serve: ``PredictionService.from_sections`` over a her2st-scale spot
      database (32 sections of 300-700 spots) through the flash kernel, one
      LOO fold over it (``evaluate_fold_resident``, the first section held
      out, random patches as its queries; host and device metrics agreeing,
      each timed), and ``make_server`` on a free local port answering
      /healthz, /predict (1, 37 and 256 patches), /embed and a malformed
-     body (400); every answer equal to the service's own, with its latency.
+     body (400); every answer equal to the service's own, with its latency;
+ 13. data: the real-dataset readers with standard-library I/O: a HER2ST
+     tree (``synthetic.write_st_layout``, 4 sections of 300-700 spots x
+     2,000 genes, two counts files gzipped) -> count frames -> a 785-gene
+     panel (``select_panel``, saved and reloaded) -> ``load_her2st`` with a
+     patch cache, one extract_patches launch per section, patches bit-equal
+     to ``extract_patches_np``, then a cache hit with no launch ->
+     ``train_fold`` at the her2st widths, ``compute_embeddings`` and
+     ``evaluate_fold_resident`` (host and device metrics agreeing); a
+     Visium tree (10x triplets, positions CSV, PPM ``image.tif``) ->
+     ``build_visium_preprocessed`` -> ``load_visium`` (BGR patches) ->
+     ``PosRemap`` -> one "tenx" step of the visium preset.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -138,13 +154,14 @@ def phase_build():
     so that the build takes the slowest source's time, not the sum."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mclstexp_tpu_torch.ops import build, flash_attention, row_shift
+    from mclstexp_tpu_torch.ops import build, flash_attention, patches, row_shift
 
     def timed_build(source):
         t = time.perf_counter()
         return (*build.build_library(source), time.perf_counter() - t)
 
-    sources = (row_shift.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE)
+    sources = (row_shift.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+               patches.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed_build, sources))
@@ -526,6 +543,113 @@ def phase_flash_bwd_kernels() -> list:
             f"(gradients within {sdpa_err:.1e} of the kernels')")
     return [entries["bwd_dkv"], entries["bwd_dq"]]
 
+
+
+I32_MIN = -2**31
+PATCH_SMALL_CENTERS = ((10, 12), (40, 30), (0, 0), (79, 59), (80, 60), (-5, 30), (-200, 5),
+                       (500, 500), (40, -90), (I32_MIN, I32_MIN), (I32_MIN, 20), (2**31 - 1, 7))
+VISIUM_SIDE = 20_000  # a Visium full-resolution image.tif is about 20,000-25,000 px a side
+VISIUM_SPOTS = 4_992  # the spots of one Visium capture area
+PATCH = 224
+
+
+def _patch_centers(side: int):
+    """4,992 centers on a grid inside a side x side slide (78 x 64, 250 px
+    apart: no two patches overlap) and 64 at and past its border, two of them
+    a missing spot's floor(NaN) = -2147483648."""
+    import numpy as np
+
+    gx, gy = np.meshgrid(250 + 250 * np.arange(78), 250 + 300 * np.arange(64))
+    inside = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    past = np.array([0, -1, -50, -111, -112, -113, -224, -300, -5000, side - 1, side,
+                     side + 111, side + 112, side + 300, side + 5000, I32_MIN])
+    along = np.linspace(0, side - 1, 16).astype(np.int64)
+    edge = np.concatenate([np.stack([past, along], 1), np.stack([along, past], 1),
+                           np.stack([past[::-1], along[::-1]], 1),
+                           np.stack([along[::-1], past], 1)])
+    return np.concatenate([inside, edge]).astype(np.int64)
+
+
+def _patch_bytes(centers, side: int, patch: int, channels: int) -> int:
+    """Bytes the crop must move: every output byte written once, and the
+    in-slide part of every patch read once."""
+    import numpy as np
+
+    r = patch // 2
+    c = centers.astype(np.int64)
+    span = [np.clip(np.minimum(c[:, k] + r, side) - np.maximum(c[:, k] - r, 0), 0, None)
+            for k in (0, 1)]
+    return int((span[0] * span[1]).sum() * channels + len(c) * patch * patch * channels
+               + c.size * 8)
+
+
+def phase_patches() -> dict:
+    """extract_patches (csrc/extract_patches.cu) against extract_patches_plain,
+    bit for bit: small cases (P 15, 16, 32, 224; C 1, 3, 4; centers inside,
+    on the border, far outside, at -2147483648; N = 0), then the full-size
+    case, timed: a 20,000 x 20,000 x 3 uint8 slide (1.2 GB, a Visium
+    full-resolution image) made on the card from a seed, 4,992 grid centers
+    and 64 at and past the border, P = 224. The yardstick (library_ms) is one
+    advanced-indexing call over a copy of the slide padded by P, with the
+    start indices clamped into it; the pad and the index tensors are made
+    before the timed window. Bound: the bytes of the crop (each output byte
+    written once, each in-slide source byte read once) at 3.35 TB/s."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    small = torch.tensor(PATCH_SMALL_CENTERS, device="cuda")
+    for c in (1, 3, 4):
+        slide = torch.randint(0, 256, (60, 80, c), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        for p in (15, 16, 32, 224):
+            got, want = extract_patches(slide, small, p), extract_patches_plain(slide, small, p)
+            if not torch.equal(got, want):
+                raise AssertionError(f"extract_patches C={c} P={p} differs from its plain version")
+        if extract_patches(slide, small[:0], 16).shape != (0, 16, 16, c):
+            raise AssertionError("extract_patches with N = 0")
+    log(f"[patches] small cases: bit-equal at P 15/16/32/224, C 1/3/4, "
+        f"{len(PATCH_SMALL_CENTERS)} centers (inside, border, far outside, -2147483648); N = 0 ok")
+
+    side, p = VISIUM_SIDE, PATCH
+    slide = torch.randint(0, 256, (side, side, 3), generator=g, device="cuda", dtype=torch.uint8)
+    host_centers = _patch_centers(side)
+    centers = torch.from_numpy(host_centers).cuda()
+    got = extract_patches(slide, centers, p)
+    want = extract_patches_plain(slide, centers, p)
+    r = p // 2
+    padded = F.pad(slide, (0, 0, p, p, p, p))
+    offs = torch.arange(p, device="cuda")
+    rows = ((centers[:, 1] - r + p).clamp(0, side + p)[:, None] + offs)[:, :, None]
+    cols = ((centers[:, 0] - r + p).clamp(0, side + p)[:, None] + offs)[:, None, :]
+    library = padded[rows, cols]
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("extract_patches at full size differs from its plain version")
+    if not torch.equal(library, want):
+        raise AssertionError("the indexing yardstick computes another function")
+    del want, library
+    ms = cuda_ms(lambda: extract_patches(slide, centers, p), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: extract_patches_plain(slide, centers, p), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: padded[rows, cols], iters=10, warmup=2)
+    nbytes = _patch_bytes(host_centers, side, p, 3)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[patches] {side} x {side} x 3 slide ({slide.numel() / 1e9:.2f} GB), "
+        f"{len(host_centers)} centers, P={p}: bit-equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, indexing a pre-padded copy {library_ms:.4f} ms (pad and indices "
+        f"outside the timed window), bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB by bytes), "
+        f"{bound_ms / ms:.1%} of bound, on {card_line()}")
+    del slide, padded, got
+    torch.cuda.empty_cache()
+    return {"name": "extract_patches", "route": "cuda",
+            "source": "mclstexp_tpu_torch/csrc/extract_patches.cu",
+            "replaces": "mclstexp_tpu/ops/pallas_patches.py:84",
+            "also_replaces": "mclstexp_tpu/ops/pallas_patches.py:166",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "max_abs_err": 0.0}
 
 
 def _flash_counts() -> tuple:
@@ -935,6 +1059,161 @@ def phase_serve(cfg, model):
     return launches
 
 
+def _reset_patch_counts() -> None:
+    from mclstexp_tpu_torch.ops.patches import extract_patches
+
+    _reset_counts()
+    extract_patches.launches = 0
+
+
+def phase_data() -> int:
+    """The real-dataset data layer on the card, with standard-library I/O: a
+    HER2ST-layout tree and a Visium tree through the port's readers, each
+    section's patches cut by the extract_patches kernel; a her2st-width fold
+    trained and evaluated on the loaded sections; one "tenx" step on the
+    remapped Visium sections. Returns the kernel's launches on this path."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.config import PRESETS, her2st_config
+    from mclstexp_tpu_torch.data import genes, panel, st_dataset, synthetic, visium
+    from mclstexp_tpu_torch.data.io import gzip_in_place, load_slide
+    from mclstexp_tpu_torch.data.pipeline import (
+        ConcatSections, DeviceResidentData, num_train_steps)
+    from mclstexp_tpu_torch.data.posremap import PosRemap
+    from mclstexp_tpu_torch.infer import embed, evaluate
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_np
+    from mclstexp_tpu_torch.train.loop import train_fold
+    from mclstexp_tpu_torch.train.state import create_train_state
+    from mclstexp_tpu_torch.train.step import make_train_step
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "data")
+    shutil.rmtree(base, ignore_errors=True)
+    cfg = her2st_config(os.path.join(base, "model_result"))
+    p = cfg.data.patch_size
+
+    # HER2ST: 4 sections of 300-700 spots and 2,000 genes (her2st: 32 sections
+    # of ~15,000 gene columns), two of them gzipped as the fetched data is
+    root = os.path.join(base, "her2st")
+    sizes = [int(n) for n in np.random.default_rng(3).integers(300, 701, size=4)]
+    t0 = time.perf_counter()
+    names, _ = synthetic.write_st_layout(root, num_sections=4, num_spots=sizes,
+                                         num_genes=2000, seed=0)
+    for name in names[1::2]:
+        gzip_in_place(st_dataset.her2st_cnt_path(root, name))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sel = panel.select_panel(panel.her2st_count_frames(root), n_top_genes=1000,
+                             panel_size=cfg.model.spot_dim)
+    gene_panel = genes.load_panel("her2st", panel.save_panel_artifacts(
+        sel, os.path.join(base, "panel"), "her2st"))
+    panel_s = time.perf_counter() - t0
+    if len(gene_panel) != cfg.model.spot_dim:
+        raise AssertionError(f"panel of {len(gene_panel)} genes, not {cfg.model.spot_dim}")
+
+    _reset_patch_counts()
+    cache = os.path.join(base, "patch_cache")
+    t0 = time.perf_counter()
+    sections = st_dataset.load_her2st(root, gene_panel, patch_size=p, cache_dir=cache,
+                                      device="cuda")
+    load_s = time.perf_counter() - t0
+    if extract_patches.launches != len(names):
+        raise AssertionError(f"extract_patches launched {extract_patches.launches} times for "
+                             f"{len(names)} sections")
+    for s in sections:
+        want = extract_patches_np(load_slide(st_dataset.her2st_slide_path(root, s.name)),
+                                  s.centers, p)
+        if not np.array_equal(s.patches, want):
+            raise AssertionError(f"section {s.name}: patches differ from extract_patches_np")
+    t0 = time.perf_counter()
+    sections = st_dataset.load_her2st(root, gene_panel, patch_size=p, cache_dir=cache,
+                                      device="cuda")
+    hit_s = time.perf_counter() - t0
+    if extract_patches.launches != len(names) or not all(
+            isinstance(s.patches, np.memmap) for s in sections):
+        raise AssertionError("the second load did not hit the patch cache")
+    log(f"[data] her2st tree: {len(names)} sections of {sizes} spots x 2000 genes "
+        f"({len(names[1::2])} gzipped) written in {write_s:.1f} s; panel of {len(gene_panel)} "
+        f"genes ({int(sel.union.sum())} in the union of {len(names)} x 1000 HVGs) in "
+        f"{panel_s:.1f} s; load_her2st in {load_s:.1f} s, extract_patches launches "
+        f"{extract_patches.launches} (one per section), patches bit-equal to "
+        f"extract_patches_np; reloaded from the cache in {hit_s:.2f} s with no launch")
+
+    logger = MetricLogger(echo=False)
+    t0 = time.perf_counter()
+    state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in logger.records if "loss" in r]
+    steps = num_train_steps(sum(s.num_spots for s in sections[1:]), cfg.train.batch_size)
+    if state.step != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fold 0: step {state.step} of {steps}, losses {losses}")
+    prepared = embed.prepare_eval_arrays(sections, device="cuda")
+    img, spot = embed.compute_embeddings(state.model, sections, cfg.eval.batch_size,
+                                         prepared=prepared, as_device=True, device="cuda")
+    bounds = evaluate.section_bounds([s.num_spots for s in sections])
+    args = (0, img, spot, prepared["eval_expression"], bounds, sections[0].eval_expression,
+            cfg.eval.top_k, cfg.eval.weight_ord)
+    host = evaluate.evaluate_fold_resident(*args, device="cuda")
+    dev = evaluate.evaluate_fold_resident(*args, device_metrics=True, device="cuda")
+    for k in host:
+        if not (math.isfinite(host[k]) and math.isfinite(dev[k])
+                and math.isclose(host[k], dev[k], rel_tol=1e-4, abs_tol=1e-5)):
+            raise AssertionError(f"fold 0 on the loaded sections: {k} host {host[k]}, "
+                                 f"device {dev[k]}")
+    log(f"[data] train_fold her2st widths on the loaded sections: {steps} steps in "
+        f"{train_s:.1f} s, losses {[round(v, 4) for v in losses]}; fold 0 metrics (host) "
+        f"{ {k: round(v, 6) for k, v in host.items()} }, device metrics agree (rtol 1e-4)")
+
+    # Visium: 2 sections in the standard layout, 10x triplets and PPM image.tif
+    vroot, prep = os.path.join(base, "visium"), os.path.join(base, "visium_prep")
+    vnames = ("block1", "block2")
+    vcfg = PRESETS["visium"]
+    synthetic.write_visium_layout(vroot, vnames, num_spots=[700, 600], num_genes=1000,
+                                  side=2000, seed=1)
+    mdirs = {n: os.path.dirname(visium.visium_section_paths(vroot, prep, n)["barcode_path"])
+             for n in vnames}
+    vsel = panel.select_panel(panel.visium_count_frames(mdirs), n_top_genes=800,
+                              panel_size=vcfg.model.spot_dim)
+    visium.build_visium_preprocessed(mdirs, prep, vsel.panel)
+    before = extract_patches.launches
+    vsecs = visium.load_visium(vroot, prep, vnames, patch_size=p, device="cuda")
+    if extract_patches.launches != before + len(vnames):
+        raise AssertionError(f"load_visium launched {extract_patches.launches - before} times")
+    for s, n in zip(vsecs, vnames):
+        want = extract_patches_np(visium.load_bgr(os.path.join(vroot, n, "image.tif")),
+                                  s.centers, p)
+        if not np.array_equal(s.patches, want) or s.num_genes != vcfg.model.spot_dim:
+            raise AssertionError(f"visium {n}: patches or genes ({s.num_genes}) differ")
+    remap = PosRemap.build(vsecs)
+    remap.save(os.path.join(base, "posremap.npz"))
+    loaded = PosRemap.load(os.path.join(base, "posremap.npz"))
+    if loaded.vocab != remap.vocab or not np.array_equal(loaded.x_values, remap.x_values):
+        raise AssertionError("the saved PosRemap loads back otherwise")
+    vsecs = remap.apply_sections(vsecs)
+    mcfg = dataclasses.replace(vcfg.model, pos_vocab=remap.vocab)
+    vstate = create_train_state(mcfg, vcfg.train, "cuda")
+    data = DeviceResidentData(ConcatSections.from_sections(vsecs), "cuda")
+    batch = data.take(list(range(vcfg.train.batch_size)))
+    g = torch.Generator(device="cuda")
+    draws = augment.sample_tenx_draws(augment.reseed(g, 0, 0, 0), vcfg.train.batch_size, "cuda")
+    loss = float(make_train_step("tenx", tenx_raw_scale=vcfg.data.visium_raw_scale)(
+        vstate, batch, draws))
+    if not math.isfinite(loss):
+        raise AssertionError(f"visium tenx step loss {loss}")
+    log(f"[data] visium tree: {len(vnames)} sections of {[s.num_spots for s in vsecs]} spots, "
+        f"panel {len(vsel.panel)} genes; load_visium launches {extract_patches.launches - before}, "
+        f"patches (BGR) bit-equal to extract_patches_np; PosRemap vocab {remap.vocab} "
+        f"({len(remap.x_values)} x / {len(remap.y_values)} y values); one raw-scale tenx step "
+        f"at B={vcfg.train.batch_size}: loss {loss:.4f}")
+    return extract_patches.launches
+
+
 def main() -> int:
     import torch
 
@@ -950,6 +1229,7 @@ def main() -> int:
     entries = phase_kernels()
     flash_entry = phase_flash_kernels()
     bwd_entries = phase_flash_bwd_kernels()
+    patch_entry = phase_patches()
     cfg, state, sections, launches = phase_train()
     for entry, layout in zip(entries, ("rows", "cols")):
         entry["launches"] = launches[layout]
@@ -960,6 +1240,7 @@ def main() -> int:
     phase_tenx(cfg, sections, state)
     eval_model, eval_launches = phase_eval(cfg, sections)
     serve_launches = phase_serve(cfg, eval_model)
+    patch_entry["launches"] = phase_data()
     # Launches on this slice's main path, flash training; the forward's
     # counts on the eval and serving paths beside them.
     flash_entry["launches"] = counts[0]
@@ -967,7 +1248,7 @@ def main() -> int:
                                        "serve": serve_launches}
     for entry, count in zip(bwd_entries, counts[1:]):
         entry["launches"] = count
-    entries += [flash_entry, *bwd_entries]
+    entries += [flash_entry, *bwd_entries, patch_entry]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -9,6 +9,7 @@ stay interchangeable, and ignores them (each is marked below).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -162,3 +163,9 @@ def her2st_config(checkpoint_dir: str = "model_result") -> Config:
         checkpoint_every_epochs=0, checkpoint_dir=checkpoint_dir, seed=0,
     ))
 
+
+def reference_data_root() -> Optional[str]:
+    """The directory that holds the reference's shipped gene panels, named by
+    ``MCLSTEXP_REFERENCE_DATA``; None when it is unset or not a directory."""
+    root = os.environ.get("MCLSTEXP_REFERENCE_DATA")
+    return root if root and os.path.isdir(root) else None

@@ -36,6 +36,16 @@ class Section:
             self._eval_expression = pergene_logcpm(self.counts)
         return self._eval_expression
 
+    @property
+    def size_factors(self) -> Optional[np.ndarray]:
+        """Library size over its median (the NB/ZINB heads' size factors),
+        None without counts."""
+        if self.counts is None:
+            return None
+        lib = self.counts.sum(axis=1)
+        med = np.median(lib[lib > 0]) if (lib > 0).any() else 1.0
+        return (lib / med).astype(np.float32)
+
     def __post_init__(self):
         n = len(self.expression)
         if len(self.positions) != n or len(self.centers) != n:

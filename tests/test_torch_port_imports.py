@@ -1,6 +1,7 @@
 """The port stands alone: importing every one of its modules loads neither
-JAX nor the JAX package, and no module builds a kernel or needs a card when
-it is imported."""
+JAX nor the JAX package, nor pandas, PIL or OpenCV (the card's machine has
+none of them), and no module builds a kernel or needs a card when it is
+imported."""
 
 import os
 import pkgutil
@@ -27,14 +28,18 @@ def test_port_imports_no_jax():
     assert {"mclstexp_tpu_torch.ops.row_shift", "mclstexp_tpu_torch.ops.flash_attention",
             "mclstexp_tpu_torch.ops.retrieval", "mclstexp_tpu_torch.infer.embed",
             "mclstexp_tpu_torch.infer.metrics", "mclstexp_tpu_torch.infer.evaluate",
-            "mclstexp_tpu_torch.infer.serve"} <= set(modules)
-    assert len(modules) > 25
+            "mclstexp_tpu_torch.infer.serve", "mclstexp_tpu_torch.ops.patches",
+            "mclstexp_tpu_torch.data.io", "mclstexp_tpu_torch.data.st_dataset",
+            "mclstexp_tpu_torch.data.visium", "mclstexp_tpu_torch.data.panel",
+            "mclstexp_tpu_torch.data.hvg", "mclstexp_tpu_torch.data.genes",
+            "mclstexp_tpu_torch.data.posremap"} <= set(modules)
+    assert len(modules) > 35
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'mclstexp_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'mclstexp_tpu', 'pandas', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -43,6 +48,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax_pandas_pil_or_cv2():
+    """chip_smoke.py at import time, as the port's modules."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'mclstexp_tpu', 'pandas', 'PIL', 'cv2'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -5,6 +5,7 @@ without one. On the card:
 
     python -m pytest --noconftest tests/test_torch_port_kernels.py -m gpu
 
+The patch gather is bit-equal to its plain version (a byte copy).
 Flash-attention tolerances: atol 2e-5 for the forward and both backward
 kernels against their plain versions (fp32 on both sides; sums in another
 order, and the forward's online softmax rescaling; the plain versions are
@@ -18,6 +19,7 @@ from mclstexp_tpu_torch.core.layers import MultiHeadSelfAttention
 from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.ops import flash_attention as fa
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
 from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
 
 torch.set_num_threads(1)
@@ -231,3 +233,46 @@ def test_flash_module_trains_like_xla_module(cuda):
         grads.append([xx.grad] + [p.grad for p in mod.parameters()])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+PATCH_CENTERS = ((10, 12), (40, 30), (0, 0), (79, 59), (80, 60), (-5, 30), (-200, 5),
+                 (500, 500), (40, -90), (-2**31, -2**31), (-2**31, 20), (2**31 - 1, 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [15, 16, 32, 224])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_extract_patches_kernel_matches_plain(cuda, c, p):
+    """Centers inside, on the border, far outside and a missing spot's
+    floor(NaN) (-2147483648), on a 60 x 80 slide: bit-equal, one launch, and
+    two runs bit-equal."""
+    slide = torch.randint(0, 256, (60, 80, c), generator=cuda, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    centers = torch.tensor(PATCH_CENTERS, device="cuda")
+    before = extract_patches.launches
+    got = extract_patches(slide, centers, p)
+    assert extract_patches.launches == before + 1
+    assert got.shape == (len(PATCH_CENTERS), p, p, c) and got.dtype == torch.uint8
+    assert torch.equal(got, extract_patches_plain(slide, centers, p))
+    assert torch.equal(got, extract_patches(slide, centers, p))
+
+
+@pytest.mark.gpu
+def test_extract_patches_kernel_edges(cuda):
+    """N = 0 returns an empty tensor without a launch; an (H, W) slide is one
+    channel; a non-uint8 or non-contiguous slide raises."""
+    slide = torch.randint(0, 256, (60, 80, 3), generator=cuda, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    centers = torch.tensor(PATCH_CENTERS, device="cuda", dtype=torch.int32)
+    before = extract_patches.launches
+    empty = extract_patches(slide, centers[:0], 16)
+    assert empty.shape == (0, 16, 16, 3) and extract_patches.launches == before
+    flat = slide[..., 0].contiguous()
+    assert torch.equal(extract_patches(flat, centers, 16),
+                       extract_patches_plain(flat, centers, 16))
+    with pytest.raises(TypeError, match="uint8"):
+        extract_patches(slide.float(), centers, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        extract_patches(slide.transpose(0, 1), centers, 16)
+    with pytest.raises(ValueError, match="on cpu"):
+        extract_patches(slide, centers.cpu(), 16)
