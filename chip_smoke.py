@@ -13,9 +13,12 @@ order; any failure exits non-zero and prints no result line:
      plain version's time, a PyTorch yardstick and its bound: row_shift
      (bit-equal); the flash-attention forward, with and without residuals,
      at the eval sweep's, the training and a ragged sequence length; the
-     backward kernels (dK/dV, dQ) at the training length, the remainder
-     batch's and a ragged one, the forward-and-backward pair timed against
-     ``F.scaled_dot_product_attention``'s;
+     backward kernels (dK/dV, dQ: each block of 32 keys or queries one
+     thread-block cluster that splits the walk, 3xTF32 tensor-core
+     products), with their plan (rows, split, CTAs), at the training
+     length, the remainder batch's and a ragged one, the forward-and-
+     backward pair timed against ``F.scaled_dot_product_attention``'s, and
+     once at the JAX bench's whole-slide width (1, 16, 4,096, 64);
   4. patches: extract_patches (the patch gather) bit-equal to its plain
      version in small cases (P 15/16/32/224, C 1/3/4, centers inside, on
      the border, far outside and at -2147483648, N = 0) and on a 20,000 x
@@ -454,95 +457,168 @@ BWD_REPLACES = {
 }
 
 
+def _bwd_case(g, shape):
+    """The backward kernels' arguments at ``shape`` (q, k, v as the views of
+    a (b, n, 3, h, d) qkv buffer, dout, the kernel forward's l and m, di =
+    rowsum(out * dout), scale) and the two pairs to time on them: forward
+    with residuals + dK/dV + dQ, and ``torch.autograd.grad`` of
+    F.scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, h, n, d), generator=g, device="cuda")
+    scale = d**-0.5
+    out, l, m = fa.flash_forward(q, k, v, scale, residuals=True)
+    di = (out * do).sum(-1).contiguous()
+    qkv_g = qkv.clone().requires_grad_()
+
+    def library_pair():
+        # The views are taken inside, so that under graph capture every op
+        # that autograd replays backward ran on the capturing stream.
+        sq, sk, sv = (qkv_g[:, :, i].transpose(1, 2) for i in range(3))
+        return torch.autograd.grad(
+            (F.scaled_dot_product_attention(sq, sk, sv, scale=scale) * do).sum(), qkv_g)[0]
+
+    def pair():
+        o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
+        dd = (o * do).sum(-1).contiguous()
+        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
+        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
+
+    return (q, k, v, do, l, m, di, scale), pair, library_pair
+
+
+def _bwd_kernels(shape):
+    """(name, kernel, plain version, bound ms, bound_by, bytes, flops) of
+    dK/dV and dQ at ``shape``: dK/dV reads q, k, v, dout, l, m, di and
+    writes dk, dv (8*b*h*n^2*d flops), dQ writes dq (6*b*h*n^2*d); the bound
+    is the larger of the bytes at 3.35 TB/s and the flops at 67 TFLOP/s."""
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = shape
+    out = []
+    for name, kernel, plain, n_out, per_flop in (
+            ("bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+            ("bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6)):
+        nbytes = (4 + n_out) * b * h * n * d * 4 + 3 * b * h * n * 4
+        flops = per_flop * b * h * n * n * d
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        out.append((name, kernel, plain, max(bytes_ms, ops_ms),
+                    "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops))
+    return out
+
+
+def _max_err(got, want) -> float:
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    return max(float((a - b).abs().max()) for a, b in zip(as_tuple(got), as_tuple(want)))
+
+
 def phase_flash_bwd_kernels() -> list:
     """The flash backward kernels, dK/dV and dQ, against their plain
     versions in fp32 at the training shape (1, 8, 128, 64), the remainder
     batch's n=66 and a ragged n=300, on the views of a (b, n, 3, h, d) qkv
     buffer, fed the kernel forward's l and m and di = rowsum(out * dout).
     atol 2e-5, as for the forward (fp32, sums in another order). Device
-    times of CUDA-graph replays. Bound = max(bytes at 3.35 TB/s, flops at
-    67 TFLOP/s): dK/dV reads q, k, v, dout, l, m, di and writes dk, dv
-    (8*b*h*n^2*d flops); dQ reads the same and writes dq (6*b*h*n^2*d).
-    No one PyTorch call computes dK/dV or dQ alone, so ``library_ms`` is
-    null; the yardstick is the pair: forward with residuals + dK/dV + dQ
+    times of CUDA-graph replays; bounds as ``_bwd_kernels`` says. No one
+    PyTorch call computes dK/dV or dQ alone, so ``library_ms`` is null; the
+    yardstick is the pair: forward with residuals + dK/dV + dQ
     (``pair_ms``) against ``torch.autograd.grad`` of
     F.scaled_dot_product_attention (``library_pair_ms``) on the same views.
-    The entries carry the training shape's numbers and the largest error."""
+    Each line names the kernels' plan (``bwd_plan``: tile rows, split of the
+    walk, CTAs); the training shape must run at least 128 CTAs. The entries
+    carry the training shape's numbers, plan and the largest error."""
     import torch
-    import torch.nn.functional as F
 
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(1)
     entries = {}
-    for b, h, n, d in BWD_SHAPES:
-        shape = (b, h, n, d)
-        qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        do = torch.randn((b, h, n, d), generator=g, device="cuda")
-        scale = d**-0.5
-        out, l, m = fa.flash_forward(q, k, v, scale, residuals=True)
-        di = (out * do).sum(-1).contiguous()
-        args = (q, k, v, do, l, m, di, scale)
-        got = {"bwd_dkv": fa.flash_bwd_dkv(*args), "bwd_dq": (fa.flash_bwd_dq(*args),)}
-        want = {"bwd_dkv": fa.flash_bwd_dkv_plain(*args),
-                "bwd_dq": (fa.flash_bwd_dq_plain(*args),)}
-        torch.cuda.synchronize()
-
-        qkv_g = qkv.clone().requires_grad_()
-
-        def library_pair():
-            # The views are taken inside, so that under graph capture every
-            # op that autograd replays backward ran on the capturing stream.
-            sq, sk, sv = (qkv_g[:, :, i].transpose(1, 2) for i in range(3))
-            return torch.autograd.grad(
-                (F.scaled_dot_product_attention(sq, sk, sv, scale=scale) * do).sum(), qkv_g)[0]
-
+    for shape in BWD_SHAPES:
+        rows, split, ctas = plan = fa.bwd_plan(*shape)
+        if shape == BWD_SHAPES[0] and ctas < 128:
+            raise AssertionError(f"the training shape's backward plan {plan} runs {ctas} < 128 "
+                                 "CTAs")
+        args, pair, library_pair = _bwd_case(g, shape)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        dq = fa.flash_bwd_dq(*args)
         sdpa_grads = library_pair()
-        ours = (got["bwd_dq"][0], *got["bwd_dkv"])
+        torch.cuda.synchronize()
         sdpa_err = max(float((a - sdpa_grads[:, :, i].transpose(1, 2)).abs().max())
-                       for i, a in enumerate(ours))
+                       for i, a in enumerate((dq, dk, dv)))
         if not sdpa_err <= 1e-4:
             raise AssertionError(f"the SDPA pair computes other gradients ({sdpa_err})")
-
-        def pair():
-            o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
-            dd = (o * do).sum(-1).contiguous()
-            fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
-            fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
-
         pair_ms, library_pair_ms = graph_ms(pair), graph_ms(library_pair)
-        row_bytes = 3 * b * h * n * 4  # l, m, di
-        for name, kernel, plain, n_out, flops in (
-                ("bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8 * b * h * n * n * d),
-                ("bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6 * b * h * n * n * d)):
-            err = max(float((x - y).abs().max()) for x, y in zip(got[name], want[name]))
+        for name, kernel, plain, bound_ms, bound_by, nbytes, flops in _bwd_kernels(shape):
+            err = _max_err((dk, dv) if name == "bwd_dkv" else dq, plain(*args))
             if not err <= FLASH_ATOL:
                 raise AssertionError(f"flash_attention[{name}] {shape}: max abs err {err:.3e} "
                                      f"> {FLASH_ATOL}")
             ms = graph_ms(lambda: kernel(*args))
             plain_ms = graph_ms(lambda: plain(*args))
-            nbytes = (4 + n_out) * b * h * n * d * 4 + row_bytes
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            log(f"[kernels] flash_attention[{name}] fp32 {shape}: max abs err {err:.3e} "
-                f"(atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-                f"{bound_ms:.6f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
-                f"{flops / 1e6:.1f} MFLOP), {bound_ms / ms:.1%} of bound")
+            log(f"[kernels] flash_attention[{name}] fp32 {shape} plan rows={rows} "
+                f"split={split} ctas={ctas}: max abs err {err:.3e} (atol {FLASH_ATOL}); kernel "
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+                f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), {bound_ms / ms:.1%} of bound")
             if name not in entries:
                 entries[name] = {
                     "name": f"flash_attention[{name}]", "route": "cuda",
                     "source": "mclstexp_tpu_torch/csrc/flash_attention_bwd.cu",
                     "replaces": BWD_REPLACES[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                    "max_abs_err": err, "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
+                    "max_abs_err": err, "plan": {"rows": rows, "split": split, "ctas": ctas},
+                    "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
             entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
         log(f"[kernels] flash forward with residuals + dK/dV + dQ {shape}: {pair_ms:.5f} ms; "
-            f"SDPA forward + backward (torch.autograd.grad) {library_pair_ms:.5f} ms "
-            f"(gradients within {sdpa_err:.1e} of the kernels')")
+            f"SDPA forward + backward (torch.autograd.grad) {library_pair_ms:.5f} ms; pair / "
+            f"SDPA {pair_ms / library_pair_ms:.3f} (gradients within {sdpa_err:.1e} of the "
+            f"kernels')")
     return [entries["bwd_dkv"], entries["bwd_dq"]]
 
+
+BWD_LONG = (1, 16, 4096, 64)  # the JAX bench's whole-slide attention (bench.py:670-714)
+
+
+def phase_flash_bwd_long(entries) -> None:
+    """dK/dV and dQ once at (1, 16, 4,096, 64) fp32 against their plain
+    versions (atol 2e-5), timed by CUDA events over eager launches (a graph
+    of plain calls at this size would hold GBs in its pool), with the pair
+    against SDPA's forward + backward. Bounds as in [kernels]: the flops at
+    the fp32 rate (137 / 103 GFLOP). Adds a ``long`` record to each entry."""
+    import torch
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    rows, split, ctas = fa.bwd_plan(*BWD_LONG)
+    args, pair, library_pair = _bwd_case(torch.Generator(device="cuda").manual_seed(2), BWD_LONG)
+    pair_ms = cuda_ms(pair, iters=10, warmup=2)
+    library_pair_ms = cuda_ms(library_pair, iters=10, warmup=2)
+    for entry, (name, kernel, plain, bound_ms, bound_by, _, flops) in zip(
+            entries, _bwd_kernels(BWD_LONG)):
+        err = _max_err(kernel(*args), plain(*args))
+        if not err <= FLASH_ATOL:
+            raise AssertionError(f"flash_attention[{name}] {BWD_LONG}: max abs err {err:.3e} > "
+                                 f"{FLASH_ATOL}")
+        ms = cuda_ms(lambda: kernel(*args), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+        log(f"[kernels] flash_attention[{name}] fp32 {BWD_LONG} plan rows={rows} split={split} "
+            f"ctas={ctas}: max abs err {err:.3e} (atol {FLASH_ATOL}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP), "
+            f"{bound_ms / ms:.1%} of bound ({flops / ms / 1e9:.1f} TFLOP/s fp32 work)")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["long"] = {"shape": list(BWD_LONG), "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                         "plan": {"rows": rows, "split": split, "ctas": ctas},
+                         "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
+    log(f"[kernels] flash forward with residuals + dK/dV + dQ {BWD_LONG}: {pair_ms:.4f} ms; "
+        f"SDPA forward + backward {library_pair_ms:.4f} ms; pair / SDPA "
+        f"{pair_ms / library_pair_ms:.3f} (events over eager launches), on {card_line()}")
+    del args, pair, library_pair
+    torch.cuda.empty_cache()
 
 
 I32_MIN = -2**31
@@ -1229,6 +1305,7 @@ def main() -> int:
     entries = phase_kernels()
     flash_entry = phase_flash_kernels()
     bwd_entries = phase_flash_bwd_kernels()
+    phase_flash_bwd_long(bwd_entries)
     patch_entry = phase_patches()
     cfg, state, sections, launches = phase_train()
     for entry, layout in zip(entries, ("rows", "cols")):

@@ -14,267 +14,468 @@
 //   dp = dout v^T,          ds = p * (dp - di) * scale
 //   dv = p^T dout,  dk = ds^T q,  dq = ds k
 //
-// Bound: at the training shape (b=1, h=8, n=128, d=64) dK/dV moves q, k, v,
-// dout in and dk, dv out (6*b*h*n*d*4 bytes, 1.6 MB) plus l, m, di and does
-// 8*b*h*n^2*d flops (67 MFLOP); dQ moves 5*b*h*n*d*4 bytes and does
-// 6*b*h*n^2*d flops. At 3.35 TB/s and the fp32 peak of 67 TFLOP/s outside
-// the tensor cores both bounds are about a microsecond: at this size the
-// kernels are bound by latency (few CTAs, each walking its tiles in turn),
-// not by bytes or flops. Tensor cores, cp.async and more CTAs are later
-// work; these kernels are the simple, exact form.
+// Bound: at the training shape (b=1, h=8, n=128, d=64) dK/dV moves 6*b*h*n*d
+// floats (1.6 MB) and does 8*b*h*n^2*d flops (67 MFLOP); dQ 5*b*h*n*d floats
+// and 6*b*h*n^2*d flops. Each is about a microsecond at 3.35 TB/s or at the
+// fp32 rate of 67 TFLOP/s, so at n <= 300 the kernels are bound by latency
+// and the launch: how many CTAs share the walk, and how long each waits for
+// its loads. At n = 4,096 the products rule.
 //
 // Design. The TPU kernels carry their sums across a sequential grid
-// dimension in VMEM scratch (dk_scratch/dv_scratch, dq_scratch). Here a loop
-// inside the CTA takes that dimension's place, the sums stay in registers,
-// and each output row is written once: no atomics, so every run gives the
-// same bits.
-//   flash_bwd_dkv: one CTA per (batch*head, block of R keys). It stages its
-//     K and V rows in shared memory once, then walks all queries in tiles of
-//     T rows (q, dout, m, 1/l, di staged per tile). Each key row is owned by
-//     8 consecutive lanes of one warp: every lane computes T/8 scores and
-//     dp values of the row, writes p and ds to shared memory, and then
-//     accumulates D/8 columns of dv += p^T dout and dk += ds^T q.
-//   flash_bwd_dq: one CTA per (batch*head, block of R queries), the same
-//     layout with the roles swapped: it stages its q and dout rows once and
-//     walks the keys in tiles of T rows, accumulating dq += ds k.
-// R = T = 32 rows at d <= 64 (256 threads), 16 at d = 128 (128 threads),
-// so that static shared memory stays under 48 KB. Any n: query rows past n
-// get p = 0, key rows past n are zero-filled and not written. Any d <= 128:
-// the tile width D is 32, 64 or 128 and columns past d are zero-filled.
-// Inputs are read through strides with the last dimension contiguous (the
-// views of the qkv projection's (b, n, 3, h, d) buffer in place); l, m and
-// di are contiguous (b, h, n); outputs are written through their strides.
+// dimension in VMEM scratch. Here that dimension is split among `split`
+// CTAs, which form one thread-block cluster:
+//   flash_bwd_dkv: one cluster per (batch*head, block of 32 keys); rank r of
+//     the cluster walks its share of the query tiles, tiles [r*T/split,
+//     (r+1)*T/split) of T = ceil(n/32), and keeps partial dk, dv sums.
+//   flash_bwd_dq: one cluster per (batch*head, block of 32 queries), the
+//     same with the key tiles walked and dq summed.
+// At the end each rank writes its partial sums to its own shared memory,
+// the cluster syncs, and rank r adds up rows [r*32/split, (r+1)*32/split)
+// of the block over the ranks' shared memory (distributed shared memory) in
+// rank order 0, 1, ..., split-1, and writes them once. The reduction order
+// is fixed, with no atomics and no scratch tensor: every run gives the same
+// bits. `split` comes from the caller's plan (ops/flash_attention.bwd_plan:
+// the smallest split, at most 8, that puts 132 CTAs on the card).
+//
+// Per walked tile of 32 rows, 8 warps: each computes a 16 x 8 block of the
+// two 32 x 32 score products (s, dp) on the tensor cores, forms p and ds in
+// fp32 registers and writes them to shared memory; then each computes a
+// 16 x D/4 block of the tile's share of its outputs (p^T dout and ds^T q,
+// or ds k) and adds it to its running sums with fp32 adds. Every product is
+// mma.sync m16n8k8 in the 3xTF32 split (flash_common.cuh), so the sums keep
+// fp32 accuracy; no tensor-core accumulation runs longer than a tile. Each
+// value is split into its tf32 parts once, where it lands in shared memory
+// (p and ds where they are formed), and fragments are read with ldmatrix.
+// Tiles are staged by cp.async, 16 bytes at a time where d % 4 == 0 and the
+// pointers and strides allow it, else 4 bytes; the next tile is loaded
+// while this one is computed (two stages). Shared memory is dynamic: 99 KB
+// (dK/dV) and 90 KB (dQ) at D = 64, 181 / 172 KB at D = 128.
+//
+// Any n >= 1: rows past n are zero-filled, masked out of p, and not
+// written. Any d <= 128: the tile width D is 32, 64 or 128 and columns past
+// d are zero-filled. Inputs are read through strides with the last
+// dimension contiguous (the views of the qkv projection's (b, n, 3, h, d)
+// buffer in place); l, m and di are contiguous (b, h, n); outputs are
+// written through their strides.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kLanes = 8;  // threads per owned row
+using flash::cp_async4;
+using flash::tile_at;
+
+constexpr int kRows = 32;      // rows of every tile, owned or walked
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kMaxSplit = 8;   // the portable cluster size
 
 struct Strides {
   long long b, h, n;  // in elements; the head dimension is contiguous
 };
 
-template <int D>
-struct Tile {
-  static constexpr int R = D > 64 ? 16 : 32;  // rows owned by a CTA
-  static constexpr int T = R;                 // rows of the other side per tile
-  static constexpr int kThreads = R * kLanes;
-};
-
-// rows [r0, r0 + ROWS) of a (n, d) matrix with row stride `stride` into
-// shared memory, zero past n and past d.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const float* __restrict__ src,
-                                          long long stride, int r0, int n, int d) {
-  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    const int g = r0 + r;
-    dst[r][c] = (g < n && c < d) ? src[g * stride + c] : 0.f;
+// m, l and di of rows [r0, r0 + 32) of one head into dst[0..32), [32..64),
+// [64..96); zero past n.
+__device__ __forceinline__ void stage_row_stats(float* dst, const float* m, const float* l,
+                                                const float* di, int r0, int n) {
+  const int i = threadIdx.x;
+  if (i < 3 * kRows) {
+    const float* src = i < kRows ? m : (i < 2 * kRows ? l : di);
+    const int r = r0 + i % kRows;
+    cp_async4(dst + i, r < n ? src + r : src, r < n);
   }
 }
 
-// dot of two shared-memory rows of width D
+template <int D, bool kVec>
+__device__ __forceinline__ void stage_tile(float* hi, const float* src, long long stride, int r0,
+                                           int n, int d) {
+  flash::stage_rows<kRows, D, kThreads, kVec>(hi, src, stride, r0, n, d);
+}
+
+template <int D, bool kVec>
+__device__ __forceinline__ void split_tile(float* hi, float* lo) {
+  flash::split_staged<kRows, D, kThreads, kVec>(hi, lo);
+}
+
+// l -> 1/l in staged row stats, by the threads that staged l (after their
+// cp_async_wait): p is then one multiply. Rows past n give inf, masked.
+__device__ __forceinline__ void invert_l(float* stats) {
+  if (threadIdx.x >= kRows && threadIdx.x < 2 * kRows)
+    stats[threadIdx.x] = 1.f / stats[threadIdx.x];
+}
+
+// Rows [r0, r1) of this rank's share of a 32 x D block: sum the ranks'
+// partial blocks (tiles of width D in each rank's shared memory at `red`)
+// in rank order and write rows that lie below n, columns below d.
 template <int D>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll 16
-  for (int e = 0; e < D; ++e) s = fmaf(a[e], b[e], s);
-  return s;
+__device__ __forceinline__ void reduce_rows(cg::cluster_group& cluster, float* red, int split,
+                                            float* out, long long stride, int row0, int n,
+                                            int d) {
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int r0 = rank * kRows / split, r1 = (rank + 1) * kRows / split;
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < (r1 - r0) * kChunks; i += kThreads) {
+    const int r = r0 + i / kChunks, c = (i % kChunks) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < split; ++src) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, src) + tile_at<D>(r, c));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    if (row0 + r < n) {
+      float* o = out + (row0 + r) * stride + c;
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < d) o[e] = v[e];
+    }
+  }
+}
+
+// A warp's 16 x D/4 accumulator fragments (kN of 16 x 8) into a tile of
+// width D at rows m0.., columns c0..
+template <int D, int kN>
+__device__ __forceinline__ void store_acc(float* tile, const float (&acc)[kN][4], int m0,
+                                          int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g, c)) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g + 8, c)) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(Tile<D>::kThreads)
+struct Smem {
+  static constexpr int kTile = kRows * D;  // floats of a 32 x D tile
+  static constexpr int kScores = kRows * kRows;
+  // dK/dV: k, v (owned; big and small parts), 2 stages of q, dout, their
+  // small parts, p and ds (big and small), 2 stages of m, l, di
+  static constexpr int kDkv = 10 * kTile + 4 * kScores + 2 * 3 * kRows;
+  // dQ: q, dout (owned; big and small), 2 stages of k, v, their small
+  // parts, ds (big and small), m, l, di of the owned rows
+  static constexpr int kDq = 10 * kTile + 2 * kScores + 3 * kRows;
+};
+
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ l, const float* __restrict__ m,
                   const float* __restrict__ di, float* __restrict__ dk,
                   float* __restrict__ dv, Strides sq, Strides sk, Strides sv, Strides sdo,
-                  Strides sdk, Strides sdv, int heads, int n, int d, float scale) {
-  constexpr int R = Tile<D>::R, T = Tile<D>::T;
-  constexpr int kScores = T / kLanes;  // query scores per thread per tile
-  constexpr int kCols = D / kLanes;    // dk and dv columns per thread
-  // Rows padded by one word, so the 8 rows a warp reads at once in the dot
-  // products fall in different banks.
-  __shared__ float ks[R][D + 1];
-  __shared__ float vs[R][D + 1];
-  __shared__ float qs[T][D + 1];
-  __shared__ float dos[T][D + 1];
-  __shared__ float ps[R][T + 1];
-  __shared__ float dss[R][T + 1];
-  __shared__ float ms[T], linv[T], dis[T];
+                  Strides sdk, Strides sdv, int heads, int n, int d, int split, float scale) {
+  constexpr int T = Smem<D>::kTile, P = Smem<D>::kScores;
+  constexpr int kCols = D / 4;  // output columns per warp
+  constexpr int kN = kCols / 8;  // their 16 x 8 fragments
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;  // each tile's small parts follow it: ks + T, vs + T
+  float* vs = ks + 2 * T;
+  float* stage = vs + 2 * T;  // stage s: q at stage + 2sT, dout at + T
+  float* q_lo = stage + 4 * T;
+  float* do_lo = q_lo + T;
+  float* ps = do_lo + T;  // 32 keys x 32 queries, then its small parts
+  float* dss = ps + 2 * P;
+  float* stats = dss + 2 * P;  // stage s: m, 1/l, di at stats + 96s
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / split;
   const long long b = bh / heads;
   const long long h = bh - b * heads;
-  const int k0 = blockIdx.y * R;
-  const int row = threadIdx.x / kLanes;  // the key row this thread works on
-  const int lane = threadIdx.x % kLanes;
+  const int k0 = blockIdx.y * kRows;
+  const int tiles = (n + kRows - 1) / kRows;
+  const int first = rank * tiles / split, last = (rank + 1) * tiles / split;
   const long long rb = static_cast<long long>(bh) * n;  // l, m, di of this head
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
-  load_rows<R, D>(ks, k + b * sk.b + h * sk.h, sk.n, k0, n, d);
-  load_rows<R, D>(vs, v + b * sv.b + h * sv.h, sv.n, k0, n, d);
+  stage_tile<D, kVec>(ks, k + b * sk.b + h * sk.h, sk.n, k0, n, d);
+  stage_tile<D, kVec>(vs, v + b * sv.b + h * sv.h, sv.n, k0, n, d);
+  auto stage_walk = [&](int tile, int s) {
+    stage_tile<D, kVec>(stage + 2 * s * T, qb, sq.n, tile * kRows, n, d);
+    stage_tile<D, kVec>(stage + 2 * s * T + T, dob, sdo.n, tile * kRows, n, d);
+    stage_row_stats(stats + 3 * kRows * s, m + rb, l + rb, di + rb, tile * kRows, n);
+  };
+  if (first < last) stage_walk(first, 0);
+  flash::cp_async_commit();
 
-  float acc_dk[kCols], acc_dv[kCols];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 16;      // the warp's 16 keys of the block
+  const int n0 = (warp >> 1) * 8;      // its 8 queries of the score tile
+  const int c0 = (warp >> 1) * kCols;  // its columns of dk and dv
+  const flash::Frag<D> fk = flash::frag_a<D>(m0);      // k, v rows
+  const flash::Frag<D> fq = flash::frag_bt<D>(n0);     // q, dout rows
+  const flash::Frag<kRows> fp = flash::frag_a<kRows>(m0);  // p, ds rows
+  flash::FragB<D> fo[kN];  // q, dout columns of the output fragments
 #pragma unroll
-  for (int e = 0; e < kCols; ++e) acc_dk[e] = acc_dv[e] = 0.f;
+  for (int j = 0; j < kN; ++j) fo[j] = flash::FragB<D>(c0 + 8 * j);
+  float acc_dk[kN][4] = {}, acc_dv[kN][4] = {};
 
-  for (int q0 = 0; q0 < n; q0 += T) {
-    __syncthreads();  // the previous tile's qs/dos/ps/dss are no longer read
-    load_rows<T, D>(qs, qb, sq.n, q0, n, d);
-    load_rows<T, D>(dos, dob, sdo.n, q0, n, d);
-    for (int i = threadIdx.x; i < T; i += blockDim.x) {
-      const int qi = q0 + i;
-      const bool ok = qi < n;
-      ms[i] = ok ? m[rb + qi] : 0.f;
-      linv[i] = ok ? 1.f / l[rb + qi] : 0.f;
-      dis[i] = ok ? di[rb + qi] : 0.f;
+  for (int it = first; it < last; ++it) {
+    const int s = (it - first) & 1;
+    if (it + 1 < last) stage_walk(it + 1, s ^ 1);
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // this tile's copies (the next tile's may fly)
+    float* qs = stage + 2 * s * T;
+    float* dos = qs + T;
+    float* st = stats + 3 * kRows * s;
+    if (it == first) {
+      split_tile<D, kVec>(ks, ks + T);
+      split_tile<D, kVec>(vs, vs + T);
+    }
+    split_tile<D, kVec>(qs, q_lo);
+    split_tile<D, kVec>(dos, do_lo);
+    invert_l(st);
+    __syncthreads();
+    const int q0 = it * kRows;
+
+    // s^T = k q^T and dp^T = v dout^T: the warp's 16 keys x 8 queries
+    float sc[3][4] = {}, dp[3][4] = {};
+#pragma unroll
+    for (int e = 0; e < D; e += 8) {
+      flash::mma_3xtf32(sc, flash::load_a(ks, ks + T, fk, e), flash::load_b_t(qs, q_lo, fq, e));
+      flash::mma_3xtf32(dp, flash::load_a(vs, vs + T, fk, e), flash::load_b_t(dos, do_lo, fq, e));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + g + 8 * (i >> 1);  // key in the block
+      const int c = n0 + 2 * t + (i & 1);   // query in the tile
+      const float e = expf(flash::sum3(sc, i) * scale - st[c]) * st[kRows + c];
+      const float p = q0 + c < n && k0 + r < n ? e : 0.f;
+      const int at = tile_at<kRows>(r, c);
+      flash::split_tf32(p, ps[at], ps[P + at]);
+      flash::split_tf32(p * (flash::sum3(dp, i) - st[2 * kRows + c]) * scale, dss[at],
+                        dss[P + at]);
     }
     __syncthreads();
 
+    // dv += p^T dout, dk += ds^T q over the tile's 32 queries
+    float tv[kN][3][4] = {}, tk[kN][3][4] = {};
 #pragma unroll
-    for (int t = 0; t < kScores; ++t) {
-      const int c = lane + kLanes * t;  // query row in the tile
-      const float s = dot<D>(ks[row], qs[c]) * scale;
-      const float dp = dot<D>(vs[row], dos[c]);
-      const float p = (q0 + c < n) ? expf(s - ms[c]) * linv[c] : 0.f;
-      ps[row][c] = p;
-      dss[row][c] = p * (dp - dis[c]) * scale;
-    }
-    __syncwarp();  // a row's p and ds are written and read by one warp
-
-    const int qmax = min(T, n - q0);
-    for (int c = 0; c < qmax; ++c) {
-      const float p = ps[row][c];
-      const float ds = dss[row][c];
+    for (int e = 0; e < kRows; e += 8) {
+      const flash::Split<4> pa = flash::load_a(ps, ps + P, fp, e);
+      const flash::Split<4> da = flash::load_a(dss, dss + P, fp, e);
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) {
-        const int col = lane + kLanes * e;
-        acc_dv[e] = fmaf(p, dos[c][col], acc_dv[e]);
-        acc_dk[e] = fmaf(ds, qs[c][col], acc_dk[e]);
+      for (int j = 0; j < kN; ++j) {
+        flash::mma_3xtf32(tv[j], pa, flash::load_b(dos, do_lo, fo[j], e));
+        flash::mma_3xtf32(tk[j], da, flash::load_b(qs, q_lo, fo[j], e));
       }
     }
-  }
-
-  const int kj = k0 + row;
-  if (kj < n) {
-    float* dkb = dk + b * sdk.b + h * sdk.h + kj * sdk.n;
-    float* dvb = dv + b * sdv.b + h * sdv.h + kj * sdv.n;
 #pragma unroll
-    for (int e = 0; e < kCols; ++e) {
-      const int col = lane + kLanes * e;
-      if (col < d) {
-        dkb[col] = acc_dk[e];
-        dvb[col] = acc_dv[e];
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc_dv[j][i] += flash::sum3(tv[j], i);
+        acc_dk[j][i] += flash::sum3(tk[j], i);
       }
-    }
+    __syncthreads();  // stage s, the small parts and ps/dss are free
   }
+  flash::cp_async_wait<0>();
+
+  // The stage area holds the partial sums now (no thread reads it anymore).
+  store_acc<D, kN>(stage, acc_dk, m0, c0);
+  store_acc<D, kN>(stage + T, acc_dv, m0, c0);
+  cluster.sync();
+  reduce_rows<D>(cluster, stage, split, dk + b * sdk.b + h * sdk.h, sdk.n, k0, n, d);
+  reduce_rows<D>(cluster, stage + T, split, dv + b * sdv.b + h * sdv.h, sdv.n, k0, n, d);
+  cluster.sync();  // every rank's shared memory stays until all have read it
 }
 
-template <int D>
-__global__ void __launch_bounds__(Tile<D>::kThreads)
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ l, const float* __restrict__ m,
                  const float* __restrict__ di, float* __restrict__ dq, Strides sq, Strides sk,
-                 Strides sv, Strides sdo, Strides sdq, int heads, int n, int d, float scale) {
-  constexpr int R = Tile<D>::R, T = Tile<D>::T;
-  constexpr int kScores = T / kLanes;  // key scores per thread per tile
-  constexpr int kCols = D / kLanes;    // dq columns per thread
-  __shared__ float qs[R][D + 1];
-  __shared__ float dos[R][D + 1];
-  __shared__ float ks[T][D + 1];
-  __shared__ float vs[T][D + 1];
-  __shared__ float dss[R][T + 1];
+                 Strides sv, Strides sdo, Strides sdq, int heads, int n, int d, int split,
+                 float scale) {
+  constexpr int T = Smem<D>::kTile, P = Smem<D>::kScores;
+  constexpr int kCols = D / 4;
+  constexpr int kN = kCols / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;  // each tile's small parts follow it: qs + T, dos + T
+  float* dos = qs + 2 * T;
+  float* stage = dos + 2 * T;  // stage s: k at stage + 2sT, v at + T
+  float* k_lo = stage + 4 * T;
+  float* v_lo = k_lo + T;
+  float* dss = v_lo + T;  // 32 queries x 32 keys, then its small parts
+  float* stats = dss + 2 * P;  // m, 1/l, di of the owned queries
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / split;
   const long long b = bh / heads;
   const long long h = bh - b * heads;
-  const int q0 = blockIdx.y * R;
-  const int row = threadIdx.x / kLanes;  // the query row this thread works on
-  const int lane = threadIdx.x % kLanes;
-  const int qi = q0 + row;
+  const int q0 = blockIdx.y * kRows;
+  const int tiles = (n + kRows - 1) / kRows;
+  const int first = rank * tiles / split, last = (rank + 1) * tiles / split;
   const long long rb = static_cast<long long>(bh) * n;
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  load_rows<R, D>(qs, q + b * sq.b + h * sq.h, sq.n, q0, n, d);
-  load_rows<R, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, n, d);
-  const bool live = qi < n;
-  const float mi = live ? m[rb + qi] : 0.f;
-  const float linv = live ? 1.f / l[rb + qi] : 0.f;
-  const float dii = live ? di[rb + qi] : 0.f;
+  stage_tile<D, kVec>(qs, q + b * sq.b + h * sq.h, sq.n, q0, n, d);
+  stage_tile<D, kVec>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, n, d);
+  stage_row_stats(stats, m + rb, l + rb, di + rb, q0, n);
+  auto stage_walk = [&](int tile, int s) {
+    stage_tile<D, kVec>(stage + 2 * s * T, kb, sk.n, tile * kRows, n, d);
+    stage_tile<D, kVec>(stage + 2 * s * T + T, vb, sv.n, tile * kRows, n, d);
+  };
+  if (first < last) stage_walk(first, 0);
+  flash::cp_async_commit();
 
-  float acc[kCols];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 16;      // the warp's 16 queries of the block
+  const int n0 = (warp >> 1) * 8;      // its 8 keys of the score tile
+  const int c0 = (warp >> 1) * kCols;  // its columns of dq
+  const flash::Frag<D> fq = flash::frag_a<D>(m0);      // q, dout rows
+  const flash::Frag<D> fk = flash::frag_bt<D>(n0);     // k, v rows
+  const flash::Frag<kRows> fs = flash::frag_a<kRows>(m0);  // ds rows
+  flash::FragB<D> fo[kN];  // k columns of the output fragments
 #pragma unroll
-  for (int e = 0; e < kCols; ++e) acc[e] = 0.f;
+  for (int j = 0; j < kN; ++j) fo[j] = flash::FragB<D>(c0 + 8 * j);
+  float acc[kN][4] = {};
 
-  for (int k0 = 0; k0 < n; k0 += T) {
-    __syncthreads();  // the previous tile's ks/vs/dss are no longer read
-    load_rows<T, D>(ks, kb, sk.n, k0, n, d);
-    load_rows<T, D>(vs, vb, sv.n, k0, n, d);
+  for (int it = first; it < last; ++it) {
+    const int s = (it - first) & 1;
+    if (it + 1 < last) stage_walk(it + 1, s ^ 1);
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();
+    float* ks = stage + 2 * s * T;
+    float* vs = ks + T;
+    if (it == first) {
+      split_tile<D, kVec>(qs, qs + T);
+      split_tile<D, kVec>(dos, dos + T);
+      invert_l(stats);
+    }
+    split_tile<D, kVec>(ks, k_lo);
+    split_tile<D, kVec>(vs, v_lo);
+    __syncthreads();
+    const int kt0 = it * kRows;
+
+    // s = q k^T and dp = dout v^T: the warp's 16 queries x 8 keys
+    float sc[3][4] = {}, dp[3][4] = {};
+#pragma unroll
+    for (int e = 0; e < D; e += 8) {
+      flash::mma_3xtf32(sc, flash::load_a(qs, qs + T, fq, e), flash::load_b_t(ks, k_lo, fk, e));
+      flash::mma_3xtf32(dp, flash::load_a(dos, dos + T, fq, e), flash::load_b_t(vs, v_lo, fk, e));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + g + 8 * (i >> 1);  // query in the block
+      const int c = n0 + 2 * t + (i & 1);   // key in the tile
+      const float e = expf(flash::sum3(sc, i) * scale - stats[r]) * stats[kRows + r];
+      const float p = q0 + r < n && kt0 + c < n ? e : 0.f;
+      const int at = tile_at<kRows>(r, c);
+      flash::split_tf32(p * (flash::sum3(dp, i) - stats[2 * kRows + r]) * scale, dss[at],
+                        dss[P + at]);
+    }
     __syncthreads();
 
+    // dq += ds k over the tile's 32 keys
+    float tq[kN][3][4] = {};
 #pragma unroll
-    for (int t = 0; t < kScores; ++t) {
-      const int c = lane + kLanes * t;  // key row in the tile
-      const float s = dot<D>(qs[row], ks[c]) * scale;
-      const float dp = dot<D>(dos[row], vs[c]);
-      const float p = (live && k0 + c < n) ? expf(s - mi) * linv : 0.f;
-      dss[row][c] = p * (dp - dii) * scale;
-    }
-    __syncwarp();  // a row's ds is written and read by one warp
-
-    const int kmax = min(T, n - k0);
-    for (int c = 0; c < kmax; ++c) {
-      const float ds = dss[row][c];
+    for (int e = 0; e < kRows; e += 8) {
+      const flash::Split<4> da = flash::load_a(dss, dss + P, fs, e);
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) acc[e] = fmaf(ds, ks[c][lane + kLanes * e], acc[e]);
+      for (int j = 0; j < kN; ++j) flash::mma_3xtf32(tq[j], da, flash::load_b(ks, k_lo, fo[j], e));
     }
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += flash::sum3(tq[j], i);
+    __syncthreads();
   }
+  flash::cp_async_wait<0>();
 
-  if (live) {
-    float* dqb = dq + b * sdq.b + h * sdq.h + qi * sdq.n;
-#pragma unroll
-    for (int e = 0; e < kCols; ++e) {
-      const int col = lane + kLanes * e;
-      if (col < d) dqb[col] = acc[e];
-    }
+  store_acc<D, kN>(stage, acc, m0, c0);
+  cluster.sync();
+  reduce_rows<D>(cluster, stage, split, dq + b * sdq.b + h * sdq.h, sdq.n, q0, n, d);
+  cluster.sync();
+}
+
+bool valid(int batch, int heads, int n, int d, int rows, int split) {
+  if (batch < 1 || heads < 1 || n < 1 || d < 1 || d > 128 || rows != kRows) return false;
+  const long long tiles = (static_cast<long long>(n) + kRows - 1) / kRows;
+  return tiles <= 65535 && split >= 1 && split <= kMaxSplit && split <= tiles &&
+         static_cast<long long>(batch) * heads * split <= 0x7fffffffLL;
+}
+
+// 16-byte staging: d % 4 == 0 and every input 16-byte aligned with strides
+// that are multiples of 4 elements.
+bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d) {
+  if (d % 4 != 0) return false;
+  for (int i = 0; i < count; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] % 4 != 0) return false;
   }
+  return true;
 }
 
-template <int D>
-dim3 grid_of(int batch, int heads, int n) {
-  return dim3(static_cast<unsigned int>(batch) * static_cast<unsigned int>(heads),
-              static_cast<unsigned int>((n + Tile<D>::R - 1) / Tile<D>::R));
+// One launch of `kernel` on a grid of (batch*heads*split, ceil(n/32))
+// blocks in clusters of (split, 1, 1).
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int smem_floats, int batch, int heads, int n,
+                   int split, cudaStream_t stream, Args... args) {
+  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(batch * heads * split),
+                        static_cast<unsigned>((n + kRows - 1) / kRows));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-bool valid(int batch, int heads, int n, int d) {
-  const int rows = d > 64 ? Tile<128>::R : Tile<64>::R;
-  return batch >= 1 && heads >= 1 && n >= 1 && d >= 1 && d <= 128 &&
-         (n + rows - 1) / rows <= 65535;
+template <int D, bool kVec>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
+                       const float* l, const float* m, const float* di, float* dk, float* dv,
+                       const Strides* s, int batch, int heads, int n, int d, int split,
+                       float scale, cudaStream_t stream) {
+  return launch(flash_bwd_dkv<D, kVec>, Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v,
+                dout, l, m, di, dk, dv, s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d, split,
+                scale);
 }
 
-template <int D>
-void launch_dkv(const float* q, const float* k, const float* v, const float* dout,
-                const float* l, const float* m, const float* di, float* dk, float* dv,
-                const Strides* s, int batch, int heads, int n, int d, float scale,
-                cudaStream_t stream) {
-  flash_bwd_dkv<D><<<grid_of<D>(batch, heads, n), Tile<D>::kThreads, 0, stream>>>(
-      q, k, v, dout, l, m, di, dk, dv, s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d,
-      scale);
+template <int D, bool kVec>
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
+                      const float* l, const float* m, const float* di, float* dq,
+                      const Strides* s, int batch, int heads, int n, int d, int split,
+                      float scale, cudaStream_t stream) {
+  return launch(flash_bwd_dq<D, kVec>, Smem<D>::kDq, batch, heads, n, split, stream, q, k, v,
+                dout, l, m, di, dq, s[0], s[1], s[2], s[3], s[4], heads, n, d, split, scale);
 }
 
-template <int D>
-void launch_dq(const float* q, const float* k, const float* v, const float* dout,
-               const float* l, const float* m, const float* di, float* dq, const Strides* s,
-               int batch, int heads, int n, int d, float scale, cudaStream_t stream) {
-  flash_bwd_dq<D><<<grid_of<D>(batch, heads, n), Tile<D>::kThreads, 0, stream>>>(
-      q, k, v, dout, l, m, di, dq, s[0], s[1], s[2], s[3], s[4], heads, n, d, scale);
-}
+// the D and staging variant for d and the inputs, then fn<D, kVec>(...)
+#define FLASH_BWD_DISPATCH(fn, vec, d, ...)                                          \
+  ((d) <= 32   ? ((vec) ? fn<32, true>(__VA_ARGS__) : fn<32, false>(__VA_ARGS__))    \
+   : (d) <= 64 ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))    \
+               : ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -282,59 +483,41 @@ void launch_dq(const float* q, const float* k, const float* v, const float* dout
 // the given element strides (3 per tensor: batch, head, row; the last
 // dimension contiguous); l, m, di: contiguous fp32 (batch, heads, n); dk,
 // dv: written as (batch, heads, n, d) through their strides. 1 <= d <= 128,
-// n >= 1. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// n >= 1. The plan: rows per tile (32) and the split of the walked side
+// (1..8, at most ceil(n/32)). Launches once on `stream` and returns the
+// launch's error or cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
     const void* m, const void* di, void* dk, void* dv, const long long* strides, int batch,
-    int heads, int n, int d, float scale, void* stream) {
-  if (!valid(batch, heads, n, d)) return static_cast<int>(cudaErrorInvalidValue);
+    int heads, int n, int d, int rows, int split, float scale, void* stream) {
+  if (!valid(batch, heads, n, d, rows, split)) return static_cast<int>(cudaErrorInvalidValue);
   Strides s[6];
   for (int i = 0; i < 6; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* dof = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(l);
-  const float* mf = static_cast<const float*>(m);
-  const float* dif = static_cast<const float*>(di);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 32) {
-    launch_dkv<32>(qf, kf, vf, dof, lf, mf, dif, dkf, dvf, s, batch, heads, n, d, scale, st);
-  } else if (d <= 64) {
-    launch_dkv<64>(qf, kf, vf, dof, lf, mf, dif, dkf, dvf, s, batch, heads, n, d, scale, st);
-  } else {
-    launch_dkv<128>(qf, kf, vf, dof, lf, mf, dif, dkf, dvf, s, batch, heads, n, d, scale, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* inputs[4] = {q, k, v, dout};
+  const bool vec = vec_ok(inputs, strides, 4, d);
+  return static_cast<int>(FLASH_BWD_DISPATCH(
+      launch_dkv, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(l), static_cast<const float*>(m),
+      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), s, batch,
+      heads, n, d, split, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The same inputs; dq written as (batch, heads, n, d) through its strides
-// (5 stride triples: q, k, v, dout, dq).
+// The same inputs and plan; dq written as (batch, heads, n, d) through its
+// strides (5 stride triples: q, k, v, dout, dq).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
     const void* m, const void* di, void* dq, const long long* strides, int batch, int heads,
-    int n, int d, float scale, void* stream) {
-  if (!valid(batch, heads, n, d)) return static_cast<int>(cudaErrorInvalidValue);
+    int n, int d, int rows, int split, float scale, void* stream) {
+  if (!valid(batch, heads, n, d, rows, split)) return static_cast<int>(cudaErrorInvalidValue);
   Strides s[5];
   for (int i = 0; i < 5; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* dof = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(l);
-  const float* mf = static_cast<const float*>(m);
-  const float* dif = static_cast<const float*>(di);
-  float* dqf = static_cast<float*>(dq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 32) {
-    launch_dq<32>(qf, kf, vf, dof, lf, mf, dif, dqf, s, batch, heads, n, d, scale, st);
-  } else if (d <= 64) {
-    launch_dq<64>(qf, kf, vf, dof, lf, mf, dif, dqf, s, batch, heads, n, d, scale, st);
-  } else {
-    launch_dq<128>(qf, kf, vf, dof, lf, mf, dif, dqf, s, batch, heads, n, d, scale, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* inputs[4] = {q, k, v, dout};
+  const bool vec = vec_ok(inputs, strides, 4, d);
+  return static_cast<int>(FLASH_BWD_DISPATCH(
+      launch_dq, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(l), static_cast<const float*>(m),
+      static_cast<const float*>(di), static_cast<float*>(dq), s, batch, heads, n, d, split,
+      scale, static_cast<cudaStream_t>(stream)));
 }

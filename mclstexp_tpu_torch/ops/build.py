@@ -3,8 +3,9 @@
 Each kernel source has a plain C entry point and is compiled at first use
 with ``nvcc`` for ``sm_90a`` into ``<checkout>/build/kernels/`` (listed in
 ``.gitignore``), then loaded with ``ctypes``. The file name carries a hash
-of the source and flags, so an edited source is rebuilt and never confused
-with a stale library.
+of the source, the ``csrc`` headers it includes (``#include "..."``, followed
+through other headers) and the flags, so an edited source or header is
+rebuilt and never confused with a stale library.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,13 +35,32 @@ def nvcc_path() -> str:
     return nvcc
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(source: str) -> str:
+    """A hash of ``csrc/<source>``, every header of ``csrc`` it includes
+    (directly or through another header) and the nvcc flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        text = (CSRC / name).read_bytes()
+        h.update(name.encode() + b"\0" + text)
+        todo += sorted(m.decode() for m in _LOCAL_INCLUDE.findall(text))
+    return h.hexdigest()[:12]
+
+
 def build_library(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` unless an up-to-date build exists.
 
     Returns (library path, compiler output; empty when the build was reused).
     """
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = source_digest(source)
     lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if lib.exists():
         return lib, ""

@@ -13,7 +13,13 @@ flash_attention``, jax 0.9.0), forward and backward:
   call :1121) and dQ, same file (``_flash_attention_bwd_dq``, call :1456):
   from q, k, v, dout, l, m and ``di = rowsum(out * dout)`` they recompute
   ``p = exp(s - m) / l`` and give ``dv = p^T dout``, ``dk = ds^T q`` and
-  ``dq = ds k`` with ``ds = p * (dout v^T - di) * scale``.
+  ``dq = ds k`` with ``ds = p * (dout v^T - di) * scale``. Each block of 32
+  keys (queries) is one thread-block cluster of ``split`` CTAs, which share
+  the walk over the query (key) tiles and add their partial sums over
+  distributed shared memory in a fixed order (deterministic, no atomics);
+  ``bwd_plan`` chooses ``split``. The products run on the tensor cores in
+  the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the plain
+  versions; one plain TF32 product would not be).
 
 ``attention_plain`` is the spot tower's fused-matmul path ("xla"): it serves
 CPU tensors without a gradient and the key mask. ``flash_forward_plain``,
@@ -33,7 +39,8 @@ projection's buffer itself.
 
 The kernels' shape rule (the TPU kernel's ``n % 128 == 0 and d >= 64`` is a
 TPU tiling limit and does not apply): float32 q, k, v of one shape (b, h, n,
-d) on one card, any n >= 1 with ceil(n / 32) <= 65535, and 1 <= d <= 128;
+d) on one card, any n >= 1 with ceil(n / 32) <= 65535 (and b * h * split <
+2**31 for the backward), and 1 <= d <= 128;
 each tensor's last dimension contiguous, any strides otherwise, so the (b,
 n, 3, h, d) qkv buffer's views are read in place. Outputs are (b, n, h, d)
 buffers returned as their (b, h, n, d) views. A CUDA call outside the rule
@@ -56,6 +63,9 @@ SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
 BLOCK_Q = 32  # query rows per forward CTA: the grid's second dimension is ceil(n / 32)
+BWD_ROWS = 32  # rows of every backward tile, owned or walked
+MAX_SPLIT = 8  # CTAs of a backward cluster: the portable cluster size
+CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 @functools.cache
@@ -72,7 +82,8 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_SOURCE)
     head = [ctypes.c_void_p] * 7  # q, k, v, dout, l, m, di
-    tail = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [ctypes.c_float,
+    # strides; b, h, n, d, then the plan's rows and split; scale, stream
+    tail = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                         ctypes.c_void_p]
     lib.flash_attention_bwd_dkv_launch.argtypes = head + [ctypes.c_void_p] * 2 + tail
     lib.flash_attention_bwd_dq_launch.argtypes = head + [ctypes.c_void_p] + tail
@@ -185,6 +196,30 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return (out, l, m) if residuals else out
 
 
+def bwd_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
+    """(rows, split, ctas) of the backward kernels at (b, h, n, d).
+
+    Each kernel owns blocks of ``rows`` = 32 keys (dK/dV) or queries (dQ),
+    b * h * ceil(n / 32) of them, and splits the walk over the other side's
+    ceil(n / 32) tiles among ``split`` CTAs of one cluster: the smallest
+    split in 1..min(8, tiles) that puts at least 132 CTAs (one per SM) on
+    the card, else the cap. ``ctas`` = blocks * split. Raises ValueError
+    outside the kernels' limits."""
+    if min(b, h, n) < 1 or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the backward kernels take b, h, n >= 1 and 1 <= d <= {MAX_HEAD_DIM}, "
+                         f"got {(b, h, n, d)}")
+    tiles = -(-n // BWD_ROWS)
+    if tiles > 65535:
+        raise ValueError(f"the backward kernels take n <= {65535 * BWD_ROWS}, got {n}")
+    blocks = b * h * tiles
+    cap = min(MAX_SPLIT, tiles)
+    split = next((s for s in range(1, cap + 1) if blocks * s >= CARD_SMS), cap)
+    if b * h * split >= 2**31:
+        raise ValueError(f"the backward kernels take b * h * split < 2**31, got {b} * {h} * "
+                         f"{split}")
+    return BWD_ROWS, split, blocks * split
+
+
 def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
     check_kernel_inputs(q, k, v)
     if do.shape != q.shape or do.dtype != torch.float32 or do.stride(-1) != 1:
@@ -203,10 +238,11 @@ def _bwd_launch(fn, outs, q, k, v, do, l, m, di, scale: float) -> None:
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *(s for t in tensors for s in t.stride()[:3]))
     b, h, n, d = q.shape
+    rows, split, _ = bwd_plan(b, h, n, d)
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in (q, k, v, do, l, m, di)),
-                 *(t.data_ptr() for t in outs), strides, b, h, n, d, float(scale),
-                 torch.cuda.current_stream().cuda_stream)
+                 *(t.data_ptr() for t in outs), strides, b, h, n, d, rows, split,
+                 float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA error {err}")
 

@@ -134,3 +134,72 @@ def test_flash_kernel_shape_rule():
     strided = torch.zeros((1, 1, 4, 16))[..., ::2]
     with pytest.raises(ValueError, match="last dimension contiguous"):
         fa.check_kernel_inputs(strided, strided, strided)
+
+
+BWD_PLAN_SHAPES = [(1, 8, 128, 64), (1, 8, 66, 64), (1, 8, 300, 64), (1, 16, 4096, 64),
+                   (1, 1, 1000, 64), (2, 4, 1, 16), (1, 1, 33, 128), (64, 8, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", BWD_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_plan_covers_every_row_once_and_fills_the_card(shape):
+    """The backward kernels' grid plan: blocks of ``rows`` cover the n rows
+    of each head once; the split's shares of the walked tiles (rank r walks
+    [r * T // split, (r + 1) * T // split)) and of the reduced block rows
+    ([r * rows // split, ...)) cover each once, every rank with at least one
+    tile; 1 <= split <= min(8, T); 132 CTAs or more unless split is at its
+    cap, and no smaller split reaches 132."""
+    b, h, n, d = shape
+    rows, split, ctas = fa.bwd_plan(b, h, n, d)
+    tiles = -(-n // rows)
+    assert rows == 32 and (tiles - 1) * rows < n <= tiles * rows
+    cap = min(8, tiles)
+    assert 1 <= split <= cap and ctas == b * h * tiles * split
+    assert ctas >= 132 or split == cap
+    assert split == 1 or b * h * tiles * (split - 1) < 132
+    for count, parts in ((tiles, split), (rows, split)):
+        shares = [range(r * count // parts, (r + 1) * count // parts) for r in range(parts)]
+        assert sorted(i for s in shares for i in s) == list(range(count))
+        assert all(len(s) >= 1 for s in shares)
+
+
+def test_bwd_plan_at_the_spot_tower_and_whole_slide_shapes():
+    """The training shape fills the card with 4 splits of its 4 tiles (128
+    CTAs, from 32 blocks); the remainder batch and a ragged length split 3
+    and 2 ways; (1, 1, 1000, 64) 5 ways, 6-7 tiles each with a ragged last
+    tile of 8 rows; the whole-slide width (2,048 blocks) needs no split."""
+    assert fa.bwd_plan(1, 8, 128, 64) == (32, 4, 128)
+    assert fa.bwd_plan(1, 8, 66, 64) == (32, 3, 72)
+    assert fa.bwd_plan(1, 8, 300, 64) == (32, 2, 160)
+    assert fa.bwd_plan(1, 1, 1000, 64) == (32, 5, 160)
+    assert 1000 % 32 == 8 and [(r + 1) * 32 // 5 - r * 32 // 5 for r in range(5)] == [6, 6, 7,
+                                                                                      6, 7]
+    assert fa.bwd_plan(1, 16, 4096, 64) == (32, 1, 2048)
+
+
+@pytest.mark.parametrize("shape, match", [
+    ((1, 8, 128, 0), "d <= 128"), ((1, 8, 128, 129), "d <= 128"), ((0, 8, 128, 64), "n >= 1"),
+    ((1, 8, 0, 64), "n >= 1"), ((1, 1, 65535 * 32 + 1, 64), "n <= 2097120"),
+    ((2**20, 2**11, 32, 64), "2\\*\\*31")])
+def test_bwd_plan_raises_outside_the_kernels_limits(shape, match):
+    with pytest.raises(ValueError, match=match):
+        fa.bwd_plan(*shape)
+
+
+def test_kernel_build_digest_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library's name hashes its source and the csrc headers it
+    includes, through other headers, so an edited header rebuilds."""
+    from mclstexp_tpu_torch.ops import build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.source_digest("k.cu")
+    assert build.source_digest("k.cu") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = build.source_digest("k.cu")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert len({first, second, build.source_digest("k.cu")}) == 3
+    # the port's backward source includes the shared header
+    monkeypatch.undo()
+    assert b'#include "flash_common.cuh"' in (build.CSRC / fa.BWD_SOURCE).read_bytes()

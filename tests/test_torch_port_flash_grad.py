@@ -6,7 +6,8 @@ the port's plain versions (what its CUDA kernels compute, with the same
 decomposition) are held to them on the same numpy inputs:
 
   (a) the forward's residuals l (row sum) and m (row max);
-  (b) dK/dV and dQ, both fed the same l, m, dout and di;
+  (b) dK/dV and dQ, both fed the same l, m, dout and di; and the CUDA
+      kernels' 3xTF32 products, emulated on the bits, from the same inputs;
   (c) dq, dk, dv through the port's autograd Function against ``jax.grad``
       of the library's public ``flash_attention``;
   (d) parameter and input gradients of ``MultiHeadSelfAttention(backend=
@@ -16,8 +17,9 @@ Tolerances: (a)-(c) rtol/atol 1e-5, (d) rtol/atol 1e-4: fp32 on both sides,
 sums in another order (the TPU kernels' tiles against whole-row matmuls;
 (d) also differentiates the projections in another order). Observed on
 this suite's inputs: (a) l within 2.4e-7 relative, m exact, out within
-4.5e-7; (b) within 4.8e-7 and (c) within 5.4e-7 absolute; (d) within
-1.2e-6 absolute.
+4.5e-7; (b) within 4.8e-7, the 3xTF32 emulation within 1.4e-6 (one TF32
+product per matmul: 3e-4 to 9e-4), and (c) within 5.4e-7 absolute; (d)
+within 1.2e-6 absolute.
 """
 
 import jax
@@ -115,6 +117,44 @@ def test_backward_kernels_plain_versions_match_the_library(reference):
     torch.testing.assert_close(fa.flash_bwd_dq(q, k, v, do, l, m, di, SCALE), dq,
                                rtol=0, atol=0)
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == before
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on the bits: round to 10 mantissa bits, ties
+    away from zero (add half of the dropped part's range, clear it)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the CUDA kernels multiply on the tensor cores: each operand
+    split into big = tf32(x) and small = tf32(x - big), and big @ big +
+    (small @ big + big @ small) in fp32; small @ small dropped."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return ab @ bb + (a_s @ bb + ab @ b_s)
+
+
+def _backward_with(mm, q, k, v, do, l, m, di):
+    """dK, dV and dQ with every product taken by ``mm``, p and ds formed in
+    fp32 as the kernels form them."""
+    p = torch.exp(mm(q, k.transpose(-1, -2)) * SCALE - m[..., None]) * (1.0 / l)[..., None]
+    ds = p * (mm(do, v.transpose(-1, -2)) - di[..., None]) * SCALE
+    return mm(ds.transpose(-1, -2), q), mm(p.transpose(-1, -2), do), mm(ds, k)
+
+
+def test_3xtf32_products_match_the_library(reference):
+    """The kernels' 3xTF32 split, emulated here, keeps dK, dV and dQ within
+    1e-5 of the library's Pallas kernels; one TF32 product per matmul (the
+    split's big parts alone) misses that by far: the split is needed."""
+    q, k, v, do = map(_t, reference["inputs"])
+    l, m, di = (_t(reference[x]) for x in ("l", "m", "di"))
+    assert _tf32(torch.tensor([1.0 + 2.0**-11, -(1.0 + 3 * 2.0**-11)])).tolist() == [
+        1.0 + 2.0**-10, -(1.0 + 2 * 2.0**-10)]  # ties go away from zero
+    split = _backward_with(_mm_3xtf32, q, k, v, do, l, m, di)
+    single = _backward_with(lambda a, b: _tf32(a) @ _tf32(b), q, k, v, do, l, m, di)
+    for name, got, rough in zip(("dk", "dv", "dq"), split, single):
+        np.testing.assert_allclose(got.numpy(), reference[name], err_msg=name, **TOL)
+        assert np.abs(rough.numpy() - reference[name]).max() > 1e-4, name
 
 
 def test_autograd_function_matches_jax_grad(reference):

@@ -8,8 +8,10 @@ without one. On the card:
 The patch gather is bit-equal to its plain version (a byte copy).
 Flash-attention tolerances: atol 2e-5 for the forward and both backward
 kernels against their plain versions (fp32 on both sides; sums in another
-order, and the forward's online softmax rescaling; the plain versions are
-within ~2e-6 of float64 at these shapes).
+order, the forward's online softmax rescaling, and the backward's 3xTF32
+tensor-core products, which keep fp32 accuracy; the plain versions are
+within ~2e-6 of float64 at these shapes). The backward kernels are
+deterministic: the cluster ranks' partial sums are added in a fixed order.
 """
 
 import pytest
@@ -184,10 +186,73 @@ def test_flash_backward_kernels_match_plain(cuda, n, d, strided):
     torch.testing.assert_close(kl, l, rtol=1e-5, atol=FLASH_ATOL)
 
 
+def _offset_views(cuda, b, h, n, d):
+    """q, k, v whose data start one float past a 16-byte boundary, so the
+    kernels stage them with 4-byte copies."""
+    buf = torch.randn(3 * b * h * n * d + 1, generator=cuda, device="cuda")
+    size = b * h * n * d
+    views = [buf[1 + i * size:1 + (i + 1) * size].view(b, h, n, d) for i in range(3)]
+    assert all(t.data_ptr() % 16 == 4 for t in views)
+    return views
+
+
 @pytest.mark.gpu
-def test_flash_backward_is_deterministic(cuda):
-    """No atomics: two runs give the same bits."""
+@pytest.mark.parametrize("case", ["n1000_split5", "offset_n128", "offset_n300"])
+def test_flash_backward_cluster_split_and_unaligned_inputs(cuda, case):
+    """(1, 1, 1000, 64): the plan splits each walk 5 ways, each rank walks
+    6-7 tiles with a ragged last tile of 8 rows. q, k, v one float off a
+    16-byte boundary at n = 128 and 300: the 4-byte staging path. Both
+    kernels within 2e-5 of their plain versions, one launch each."""
+    if case == "n1000_split5":
+        b, h, n, d = 1, 1, 1000, 64
+        assert fa.bwd_plan(b, h, n, d) == (32, 5, 160)
+        q, k, v = (torch.randn((b, h, n, d), generator=cuda, device="cuda") for _ in range(3))
+    else:
+        b, h, n, d = 1, 8, int(case.split("n")[-1]), 64
+        q, k, v = _offset_views(cuda, b, h, n, d)
+    do = torch.randn((b, h, n, d), generator=cuda, device="cuda")
+    out, l, m = fa.flash_forward_plain(q, k, v, d**-0.5)
+    di = (out * do).sum(-1).contiguous()
+    args = (q, k, v, do, l, m, di, d**-0.5)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    torch.cuda.synchronize()
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(*args)
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, fa.flash_bwd_dq_plain(*args))):
+        torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL)
+
+
+@pytest.mark.gpu
+def test_flash_backward_refused_launch_raises(cuda, monkeypatch):
+    """A plan the kernels refuse (a split of 9, past the portable cluster
+    size) comes back as a CUDA error and raises; nothing is counted."""
     q, k, v, do, _, l, m, di = _bwd_inputs(cuda, 300, 64, True)
+    monkeypatch.setattr(fa, "bwd_plan", lambda b, h, n, d: (32, 9, b * h * 10 * 9))
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_bwd_dq(q, k, v, do, l, m, di, 0.125)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128, 300])
+def test_flash_backward_is_deterministic(cuda, n):
+    """No atomics: the cluster's partial sums are added in rank order, so
+    two runs give the same bits; at the training shape (1, 8, 128, 64) the
+    plan splits each walk 4 ways over 128 CTAs, at n = 300 2 ways."""
+    rows, split, ctas = fa.bwd_plan(1, 8, n, 64)
+    if n == 128:
+        assert split == 4 and ctas >= 128
+    qkv = torch.randn((1, n, 3, 8, 64), generator=cuda, device="cuda")
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((1, 8, n, 64), generator=cuda, device="cuda")
+    out, l, m = fa.flash_forward_plain(q, k, v, 0.125)
+    di = (out * do).sum(-1).contiguous()
     first = (*fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125),
              fa.flash_bwd_dq(q, k, v, do, l, m, di, 0.125))
     second = (*fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125),
