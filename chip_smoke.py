@@ -11,14 +11,15 @@ order; any failure exits non-zero and prints no result line:
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the main path gives it, in each of its layouts, with its time, the
      plain version's time, a PyTorch yardstick and its bound: row_shift
-     (bit-equal); the flash-attention forward, with and without residuals,
-     at the eval sweep's, the training and a ragged sequence length; the
-     backward kernels (dK/dV, dQ: each block of 32 keys or queries one
+     (bit-equal); the flash kernels, each block of 32 queries or keys one
      thread-block cluster that splits the walk, 3xTF32 tensor-core
-     products), with their plan (rows, split, CTAs), at the training
-     length, the remainder batch's and a ragged one, the forward-and-
-     backward pair timed against ``F.scaled_dot_product_attention``'s, and
-     once at the JAX bench's whole-slide width (1, 16, 4,096, 64);
+     products, each with its plan (rows, split, CTAs): the forward, with
+     and without residuals and deterministic, at the eval sweep's, the
+     training and a ragged sequence length; the backward kernels (dK/dV,
+     dQ) at the training length, the remainder batch's and a ragged one,
+     the forward-and-backward pair timed against
+     ``F.scaled_dot_product_attention``'s; and all three once at the JAX
+     bench's whole-slide width (1, 16, 4,096, 64);
   4. patches: extract_patches (the patch gather) bit-equal to its plain
      version in small cases (P 15/16/32/224, C 1/3/4, centers inside, on
      the border, far outside and at -2147483648, N = 0) and on a 20,000 x
@@ -373,70 +374,99 @@ FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64))  # eval sweep,
 FLASH_ATOL = 2e-5
 
 
+def _flash_fwd_bound(shape):
+    """(bound ms, bound_by, bytes, flops) of the forward at ``shape``: q, k,
+    v read and out written once (4*b*h*n*d floats), two products of
+    2*b*h*n^2*d flops; the larger of the bytes at 3.35 TB/s and the flops
+    at 67 TFLOP/s."""
+    b, h, n, d = shape
+    nbytes = 4 * b * h * n * d * 4
+    flops = 4 * b * h * n * n * d
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops
+
+
+def _flash_fwd_err(q, k, v, scale):
+    """The forward kernel with residuals against flash_forward_plain: the
+    largest of out's and m's absolute errors and l's relative error."""
+    import torch
+
+    from mclstexp_tpu_torch.ops.flash_attention import flash_forward, flash_forward_plain
+
+    got, want = flash_forward(q, k, v, scale, residuals=True), flash_forward_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    return max(float((got[0] - want[0]).abs().max()),
+               float(((got[1] - want[1]) / want[1]).abs().max()),
+               float((got[2] - want[2]).abs().max()))
+
+
 def phase_flash_kernels() -> dict:
     """flash_attention against attention_plain in fp32 at the eval sweep's
     shape (b, h, n, d) = (1, 8, 32, 64), the training shape n=128 and a
     length that is no multiple of the 32-row tile, read in place from a
     (b, n, 3, h, d) qkv buffer as the spot tower gives it. atol 2e-5: both
-    are fp32, with the sums in another order and the kernel's online
-    softmax rescaling. The forward with residuals (what training runs) is
-    held to ``flash_forward_plain``: out and m to atol 2e-5, l relative.
+    are fp32, with the sums in another order, the kernel's online softmax
+    rescaling and its 3xTF32 products. The forward with residuals (what
+    training runs) is held to ``flash_forward_plain``: out and m to atol
+    2e-5, l relative; both forms give the same bits on a second run. Each
+    line names the plan (``cluster_plan``: query rows per block, split of
+    the key walk, CTAs); the training shape must run at least 128 CTAs.
     Times are device times of CUDA-graph replays; the yardstick is
     F.scaled_dot_product_attention on the same views. The entry carries the
-    eval shape's numbers, the residual forward's time at every shape and
-    the largest error."""
+    eval shape's numbers, each shape's numbers and plan under ``shapes``,
+    and the largest error."""
     import torch
     import torch.nn.functional as F
 
-    from mclstexp_tpu_torch.ops.flash_attention import (
-        attention_plain,
-        flash_attention,
-        flash_forward,
-        flash_forward_plain,
-    )
+    from mclstexp_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    entry, residuals_ms = None, {}
+    entry, shapes = None, {}
     for b, h, n, d in FLASH_SHAPES:
+        shape = (b, h, n, d)
+        rows, split, ctas = plan = fa.cluster_plan(*shape)
+        if shape == FLASH_SHAPES[1] and ctas < 128:
+            raise AssertionError(f"the training shape's forward plan {plan} runs {ctas} < 128 "
+                                 "CTAs")
         qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         scale = d**-0.5
-        got, want = flash_attention(q, k, v, scale), attention_plain(q, k, v, scale)
+        got, want = fa.flash_attention(q, k, v, scale), fa.attention_plain(q, k, v, scale)
         sdpa = F.scaled_dot_product_attention(q, k, v, scale=scale)
-        res_out, res_l, res_m = flash_forward(q, k, v, scale, residuals=True)
-        _, want_l, want_m = flash_forward_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        res_err = max(float((res_out - want).abs().max()),
-                      float(((res_l - want_l) / want_l).abs().max()),
-                      float((res_m - want_m).abs().max()))
+        res_err = _flash_fwd_err(q, k, v, scale)
         if not res_err <= FLASH_ATOL:
-            raise AssertionError(f"flash forward with residuals {(b, h, n, d)}: out, l "
-                                 f"(relative) or m off by {res_err:.3e} > {FLASH_ATOL}")
-        residuals_ms[str((b, h, n, d))] = graph_ms(
-            lambda: flash_forward(q, k, v, scale, residuals=True))
+            raise AssertionError(f"flash forward with residuals {shape}: out, l (relative) or m "
+                                 f"off by {res_err:.3e} > {FLASH_ATOL}")
+        again = (fa.flash_attention(q, k, v, scale), fa.flash_forward(q, k, v, scale, True),
+                 fa.flash_forward(q, k, v, scale, True))
+        if not (torch.equal(again[0], got) and all(
+                torch.equal(x, y) for x, y in zip(again[1], again[2]))):
+            raise AssertionError(f"flash forward {shape}: two runs differ")
+        residuals_ms = graph_ms(lambda: fa.flash_forward(q, k, v, scale, residuals=True))
         sdpa_err = float((sdpa - want).abs().max())
         if not err <= FLASH_ATOL:
-            raise AssertionError(f"flash_attention {(b, h, n, d)}: max abs err {err:.3e} "
+            raise AssertionError(f"flash_attention {shape}: max abs err {err:.3e} "
                                  f"> {FLASH_ATOL}")
         if not sdpa_err <= 1e-4:
             raise AssertionError(f"the SDPA yardstick computes another function ({sdpa_err})")
-        ms = graph_ms(lambda: flash_attention(q, k, v, scale))
-        plain_ms = graph_ms(lambda: attention_plain(q, k, v, scale))
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, scale))
+        plain_ms = graph_ms(lambda: fa.attention_plain(q, k, v, scale))
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        call_ms = cuda_ms(lambda: flash_attention(q, k, v, scale))
-        nbytes = 4 * b * h * n * d * 4  # q, k, v read once, out written once
-        flops = 4 * b * h * n * n * d  # two products of 2*n*n*d each per head
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"[kernels] flash_attention fp32 {(b, h, n, d)}: max abs err {err:.3e} "
-            f"(atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-            f"SDPA {library_ms:.5f} ms (err {sdpa_err:.1e}), bound {bound_ms:.6f} ms by "
-            f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), "
-            f"{bound_ms / ms:.1%} of bound; eager call incl. launch {call_ms:.5f} ms; "
-            f"with residuals (l, m) {residuals_ms[str((b, h, n, d))]:.5f} ms, out/l/m within "
-            f"{res_err:.1e} of the plain version")
+        call_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale))
+        bound_ms, bound_by, nbytes, flops = _flash_fwd_bound(shape)
+        log(f"[kernels] flash_attention fp32 {shape} plan rows={rows} split={split} "
+            f"ctas={ctas}: max abs err {err:.3e} (atol {FLASH_ATOL}); kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms (err {sdpa_err:.1e}), kernel / SDPA "
+            f"{ms / library_ms:.3f}, bound {bound_ms:.6f} ms by {bound_by} ({nbytes / 1e6:.2f} "
+            f"MB, {flops / 1e6:.1f} MFLOP), {bound_ms / ms:.1%} of bound; eager call incl. "
+            f"launch {call_ms:.5f} ms; with residuals (l, m) {residuals_ms:.5f} ms, out/l/m "
+            f"within {res_err:.1e} of the plain version; deterministic")
+        shapes[str(shape)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                              "residuals_ms": residuals_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "max_abs_err": max(err, res_err),
+                              "plan": {"rows": rows, "split": split, "ctas": ctas}}
         if entry is None:
             entry = {"name": "flash_attention[fwd]", "route": "cuda",
                      "source": "mclstexp_tpu_torch/csrc/flash_attention.cu",
@@ -444,7 +474,7 @@ def phase_flash_kernels() -> dict:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms, "max_abs_err": err}
         entry["max_abs_err"] = max(entry["max_abs_err"], err, res_err)
-    entry["residuals_ms"] = residuals_ms
+    entry["shapes"] = shapes
     return entry
 
 
@@ -529,7 +559,7 @@ def phase_flash_bwd_kernels() -> list:
     yardstick is the pair: forward with residuals + dK/dV + dQ
     (``pair_ms``) against ``torch.autograd.grad`` of
     F.scaled_dot_product_attention (``library_pair_ms``) on the same views.
-    Each line names the kernels' plan (``bwd_plan``: tile rows, split of the
+    Each line names the kernels' plan (``cluster_plan``: tile rows, split of the
     walk, CTAs); the training shape must run at least 128 CTAs. The entries
     carry the training shape's numbers, plan and the largest error."""
     import torch
@@ -539,7 +569,7 @@ def phase_flash_bwd_kernels() -> list:
     g = torch.Generator(device="cuda").manual_seed(1)
     entries = {}
     for shape in BWD_SHAPES:
-        rows, split, ctas = plan = fa.bwd_plan(*shape)
+        rows, split, ctas = plan = fa.cluster_plan(*shape)
         if shape == BWD_SHAPES[0] and ctas < 128:
             raise AssertionError(f"the training shape's backward plan {plan} runs {ctas} < 128 "
                                  "CTAs")
@@ -583,18 +613,44 @@ def phase_flash_bwd_kernels() -> list:
 BWD_LONG = (1, 16, 4096, 64)  # the JAX bench's whole-slide attention (bench.py:670-714)
 
 
-def phase_flash_bwd_long(entries) -> None:
-    """dK/dV and dQ once at (1, 16, 4,096, 64) fp32 against their plain
-    versions (atol 2e-5), timed by CUDA events over eager launches (a graph
-    of plain calls at this size would hold GBs in its pool), with the pair
-    against SDPA's forward + backward. Bounds as in [kernels]: the flops at
-    the fp32 rate (137 / 103 GFLOP). Adds a ``long`` record to each entry."""
+def phase_flash_bwd_long(fwd_entry, entries) -> None:
+    """The forward alone, dK/dV and dQ once at (1, 16, 4,096, 64) fp32
+    against their plain versions (atol 2e-5; the forward's l relative),
+    timed by CUDA events over eager launches (a graph of plain calls at
+    this size would hold GBs in its pool): the forward against SDPA's
+    forward, the pair against SDPA's forward + backward. Bounds as in
+    [kernels]: the flops at the fp32 rate (69 / 137 / 103 GFLOP). Adds a
+    ``long`` record to each entry."""
     import torch
+    import torch.nn.functional as F
 
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
-    rows, split, ctas = fa.bwd_plan(*BWD_LONG)
+    rows, split, ctas = fa.cluster_plan(*BWD_LONG)
     args, pair, library_pair = _bwd_case(torch.Generator(device="cuda").manual_seed(2), BWD_LONG)
+    q, k, v, scale = *args[:3], args[7]
+    err = _flash_fwd_err(q, k, v, scale)
+    if not err <= FLASH_ATOL:
+        raise AssertionError(f"flash forward {BWD_LONG}: out, l (relative) or m off by "
+                             f"{err:.3e} > {FLASH_ATOL}")
+    ms = cuda_ms(lambda: fa.flash_forward(q, k, v, scale), iters=10, warmup=2)
+    residuals_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, scale, residuals=True), iters=10,
+                           warmup=2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=10,
+                         warmup=2)
+    plain_ms = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, scale), iters=3, warmup=1)
+    bound_ms, bound_by, _, flops = _flash_fwd_bound(BWD_LONG)
+    log(f"[kernels] flash_attention fp32 {BWD_LONG} plan rows={rows} split={split} ctas={ctas}: "
+        f"out/l/m within {err:.3e} of the plain version (atol {FLASH_ATOL}); kernel {ms:.4f} ms, "
+        f"with residuals {residuals_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA forward "
+        f"{library_ms:.4f} ms, kernel / SDPA {ms / library_ms:.3f}, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops / 1e9:.1f} GFLOP), {bound_ms / ms:.1%} of bound "
+        f"({flops / ms / 1e9:.1f} TFLOP/s fp32 work)")
+    fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"], err)
+    fwd_entry["long"] = {"shape": list(BWD_LONG), "ms": ms, "residuals_ms": residuals_ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": err,
+                         "plan": {"rows": rows, "split": split, "ctas": ctas}}
     pair_ms = cuda_ms(pair, iters=10, warmup=2)
     library_pair_ms = cuda_ms(library_pair, iters=10, warmup=2)
     for entry, (name, kernel, plain, bound_ms, bound_by, _, flops) in zip(
@@ -1305,7 +1361,7 @@ def main() -> int:
     entries = phase_kernels()
     flash_entry = phase_flash_kernels()
     bwd_entries = phase_flash_bwd_kernels()
-    phase_flash_bwd_long(bwd_entries)
+    phase_flash_bwd_long(flash_entry, bwd_entries)
     patch_entry = phase_patches()
     cfg, state, sections, launches = phase_train()
     for entry, layout in zip(entries, ("rows", "cols")):

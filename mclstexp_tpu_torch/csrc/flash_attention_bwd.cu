@@ -34,7 +34,7 @@
 // of the block over the ranks' shared memory (distributed shared memory) in
 // rank order 0, 1, ..., split-1, and writes them once. The reduction order
 // is fixed, with no atomics and no scratch tensor: every run gives the same
-// bits. `split` comes from the caller's plan (ops/flash_attention.bwd_plan:
+// bits. `split` comes from the caller's plan (ops/flash_attention.cluster_plan:
 // the smallest split, at most 8, that puts 132 CTAs on the card).
 //
 // Per walked tile of 32 rows, 8 warps: each computes a 16 x 8 block of the
@@ -70,15 +70,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 using flash::cp_async4;
+using flash::kRows;
+using flash::kThreads;
+using flash::store_acc;
+using flash::Strides;
 using flash::tile_at;
-
-constexpr int kRows = 32;      // rows of every tile, owned or walked
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kMaxSplit = 8;   // the portable cluster size
-
-struct Strides {
-  long long b, h, n;  // in elements; the head dimension is contiguous
-};
 
 // m, l and di of rows [r0, r0 + 32) of one head into dst[0..32), [32..64),
 // [64..96); zero past n.
@@ -138,21 +134,6 @@ __device__ __forceinline__ void reduce_rows(cg::cluster_group& cluster, float* r
       for (int e = 0; e < 4; ++e)
         if (c + e < d) o[e] = v[e];
     }
-  }
-}
-
-// A warp's 16 x D/4 accumulator fragments (kN of 16 x 8) into a tile of
-// width D at rows m0.., columns c0..
-template <int D, int kN>
-__device__ __forceinline__ void store_acc(float* tile, const float (&acc)[kN][4], int m0,
-                                          int c0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const int c = c0 + 8 * j + 2 * t;
-    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g, c)) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g + 8, c)) =
-        make_float2(acc[j][2], acc[j][3]);
   }
 }
 
@@ -407,59 +388,14 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 }
 
-bool valid(int batch, int heads, int n, int d, int rows, int split) {
-  if (batch < 1 || heads < 1 || n < 1 || d < 1 || d > 128 || rows != kRows) return false;
-  const long long tiles = (static_cast<long long>(n) + kRows - 1) / kRows;
-  return tiles <= 65535 && split >= 1 && split <= kMaxSplit && split <= tiles &&
-         static_cast<long long>(batch) * heads * split <= 0x7fffffffLL;
-}
-
-// 16-byte staging: d % 4 == 0 and every input 16-byte aligned with strides
-// that are multiples of 4 elements.
-bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d) {
-  if (d % 4 != 0) return false;
-  for (int i = 0; i < count; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-    for (int j = 0; j < 3; ++j)
-      if (strides[3 * i + j] % 4 != 0) return false;
-  }
-  return true;
-}
-
-// One launch of `kernel` on a grid of (batch*heads*split, ceil(n/32))
-// blocks in clusters of (split, 1, 1).
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), int smem_floats, int batch, int heads, int n,
-                   int split, cudaStream_t stream, Args... args) {
-  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(batch * heads * split),
-                        static_cast<unsigned>((n + kRows - 1) / kRows));
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 template <int D, bool kVec>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
                        const float* l, const float* m, const float* di, float* dk, float* dv,
                        const Strides* s, int batch, int heads, int n, int d, int split,
                        float scale, cudaStream_t stream) {
-  return launch(flash_bwd_dkv<D, kVec>, Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v,
-                dout, l, m, di, dk, dv, s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d, split,
-                scale);
+  return flash::launch_cluster<&flash_bwd_dkv<D, kVec>>(
+      Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dk, dv, s[0], s[1],
+      s[2], s[3], s[4], s[5], heads, n, d, split, scale);
 }
 
 template <int D, bool kVec>
@@ -467,15 +403,10 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
                       const float* l, const float* m, const float* di, float* dq,
                       const Strides* s, int batch, int heads, int n, int d, int split,
                       float scale, cudaStream_t stream) {
-  return launch(flash_bwd_dq<D, kVec>, Smem<D>::kDq, batch, heads, n, split, stream, q, k, v,
-                dout, l, m, di, dq, s[0], s[1], s[2], s[3], s[4], heads, n, d, split, scale);
+  return flash::launch_cluster<&flash_bwd_dq<D, kVec>>(
+      Smem<D>::kDq, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dq, s[0], s[1], s[2],
+      s[3], s[4], heads, n, d, split, scale);
 }
-
-// the D and staging variant for d and the inputs, then fn<D, kVec>(...)
-#define FLASH_BWD_DISPATCH(fn, vec, d, ...)                                          \
-  ((d) <= 32   ? ((vec) ? fn<32, true>(__VA_ARGS__) : fn<32, false>(__VA_ARGS__))    \
-   : (d) <= 64 ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))    \
-               : ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -490,12 +421,13 @@ extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
     const void* m, const void* di, void* dk, void* dv, const long long* strides, int batch,
     int heads, int n, int d, int rows, int split, float scale, void* stream) {
-  if (!valid(batch, heads, n, d, rows, split)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!flash::plan_ok(batch, heads, n, d, rows, split))
+    return static_cast<int>(cudaErrorInvalidValue);
   Strides s[6];
   for (int i = 0; i < 6; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const void* inputs[4] = {q, k, v, dout};
-  const bool vec = vec_ok(inputs, strides, 4, d);
-  return static_cast<int>(FLASH_BWD_DISPATCH(
+  const bool vec = flash::vec_ok(inputs, strides, 4, d);
+  return static_cast<int>(FLASH_DISPATCH(
       launch_dkv, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(l), static_cast<const float*>(m),
@@ -509,12 +441,13 @@ extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
     const void* m, const void* di, void* dq, const long long* strides, int batch, int heads,
     int n, int d, int rows, int split, float scale, void* stream) {
-  if (!valid(batch, heads, n, d, rows, split)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!flash::plan_ok(batch, heads, n, d, rows, split))
+    return static_cast<int>(cudaErrorInvalidValue);
   Strides s[5];
   for (int i = 0; i < 5; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const void* inputs[4] = {q, k, v, dout};
-  const bool vec = vec_ok(inputs, strides, 4, d);
-  return static_cast<int>(FLASH_BWD_DISPATCH(
+  const bool vec = flash::vec_ok(inputs, strides, 4, d);
+  return static_cast<int>(FLASH_DISPATCH(
       launch_dq, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(l), static_cast<const float*>(m),

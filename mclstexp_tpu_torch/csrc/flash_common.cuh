@@ -8,9 +8,11 @@
 // big_a*big_b + (small_a*big_b + big_a*small_b); the dropped
 // small_a*small_b is ~2^-22 of the product. One TF32 product keeps ~3
 // decimal digits. The rounding is explicit: mma reads raw fp32 bits as tf32
-// by truncation. Values are split once, where they land in shared memory:
-// a tile keeps its big parts in place (as floats whose low 13 bits are 0)
-// and its small parts in a second tile.
+// by truncation. A value is split either once, where it lands in shared
+// memory (a tile keeps its big parts in place, as floats whose low 13 bits
+// are 0, and its small parts in a second tile), or in registers where its
+// fragment is read from a raw tile (split_pair), which halves the tile's
+// shared-memory traffic when few warps read each value.
 //
 // Tiles. A tile is `rows` x D floats (D a power of two, >= 32), row r at
 // r * D, with the 4-float chunks of row r permuted by an XOR with
@@ -18,13 +20,106 @@
 // rows x 4 columns, and 4 rows x 8 columns, per warp) then fall in 32
 // different banks, and chunks stay whole: a chunk is one 16-byte copy and
 // one ldmatrix row.
+//
+// The plan and the launch. Every flash kernel owns blocks of kRows = 32
+// rows (queries or keys) and splits its walk over the other side's tiles
+// among `split` CTAs of one thread-block cluster (1 <= split <= 8, the
+// portable cluster size, and at most the number of tiles); the caller's
+// plan (ops/flash_attention.cluster_plan) picks split. launch_cluster
+// launches a kernel on a grid of (batch * heads * split, ceil(n / 32))
+// blocks of kThreads in clusters of (split, 1, 1), after allowing its
+// dynamic shared memory once per kernel variant and device.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace flash {
+
+constexpr int kRows = 32;      // rows of every tile, owned or walked
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kMaxSplit = 8;   // the portable cluster size
+
+struct Strides {
+  long long b, h, n;  // in elements; the head dimension is contiguous
+};
+
+// The shapes and plans the kernels take: 1 <= d <= 128, n >= 1 with at most
+// 65535 tiles, rows == 32 and 1 <= split <= min(8, tiles).
+inline bool plan_ok(int batch, int heads, int n, int d, int rows, int split) {
+  if (batch < 1 || heads < 1 || n < 1 || d < 1 || d > 128 || rows != kRows) return false;
+  const long long tiles = (static_cast<long long>(n) + kRows - 1) / kRows;
+  return tiles <= 65535 && split >= 1 && split <= kMaxSplit && split <= tiles &&
+         static_cast<long long>(batch) * heads * split <= 0x7fffffffLL;
+}
+
+// 16-byte staging: d % 4 == 0 and every input 16-byte aligned with strides
+// (3 per input) that are multiples of 4 elements.
+inline bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d) {
+  if (d % 4 != 0) return false;
+  for (int i = 0; i < count; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] % 4 != 0) return false;
+  }
+  return true;
+}
+
+// Allow `bytes` of dynamic shared memory to Kernel, once per device (the
+// attribute belongs to the kernel in that device's context); later calls
+// return the first call's result.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  constexpr int kDevices = 64;
+  static std::once_flag once[kDevices];
+  static cudaError_t result[kDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kDevices)
+    return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  std::call_once(once[device], [&] {
+    result[device] =
+        cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  });
+  return result[device];
+}
+
+// One launch of Kernel(args...) on a grid of (batch * heads * split,
+// ceil(n / 32)) blocks of kThreads in clusters of (split, 1, 1), with
+// `smem_floats` floats of dynamic shared memory. Returns the launch's error
+// or cudaGetLastError().
+template <auto Kernel, typename... Args>
+cudaError_t launch_cluster(int smem_floats, int batch, int heads, int n, int split,
+                           cudaStream_t stream, Args... args) {
+  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
+  cudaError_t err = allow_smem<Kernel>(static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(batch * heads * split),
+                        static_cast<unsigned>((n + kRows - 1) / kRows));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, Kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the D and staging variant for d and the inputs, then fn<D, kVec>(...)
+#define FLASH_DISPATCH(fn, vec, d, ...)                                              \
+  ((d) <= 32   ? ((vec) ? fn<32, true>(__VA_ARGS__) : fn<32, false>(__VA_ARGS__))    \
+   : (d) <= 64 ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))    \
+               : ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__)))
 
 // index of element (r, c) in a tile of row width D
 template <int D>
@@ -197,6 +292,24 @@ __device__ __forceinline__ Split<2> load_b_t(const float* hi, const float* lo,
   return s;
 }
 
+// Two raw fp32 fragment values split into their tf32 parts in registers.
+__device__ __forceinline__ Split<2> split_pair(float x0, float x1) {
+  float b0, s0, b1, s1;
+  split_tf32(x0, b0, s0);
+  split_tf32(x1, b1, s1);
+  return Split<2>{{__float_as_uint(b0), __float_as_uint(b1)},
+                  {__float_as_uint(s0), __float_as_uint(s1)}};
+}
+
+// load_b_t's fragment from a tile that holds raw fp32 values (not split in
+// shared memory): one ldmatrix, then the split in registers.
+template <int W>
+__device__ __forceinline__ Split<2> load_b_t_raw(const float* tile, const Frag<W>& f, int k0) {
+  uint32_t r[2];
+  ldsm_x2(r, tile + f.at(k0));
+  return split_pair(__uint_as_float(r[0]), __uint_as_float(r[1]));
+}
+
 // B, 8 x 8 (k x n), where B[k][n] = tile[k0 + k][n0 + n]: rows k0 + t (+4),
 // column n0 + g; for k0 a multiple of 8 the row's swizzle is that of t, so
 // the fragment at k0 sits k0 * W past the one at 0.
@@ -247,6 +360,21 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[3][4], const Split<4>& a
 
 __device__ __forceinline__ float sum3(const float (&acc)[3][4], int i) {
   return acc[0][i] + (acc[1][i] + acc[2][i]);
+}
+
+// A warp's kN accumulator fragments of 16 x 8 into a tile of width D at
+// rows m0.., columns c0..
+template <int D, int kN>
+__device__ __forceinline__ void store_acc(float* tile, const float (&acc)[kN][4], int m0,
+                                          int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g, c)) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(tile + tile_at<D>(m0 + g + 8, c)) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 }  // namespace flash

@@ -36,6 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.ops.retrieval import retrieve_and_aggregate
 
 
@@ -166,7 +167,7 @@ class PredictionService:
                 if b < bucket:
                     x = torch.cat([x, x.new_zeros((bucket - b, *x.shape[1:]))])
                 # a contiguous NHWC float batch: channels_last for cuDNN
-                x = x.float() if self.raw_scale else x.float() / 255.0
+                x = x.float() if self.raw_scale else augment.to_float(x)
                 out.append(self.model.encode_image(x)[:b])
         finally:
             self.model.train(was_training)

@@ -169,8 +169,14 @@ def rotate_batch_paeth(imgs: torch.Tensor, angles_deg: torch.Tensor,
 def train_augment_inline(patches_u8: torch.Tensor, draws: StDraws,
                          dtype: torch.dtype = torch.float32,
                          rot_impl: str = "paeth") -> torch.Tensor:
-    """uint8 (B, H, W, 3) patches -> jittered, flipped, rotated float [0, 1]."""
-    imgs = patches_u8.to(dtype) / 255.0
+    """uint8 (B, H, W, 3) patches -> jittered, flipped, rotated float [0, 1].
+
+    In float32 the patches are scaled by ``to_float``, bit-equal to the JAX
+    step's jitted ``/ 255``. Any other ``dtype`` keeps the division: the
+    towers raise for bf16 today (``models/mclstexp.py``), so the bf16 scale
+    is matched when bf16 towers are ported.
+    """
+    imgs = to_float(patches_u8) if dtype == torch.float32 else patches_u8.to(dtype) / 255.0
     imgs = color_jitter(imgs, draws.jitter, draws.order)
     h, w = imgs.shape[1], imgs.shape[2]
     if rot_impl == "paeth" and h == w and h % 8 == 0:

@@ -8,7 +8,10 @@ flash_attention``, jax 0.9.0), forward and backward:
 
 * forward, ``csrc/flash_attention.cu`` (``_flash_attention_impl``, call
   :758): fp32 online softmax; with residuals it also writes each row's max
-  ``m`` and sum ``l`` (the TPU kernel's ``save_residuals``), (b, h, n) fp32;
+  ``m`` and sum ``l`` (the TPU kernel's ``save_residuals``), (b, h, n) fp32.
+  Each block of 32 queries is one thread-block cluster of ``split`` CTAs,
+  which share the walk over the key tiles and merge their partial (m, l,
+  out) over distributed shared memory in a fixed order;
 * dK/dV, ``csrc/flash_attention_bwd.cu`` (``_flash_attention_bwd_dkv``,
   call :1121) and dQ, same file (``_flash_attention_bwd_dq``, call :1456):
   from q, k, v, dout, l, m and ``di = rowsum(out * dout)`` they recompute
@@ -16,10 +19,12 @@ flash_attention``, jax 0.9.0), forward and backward:
   ``dq = ds k`` with ``ds = p * (dout v^T - di) * scale``. Each block of 32
   keys (queries) is one thread-block cluster of ``split`` CTAs, which share
   the walk over the query (key) tiles and add their partial sums over
-  distributed shared memory in a fixed order (deterministic, no atomics);
-  ``bwd_plan`` chooses ``split``. The products run on the tensor cores in
-  the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the plain
-  versions; one plain TF32 product would not be).
+  distributed shared memory in a fixed order.
+
+All three are deterministic (no atomics) and share one plan,
+``cluster_plan``, which chooses ``split``. Their products run on the tensor
+cores in the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the
+plain versions; one plain TF32 product would not be).
 
 ``attention_plain`` is the spot tower's fused-matmul path ("xla"): it serves
 CPU tensors without a gradient and the key mask. ``flash_forward_plain``,
@@ -39,8 +44,8 @@ projection's buffer itself.
 
 The kernels' shape rule (the TPU kernel's ``n % 128 == 0 and d >= 64`` is a
 TPU tiling limit and does not apply): float32 q, k, v of one shape (b, h, n,
-d) on one card, any n >= 1 with ceil(n / 32) <= 65535 (and b * h * split <
-2**31 for the backward), and 1 <= d <= 128;
+d) on one card, any n >= 1 with ceil(n / 32) <= 65535 and b * h * split <
+2**31, and 1 <= d <= 128;
 each tensor's last dimension contiguous, any strides otherwise, so the (b,
 n, 3, h, d) qkv buffer's views are read in place. Outputs are (b, n, h, d)
 buffers returned as their (b, h, n, d) views. A CUDA call outside the rule
@@ -62,19 +67,23 @@ from mclstexp_tpu_torch.ops.build import load_library
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
-BLOCK_Q = 32  # query rows per forward CTA: the grid's second dimension is ceil(n / 32)
-BWD_ROWS = 32  # rows of every backward tile, owned or walked
-MAX_SPLIT = 8  # CTAs of a backward cluster: the portable cluster size
+ROWS = 32  # rows of every tile, owned or walked: the grid's second dimension is ceil(n / 32)
+MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+# Every entry point ends in: strides; b, h, n, d, then the plan's rows and
+# split; scale, stream.
+_TAIL = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    fn = lib.flash_attention_fwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    # q, k, v, out, l, m (l and m null without residuals)
+    lib.flash_attention_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + _TAIL
+    lib.flash_attention_fwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -82,11 +91,8 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_SOURCE)
     head = [ctypes.c_void_p] * 7  # q, k, v, dout, l, m, di
-    # strides; b, h, n, d, then the plan's rows and split; scale, stream
-    tail = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                        ctypes.c_void_p]
-    lib.flash_attention_bwd_dkv_launch.argtypes = head + [ctypes.c_void_p] * 2 + tail
-    lib.flash_attention_bwd_dq_launch.argtypes = head + [ctypes.c_void_p] + tail
+    lib.flash_attention_bwd_dkv_launch.argtypes = head + [ctypes.c_void_p] * 2 + _TAIL
+    lib.flash_attention_bwd_dq_launch.argtypes = head + [ctypes.c_void_p] + _TAIL
     lib.flash_attention_bwd_dkv_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_dq_launch.restype = ctypes.c_int
     return lib
@@ -153,8 +159,8 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"flash_attention kernel takes 1 <= d <= {MAX_HEAD_DIM}, got d={d}")
     if b * h == 0 or n == 0:
         raise ValueError(f"flash_attention kernel needs a non-empty input, got {tuple(q.shape)}")
-    if -(-n // BLOCK_Q) > 65535:
-        raise ValueError(f"flash_attention kernel takes n <= {65535 * BLOCK_Q}, got {n}")
+    if -(-n // ROWS) > 65535:
+        raise ValueError(f"flash_attention kernel takes n <= {65535 * ROWS}, got {n}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs the last dimension contiguous; got "
                          f"strides {q.stride()}, {k.stride()}, {v.stride()}")
@@ -183,41 +189,48 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     l = m = None
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        err = _library().flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
-            *strides, b, h, n, d, float(scale), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
+    _launch(_library().flash_attention_fwd_launch, "flash_attention",
+            (q, k, v, out, l, m), (q, k, v, out), scale)
     flash_attention.launches += 1
     return (out, l, m) if residuals else out
 
 
-def bwd_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
-    """(rows, split, ctas) of the backward kernels at (b, h, n, d).
+def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
+    """(rows, split, ctas) of the flash kernels at (b, h, n, d).
 
-    Each kernel owns blocks of ``rows`` = 32 keys (dK/dV) or queries (dQ),
-    b * h * ceil(n / 32) of them, and splits the walk over the other side's
-    ceil(n / 32) tiles among ``split`` CTAs of one cluster: the smallest
-    split in 1..min(8, tiles) that puts at least 132 CTAs (one per SM) on
-    the card, else the cap. ``ctas`` = blocks * split. Raises ValueError
-    outside the kernels' limits."""
+    Each kernel owns blocks of ``rows`` = 32 queries (forward, dQ) or keys
+    (dK/dV), b * h * ceil(n / 32) of them, and splits the walk over the
+    other side's ceil(n / 32) tiles among ``split`` CTAs of one cluster: the
+    smallest split in 1..min(8, tiles) that puts at least 132 CTAs (one per
+    SM) on the card, else the cap. ``ctas`` = blocks * split. Raises
+    ValueError outside the kernels' limits."""
     if min(b, h, n) < 1 or not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the backward kernels take b, h, n >= 1 and 1 <= d <= {MAX_HEAD_DIM}, "
+        raise ValueError(f"the flash kernels take b, h, n >= 1 and 1 <= d <= {MAX_HEAD_DIM}, "
                          f"got {(b, h, n, d)}")
-    tiles = -(-n // BWD_ROWS)
+    tiles = -(-n // ROWS)
     if tiles > 65535:
-        raise ValueError(f"the backward kernels take n <= {65535 * BWD_ROWS}, got {n}")
+        raise ValueError(f"the flash kernels take n <= {65535 * ROWS}, got {n}")
     blocks = b * h * tiles
     cap = min(MAX_SPLIT, tiles)
     split = next((s for s in range(1, cap + 1) if blocks * s >= CARD_SMS), cap)
     if b * h * split >= 2**31:
-        raise ValueError(f"the backward kernels take b * h * split < 2**31, got {b} * {h} * "
+        raise ValueError(f"the flash kernels take b * h * split < 2**31, got {b} * {h} * "
                          f"{split}")
-    return BWD_ROWS, split, blocks * split
+    return ROWS, split, blocks * split
+
+
+def _launch(fn, what: str, pointers, strided, scale: float) -> None:
+    """``fn(*pointers, strides, b, h, n, d, rows, split, scale, stream)`` for
+    q = ``strided[0]`` under ``cluster_plan``; raises on a CUDA error."""
+    q = strided[0]
+    strides = (ctypes.c_longlong * (3 * len(strided)))(
+        *(s for t in strided for s in t.stride()[:3]))
+    rows, split, _ = cluster_plan(*q.shape)
+    with torch.cuda.device(q.device):
+        err = fn(*(None if t is None else t.data_ptr() for t in pointers), strides, *q.shape,
+                 rows, split, float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
 def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
@@ -233,20 +246,6 @@ def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
         raise ValueError("the backward's inputs lie on more than one device")
 
 
-def _bwd_launch(fn, outs, q, k, v, do, l, m, di, scale: float) -> None:
-    tensors = (q, k, v, do, *outs)
-    strides = (ctypes.c_longlong * (3 * len(tensors)))(
-        *(s for t in tensors for s in t.stride()[:3]))
-    b, h, n, d = q.shape
-    rows, split, _ = bwd_plan(b, h, n, d)
-    with torch.cuda.device(q.device):
-        err = fn(*(t.data_ptr() for t in (q, k, v, do, l, m, di)),
-                 *(t.data_ptr() for t in outs), strides, b, h, n, d, rows, split,
-                 float(scale), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA error {err}")
-
-
 def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv): ``flash_bwd_dkv_plain`` for CPU tensors; the dK/dV kernel,
     counted in ``flash_bwd_dkv.launches``, for CUDA ones."""
@@ -254,8 +253,8 @@ def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float) -> Tuple[torch.Tensor, to
         return flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
     _check_bwd_inputs(q, k, v, do, l, m, di)
     dk, dv = _bhnd_like(q), _bhnd_like(q)
-    _bwd_launch(_bwd_library().flash_attention_bwd_dkv_launch, (dk, dv),
-                q, k, v, do, l, m, di, scale)
+    _launch(_bwd_library().flash_attention_bwd_dkv_launch, "flash_attention backward",
+            (q, k, v, do, l, m, di, dk, dv), (q, k, v, do, dk, dv), scale)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -267,8 +266,8 @@ def flash_bwd_dq(q, k, v, do, l, m, di, scale: float) -> torch.Tensor:
         return flash_bwd_dq_plain(q, k, v, do, l, m, di, scale)
     _check_bwd_inputs(q, k, v, do, l, m, di)
     dq = _bhnd_like(q)
-    _bwd_launch(_bwd_library().flash_attention_bwd_dq_launch, (dq,),
-                q, k, v, do, l, m, di, scale)
+    _launch(_bwd_library().flash_attention_bwd_dq_launch, "flash_attention backward",
+            (q, k, v, do, l, m, di, dq), (q, k, v, do, dq), scale)
     flash_bwd_dq.launches += 1
     return dq
 

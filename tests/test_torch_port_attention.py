@@ -149,7 +149,7 @@ def test_bwd_plan_covers_every_row_once_and_fills_the_card(shape):
     tile; 1 <= split <= min(8, T); 132 CTAs or more unless split is at its
     cap, and no smaller split reaches 132."""
     b, h, n, d = shape
-    rows, split, ctas = fa.bwd_plan(b, h, n, d)
+    rows, split, ctas = fa.cluster_plan(b, h, n, d)
     tiles = -(-n // rows)
     assert rows == 32 and (tiles - 1) * rows < n <= tiles * rows
     cap = min(8, tiles)
@@ -167,13 +167,13 @@ def test_bwd_plan_at_the_spot_tower_and_whole_slide_shapes():
     CTAs, from 32 blocks); the remainder batch and a ragged length split 3
     and 2 ways; (1, 1, 1000, 64) 5 ways, 6-7 tiles each with a ragged last
     tile of 8 rows; the whole-slide width (2,048 blocks) needs no split."""
-    assert fa.bwd_plan(1, 8, 128, 64) == (32, 4, 128)
-    assert fa.bwd_plan(1, 8, 66, 64) == (32, 3, 72)
-    assert fa.bwd_plan(1, 8, 300, 64) == (32, 2, 160)
-    assert fa.bwd_plan(1, 1, 1000, 64) == (32, 5, 160)
+    assert fa.cluster_plan(1, 8, 128, 64) == (32, 4, 128)
+    assert fa.cluster_plan(1, 8, 66, 64) == (32, 3, 72)
+    assert fa.cluster_plan(1, 8, 300, 64) == (32, 2, 160)
+    assert fa.cluster_plan(1, 1, 1000, 64) == (32, 5, 160)
     assert 1000 % 32 == 8 and [(r + 1) * 32 // 5 - r * 32 // 5 for r in range(5)] == [6, 6, 7,
                                                                                       6, 7]
-    assert fa.bwd_plan(1, 16, 4096, 64) == (32, 1, 2048)
+    assert fa.cluster_plan(1, 16, 4096, 64) == (32, 1, 2048)
 
 
 @pytest.mark.parametrize("shape, match", [
@@ -182,7 +182,47 @@ def test_bwd_plan_at_the_spot_tower_and_whole_slide_shapes():
     ((2**20, 2**11, 32, 64), "2\\*\\*31")])
 def test_bwd_plan_raises_outside_the_kernels_limits(shape, match):
     with pytest.raises(ValueError, match=match):
-        fa.bwd_plan(*shape)
+        fa.cluster_plan(*shape)
+
+
+# The forward's plans (split, CTAs): the training shape, the remainder batch,
+# a ragged length, the whole-slide width and the eval sweep's batch of 32.
+FWD_PLANS = {(1, 8, 128, 64): (4, 128), (1, 8, 66, 64): (3, 72), (1, 8, 300, 64): (2, 160),
+             (1, 16, 4096, 64): (1, 2048), (1, 8, 32, 64): (1, 8)}
+
+
+@pytest.mark.parametrize("shape", FWD_PLANS, ids=lambda s: "x".join(map(str, s)))
+def test_forward_plan_covers_every_query_row_once(shape):
+    """The forward kernel's plan (``cluster_plan``, shared with the
+    backward): query blocks of 32 cover each of the n rows once; the ranks'
+    shares of the key tiles cover each tile once, each share starting at a
+    valid key (only the last tile is ragged); the ranks' merged rows cover
+    the block's 32 rows once; the split and CTAs expected at each shape."""
+    b, h, n, d = shape
+    rows, split, ctas = fa.cluster_plan(*shape)
+    assert (split, ctas) == FWD_PLANS[shape]
+    tiles = -(-n // rows)
+    assert ctas == b * h * tiles * split
+    blocks = [range(y * rows, min((y + 1) * rows, n)) for y in range(tiles)]
+    assert sorted(i for blk in blocks for i in blk) == list(range(n))
+    shares = [range(r * tiles // split, (r + 1) * tiles // split) for r in range(split)]
+    assert sorted(i for s in shares for i in s) == list(range(tiles))
+    assert all(len(s) >= 1 and s[0] * rows < n for s in shares)
+    merged = [range(r * rows // split, (r + 1) * rows // split) for r in range(split)]
+    assert sorted(i for s in merged for i in s) == list(range(rows))
+
+
+@pytest.mark.parametrize("shape, match", [
+    ((1, 8, 128, 0), "d <= 128"), ((1, 8, 128, 129), "d <= 128"), ((0, 8, 128, 64), "non-empty"),
+    ((1, 8, 0, 64), "non-empty"), ((1, 1, 65535 * 32 + 1, 64), "n <= 2097120"),
+    ((2**20, 2**11, 32, 64), "2\\*\\*31")])
+def test_forward_plan_raises_outside_the_kernels_limits(shape, match):
+    """What ``flash_forward`` checks before a launch, in its order: the
+    shape rule (``check_kernel_inputs``), then the plan."""
+    x = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match=match):
+        fa.check_kernel_inputs(x, x, x)
+        fa.cluster_plan(*shape)
 
 
 def test_kernel_build_digest_follows_included_headers(tmp_path, monkeypatch):
@@ -200,6 +240,7 @@ def test_kernel_build_digest_follows_included_headers(tmp_path, monkeypatch):
     second = build.source_digest("k.cu")
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
     assert len({first, second, build.source_digest("k.cu")}) == 3
-    # the port's backward source includes the shared header
+    # both of the port's flash sources include the shared header
     monkeypatch.undo()
-    assert b'#include "flash_common.cuh"' in (build.CSRC / fa.BWD_SOURCE).read_bytes()
+    for source in (fa.SOURCE, fa.BWD_SOURCE):
+        assert b'#include "flash_common.cuh"' in (build.CSRC / source).read_bytes()

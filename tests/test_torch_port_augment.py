@@ -189,6 +189,32 @@ def test_train_augment_inline_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+def _every_uint8(shape):
+    """A uint8 batch that holds each of the 256 values, tiled to ``shape``."""
+    return np.resize(np.arange(256, dtype=np.uint8), shape)
+
+
+def test_train_augment_inline_scales_like_the_jitted_jax_step(monkeypatch):
+    """The float32 input that reaches ``color_jitter`` is bit-equal, for all
+    256 uint8 values, to the JAX step's ``/ 255`` as XLA compiles it (a
+    multiplication by float32(1/255); a true division differs for 126 of
+    them)."""
+    patches = _every_uint8((2, 16, 16, 3))
+    seen = []
+
+    def jitter(imgs, factors, order):
+        seen.append(imgs.clone())
+        return imgs
+
+    monkeypatch.setattr(augment, "color_jitter", jitter)
+    draws = augment.sample_st_draws(torch.Generator().manual_seed(0), 2, "cpu")
+    augment.train_augment_inline(torch.from_numpy(patches), draws)
+    want = np.asarray(jax.jit(lambda u: u.astype(jnp.float32) / 255.0)(jnp.asarray(patches)))
+    assert len(seen) == 1 and seen[0].dtype == torch.float32
+    np.testing.assert_array_equal(seen[0].numpy(), want)
+    assert (torch.from_numpy(patches).float() / 255.0 != seen[0]).any()  # the fault it repairs
+
+
 @pytest.mark.parametrize("raw_scale", [False, True])
 def test_tenx_augment_matches_jax_in_every_combination(rng, raw_scale):
     """Bit-equal to the JAX function for the draws derived from its key,

@@ -1,11 +1,14 @@
-"""The flash-attention backward of the port against the JAX library's.
+"""The flash-attention kernels of the port against the JAX library's.
 
 The JAX library's Pallas kernels (``jax.experimental.pallas.ops.tpu.
 flash_attention``, jax 0.9.0) run here on the CPU in TPU interpret mode, and
 the port's plain versions (what its CUDA kernels compute, with the same
 decomposition) are held to them on the same numpy inputs:
 
-  (a) the forward's residuals l (row sum) and m (row max);
+  (a) the forward's residuals l (row sum) and m (row max); and the CUDA
+      forward's design emulated on the bits (each cluster rank's share of
+      the key tiles, each key group's online softmax over 3xTF32 scores in
+      log2 units, the fixed-order merges) for splits 1, 2 and 4;
   (b) dK/dV and dQ, both fed the same l, m, dout and di; and the CUDA
       kernels' 3xTF32 products, emulated on the bits, from the same inputs;
   (c) dq, dk, dv through the port's autograd Function against ``jax.grad``
@@ -17,7 +20,8 @@ Tolerances: (a)-(c) rtol/atol 1e-5, (d) rtol/atol 1e-4: fp32 on both sides,
 sums in another order (the TPU kernels' tiles against whole-row matmuls;
 (d) also differentiates the projections in another order). Observed on
 this suite's inputs: (a) l within 2.4e-7 relative, m exact, out within
-4.5e-7; (b) within 4.8e-7, the 3xTF32 emulation within 1.4e-6 (one TF32
+4.5e-7, the forward's emulation out within 7.2e-7, l within 1.7e-6
+relative, m within 1.9e-6; (b) within 4.8e-7, the 3xTF32 emulation within 1.4e-6 (one TF32
 product per matmul: 3e-4 to 9e-4), and (c) within 5.4e-7 absolute; (d)
 within 1.2e-6 absolute.
 """
@@ -155,6 +159,70 @@ def test_3xtf32_products_match_the_library(reference):
     for name, got, rough in zip(("dk", "dv", "dq"), split, single):
         np.testing.assert_allclose(got.numpy(), reference[name], err_msg=name, **TOL)
         assert np.abs(rough.numpy() - reference[name]).max() > 1e-4, name
+
+
+LOG2E = np.float32(np.log2(np.e))  # the forward kernel keeps scores in log2 units
+LN2 = np.float32(np.log(2.0))
+
+
+def _merge(parts):
+    """(m, l, acc) parts merged as the forward kernel merges them, in list
+    order, maxima in log2 units: m = max m_i, l = sum l_i 2^(m_i - m), acc =
+    sum acc_i 2^(m_i - m); a part that saw no valid key (m_i = -inf) weighs
+    0."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        w = torch.where(m_i == -torch.inf, 0.0, torch.exp2(m_i - m))
+        l, acc = l + l_i * w, acc + acc_i * w[..., None]
+    return m, l, acc
+
+
+def _emulated_forward(q, k, v, split):
+    """The forward kernel's arithmetic on the bits: rank r of a cluster walks
+    key tiles [r * T // split, (r + 1) * T // split) of T = ceil(n / 32); in
+    each tile, key group j (keys 8j..8j+7 of the tile) keeps its own running
+    max, sum and output per query row, with s = q k^T and p v as 3xTF32
+    products, scores in log2 units (s * scale * log2(e), exp2); the groups
+    merge in group order into the rank's (m, l, acc), the ranks in rank
+    order; out = acc / l, and m back in natural units."""
+    n = q.shape[2]
+    tiles = -(-n // 32)
+    ranks = []
+    for r in range(split):
+        groups = []
+        for j in range(4):
+            m = torch.full(q.shape[:3], -torch.inf)
+            l, acc = torch.zeros(q.shape[:3]), torch.zeros(q.shape)
+            for tile in range(r * tiles // split, (r + 1) * tiles // split):
+                keys = slice(tile * 32 + 8 * j, min(tile * 32 + 8 * j + 8, n))
+                if keys.start >= n:  # every key masked: p = 0, and alpha 1 (or 0 at m = -inf)
+                    continue
+                s = _mm_3xtf32(q, k[:, :, keys].transpose(-1, -2)) * (SCALE * LOG2E)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.where(m == -torch.inf, 0.0, torch.exp2(m - m_new))
+                p = torch.exp2(s - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + _mm_3xtf32(p, v[:, :, keys])
+                m = m_new
+            groups.append((m, l, acc))
+        ranks.append(_merge(groups))
+    m, l, acc = _merge(ranks)
+    return acc / l[..., None], l, m * LN2
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_forward_kernel_emulation_matches_the_library(reference, split):
+    """The forward kernel's design (per-rank, per-key-group online softmax
+    over 3xTF32 scores in log2 units, then the fixed-order merges), emulated
+    here, keeps
+    out, l and m within 1e-5 of the library's Pallas forward, whatever the
+    split of the key walk."""
+    q, k, v, _ = map(_t, reference["inputs"])
+    out, l, m = _emulated_forward(q, k, v, split)
+    np.testing.assert_allclose(out.numpy(), reference["o"], err_msg="out", **TOL)
+    np.testing.assert_allclose(l.numpy(), reference["l"], err_msg="l", **TOL)
+    np.testing.assert_allclose(m.numpy(), reference["m"], err_msg="m", **TOL)
 
 
 def test_autograd_function_matches_jax_grad(reference):

@@ -7,11 +7,12 @@ without one. On the card:
 
 The patch gather is bit-equal to its plain version (a byte copy).
 Flash-attention tolerances: atol 2e-5 for the forward and both backward
-kernels against their plain versions (fp32 on both sides; sums in another
-order, the forward's online softmax rescaling, and the backward's 3xTF32
-tensor-core products, which keep fp32 accuracy; the plain versions are
-within ~2e-6 of float64 at these shapes). The backward kernels are
-deterministic: the cluster ranks' partial sums are added in a fixed order.
+kernels against their plain versions, the forward's l relative (fp32 on
+both sides; sums in another order, the forward's online softmax rescaling,
+and the kernels' 3xTF32 tensor-core products, which keep fp32 accuracy; the
+plain versions are within ~2e-6 of float64 at these shapes). The flash
+kernels are deterministic: the cluster ranks' partials are merged in a
+fixed order.
 """
 
 import pytest
@@ -78,19 +79,71 @@ def test_paeth_rotation_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 32, 128, 300])
-@pytest.mark.parametrize("d", [16, 64, 128])
-def test_flash_attention_kernel_matches_plain(cuda, n, d):
-    """fp32 against the plain softmax path, the tail tile masked (n not a
-    multiple of 32); atol 2e-5 (fp32 sums in another order and exp against
-    the softmax's exp). One launch per call."""
-    q, k, v = (torch.randn((2, 8, n, d), generator=cuda, device="cuda") for _ in range(3))
+def _qkv(cuda, b, h, n, d, strided):
+    """q, k, v: three (b, h, n, d) tensors, or the views of one (b, n, 3, h,
+    d) qkv buffer when ``strided``."""
+    if strided:
+        qkv = torch.randn((b, n, 3, h, d), generator=cuda, device="cuda")
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return tuple(torch.randn((b, h, n, d), generator=cuda, device="cuda") for _ in range(3))
+
+
+def _check_forward(q, k, v, scale):
+    """The forward kernel without residuals against attention_plain, and
+    with them against flash_forward_plain: out and m to atol 2e-5, l
+    relative; one launch each."""
     before = flash_attention.launches
-    got = flash_attention(q, k, v, d**-0.5)
-    assert flash_attention.launches == before + 1
+    got = flash_attention(q, k, v, scale)
+    out, l, m = fa.flash_forward(q, k, v, scale, residuals=True)
+    assert flash_attention.launches == before + 2
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, attention_plain(q, k, v, d**-0.5), rtol=0, atol=2e-5)
+    torch.testing.assert_close(got, attention_plain(q, k, v, scale), rtol=0, atol=2e-5)
+    want, want_l, want_m = fa.flash_forward_plain(q, k, v, scale)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(m, want_m, rtol=0, atol=2e-5)
+    torch.testing.assert_close(l, want_l, rtol=2e-5, atol=0)
+    return got, out, l, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "qkv_views"])
+@pytest.mark.parametrize("n", [1, 32, 66, 128, 300, 1000])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_attention_kernel_matches_plain(cuda, n, d, strided):
+    """fp32 against the plain versions, with and without residuals, the
+    tail tile masked (n not a multiple of 32) and every plan of the cluster
+    split (1, 32: split 1; 66: 3; 128: 4; 300: 2; 1000: 1 at b * h = 16);
+    atol 2e-5 (fp32 sums in another order, the online softmax's rescaling,
+    3xTF32 products)."""
+    _check_forward(*_qkv(cuda, 2, 8, n, d, strided), d**-0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128, 300])
+def test_flash_forward_unaligned_inputs_and_determinism(cuda, n):
+    """q, k, v one float off a 16-byte boundary (the 4-byte staging path)
+    within 2e-5 of the plain versions; and the same bits from run to run
+    (the cluster merges in a fixed order), on the views of a qkv buffer."""
+    _check_forward(*_offset_views(cuda, 1, 8, n, 64), 0.125)
+    q, k, v = _qkv(cuda, 1, 8, n, 64, True)
+    first = (flash_attention(q, k, v, 0.125), *fa.flash_forward(q, k, v, 0.125, residuals=True))
+    second = (flash_attention(q, k, v, 0.125), *fa.flash_forward(q, k, v, 0.125, residuals=True))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_forward_refused_launch_raises(cuda, monkeypatch):
+    """A plan the kernel refuses (a split of 9, past the portable cluster
+    size) comes back as a CUDA error and raises; nothing is counted."""
+    q, k, v = _qkv(cuda, 1, 8, 300, 64, True)
+    monkeypatch.setattr(fa, "cluster_plan", lambda b, h, n, d: (32, 9, b * h * 10 * 9))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention(q, k, v, 0.125)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_forward(q, k, v, 0.125, residuals=True)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.gpu
@@ -205,7 +258,7 @@ def test_flash_backward_cluster_split_and_unaligned_inputs(cuda, case):
     kernels within 2e-5 of their plain versions, one launch each."""
     if case == "n1000_split5":
         b, h, n, d = 1, 1, 1000, 64
-        assert fa.bwd_plan(b, h, n, d) == (32, 5, 160)
+        assert fa.cluster_plan(b, h, n, d) == (32, 5, 160)
         q, k, v = (torch.randn((b, h, n, d), generator=cuda, device="cuda") for _ in range(3))
     else:
         b, h, n, d = 1, 8, int(case.split("n")[-1]), 64
@@ -230,7 +283,7 @@ def test_flash_backward_refused_launch_raises(cuda, monkeypatch):
     """A plan the kernels refuse (a split of 9, past the portable cluster
     size) comes back as a CUDA error and raises; nothing is counted."""
     q, k, v, do, _, l, m, di = _bwd_inputs(cuda, 300, 64, True)
-    monkeypatch.setattr(fa, "bwd_plan", lambda b, h, n, d: (32, 9, b * h * 10 * 9))
+    monkeypatch.setattr(fa, "cluster_plan", lambda b, h, n, d: (32, 9, b * h * 10 * 9))
     before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
     with pytest.raises(RuntimeError, match="CUDA error"):
         fa.flash_bwd_dkv(q, k, v, do, l, m, di, 0.125)
@@ -245,7 +298,7 @@ def test_flash_backward_is_deterministic(cuda, n):
     """No atomics: the cluster's partial sums are added in rank order, so
     two runs give the same bits; at the training shape (1, 8, 128, 64) the
     plan splits each walk 4 ways over 128 CTAs, at n = 300 2 ways."""
-    rows, split, ctas = fa.bwd_plan(1, 8, n, 64)
+    rows, split, ctas = fa.cluster_plan(1, 8, n, 64)
     if n == 128:
         assert split == 4 and ctas >= 128
     qkv = torch.randn((1, n, 3, 8, 64), generator=cuda, device="cuda")

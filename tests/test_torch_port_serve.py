@@ -16,6 +16,7 @@ import urllib.error
 import urllib.request
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -88,6 +89,27 @@ def test_predict_and_embed_match_jax(services, n):
     got = services["service"].predict(patches)
     assert got.shape == (n, 24) and got.dtype == np.float32
     np.testing.assert_allclose(got, services["jservice"].predict(patches), **PRED_TOL)
+
+
+def test_service_scales_uint8_like_the_jitted_jax_service(services, monkeypatch):
+    """The float32 batch that reaches ``encode_image`` is bit-equal, for all
+    256 uint8 values, to the JAX service's ``/ 255`` as XLA compiles it (a
+    multiplication by float32(1/255)): the same patch gives the service and
+    ``compute_embeddings`` the same input bits."""
+    patches = np.resize(np.arange(256, dtype=np.uint8), (2, 16, 16, 3))
+    seen, encode = [], MclSTExp.encode_image
+
+    def spy(model, x):
+        seen.append(x.clone())
+        return encode(model, x)
+
+    monkeypatch.setattr(MclSTExp, "encode_image", spy)
+    services["service"].embed_patches(patches)
+    want = np.asarray(jax.jit(lambda u: u.astype(jnp.float32) / 255.0)(jnp.asarray(patches)))
+    assert len(seen) == 1 and seen[0].dtype == torch.float32
+    np.testing.assert_array_equal(seen[0].numpy(), want)
+    sweep_input = embed._image_input(torch.from_numpy(patches), False, False, 0, 0)
+    np.testing.assert_array_equal(sweep_input.numpy(), want)
 
 
 def test_bucket_padding_is_exact(services):
