@@ -11,7 +11,12 @@ order; any failure exits non-zero and prints no result line:
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the main path gives it, in each of its layouts, with its time, the
      plain version's time, a PyTorch yardstick and its bound: row_shift
-     (bit-equal); the flash kernels, each block of 32 queries or keys one
+     (bit-equal at random shifts and at the Paeth shears of drawn angles,
+     timed by events and by CUDA-graph replays at both; the row shears in
+     ``shift_rows16``, 16-byte chunks realigned from aligned source words;
+     the column shear in ``shift_cols_band``, a band of 16 f32 or 32 bf16
+     pixels' column staged in shared memory, 16-byte stores); the flash
+     kernels, each block of 32 queries or keys one
      thread-block cluster that splits the walk, 3xTF32 tensor-core
      products, each with its plan (rows, split, CTAs): the forward, with
      and without residuals and deterministic, at the eval sweep's, the
@@ -20,17 +25,21 @@ order; any failure exits non-zero and prints no result line:
      the forward-and-backward pair timed against
      ``F.scaled_dot_product_attention``'s; and all three once at the JAX
      bench's whole-slide width (1, 16, 4,096, 64);
-  4. patches: extract_patches (the patch gather) bit-equal to its plain
-     version in small cases (P 15/16/32/224, C 1/3/4, centers inside, on
-     the border, far outside and at -2147483648, N = 0) and on a 20,000 x
-     20,000 x 3 slide with 4,992 + 64 centers at P = 224, timed against
-     indexing a pre-padded copy;
+  4. patches: extract_patches (the patch gather; ``gather_rows16``, 16-byte
+     chunks realigned from aligned slide words, where P * C is whole
+     chunks, else ``gather_bytes``) bit-equal to its plain version in small
+     cases (P 15/16/32/224, C 1/3/4, centers inside, on the border, far
+     outside and at -2147483648, N = 0; a 50 x 83 slide, W * C no multiple
+     of 16, with crop starts at every residue mod 16) and on a 20,000 x
+     20,000 x 3 slide with 4,992 + 64 centers at P = 224, timed (events and
+     graph replays) against indexing a pre-padded copy;
   5. train: ``train_fold`` at the her2st widths (densenet121, 224 px,
      spot_dim 785, pos_vocab 1024, 2 blocks of 8x64 heads, projection 256,
      batch 128) on synthetic sections made from a seed, one epoch of three
      full batches and a remainder; every loss finite, and every kernel of
      the path launched (row_shift three times per step: twice in its row
-     layout, once in its column layout);
+     layout through ``shift_rows16``, once in its column layout through
+     ``shift_cols_band``);
   6. reference: the trained model on the card against the same weights on
      the CPU at a small batch (TF32 off for the comparison);
   7. step time: steady-state ms per train step;
@@ -80,67 +89,18 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from mclstexp_tpu_torch.profile_kernels import card_line, cuda_ms, graph_ms  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM published fp32 rate outside the tensor cores
-FLAGSHIP = (128, 224, 224, 3)  # the Paeth shears' images at the her2st widths
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, reps: int = 20, iters: int = 20) -> float:
-    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``iters`` times, so that the host's cost of launching
-    (which dominates a call of a few microseconds) is not counted."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
 
 
 def phase_device():
@@ -177,17 +137,6 @@ def phase_build():
         f"(the sources' own times sum to {sum(b[2] for b in built):.2f} s)")
 
 
-def _shifts(g, b, h, w):
-    """Random shifts with the clamp edges +-W//2 and values beyond them."""
-    import torch
-
-    k = torch.randint(-w, w + 1, (b, h), generator=g, device="cuda", dtype=torch.int32)
-    edges = torch.tensor([0, w // 2, -(w // 2), w // 2 + 1, -(w // 2) - 1, w, -w, 3 * w],
-                         device="cuda", dtype=torch.int32)
-    k.view(-1)[: len(edges)] = edges
-    return k
-
-
 def _padded(view, pad):
     """``view`` zero-padded by ``pad`` on both sides of W, in the view's layout."""
     import torch.nn.functional as F
@@ -197,53 +146,105 @@ def _padded(view, pad):
     return F.pad(view.transpose(1, 2), (0, 0, 0, 0, pad, pad)).transpose(1, 2)
 
 
+def _shift_bytes(view, k) -> int:
+    """Bytes ``row_shift(view, k)`` must move: every output element written
+    once, each input element that lands in the output read once (a line
+    shifted by k keeps W - |k| of its W pixels, k clamped to +-W//2), and
+    the shifts."""
+    w = view.shape[2]
+    kept = (w - k.long().clamp(-(w // 2), w // 2).abs()).sum().item()
+    per_px = view.shape[3] * view.element_size()
+    return view.numel() * view.element_size() + kept * per_px + k.numel() * 4
+
+
+def _shear_launches(steps: int) -> dict:
+    """``row_shift.kernel_launches`` after ``steps`` train steps: the Paeth
+    rotation's two row shears and one column shear, each on its 16-byte
+    kernel."""
+    return {"shift_rows": 0, "shift_rows16": 2 * steps, "shift_cols": 0,
+            "shift_cols_band": steps}
+
+
+def _one_launch_kernel(view, k) -> str:
+    """The kernel (``row_shift.kernel_launches`` key) one launch took."""
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+
+    before = dict(row_shift.kernel_launches)
+    row_shift(view, k)
+    (kernel,) = [n for n, c in row_shift.kernel_launches.items() if c != before[n]]
+    return kernel
+
+
 def phase_kernels() -> list:
     """row_shift against its plain version at the flagship shape, in both of
     its layouts: "rows" (contiguous image: the Paeth row shears, kernel
-    ``shift_rows``) and "cols" (the transposed view: the column shear, kernel
-    ``shift_cols``). One entry per layout, timed in float32, the main path's
-    type; bfloat16 is checked and timed too."""
+    ``shift_rows16``) and "cols" (the transposed view: the column shear,
+    kernel ``shift_cols_band``), each of which the flagship must take, bit
+    for bit at two shift inputs (``profile_kernels.shift_inputs``): uniform
+    random shifts with the clamp edges, and the Paeth rotation's shears for
+    128 drawn angles. One entry per layout, float32 (the main path's type):
+    ``ms`` by events over eager launches at the random shifts (the measure
+    earlier versions of this script reported), ``graph_ms`` and
+    ``paeth_ms`` by CUDA-graph replays at the random and the Paeth shifts
+    (``paeth_eager_ms`` by events), the kernel the launch took; bfloat16 is
+    checked and timed too (under ``bf16``). The bound counts the bytes these
+    shifts need (``_shift_bytes``: ``bound_ms`` at the random shifts,
+    ``paeth_bound_ms`` at the Paeth ones), and ``full_read_bound_ms`` that
+    of reading every input byte."""
     import torch
 
-    from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
+    from mclstexp_tpu_torch.ops.row_shift import row_shift_plain
+    from mclstexp_tpu_torch.profile_kernels import FLAGSHIP, shift_inputs, time_row_shift
 
     b, h, w, c = FLAGSHIP
     g = torch.Generator(device="cuda").manual_seed(0)
-    k = _shifts(g, b, h, w)
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.rand(FLAGSHIP, generator=g, device="cuda").to(dtype)
-        for layout, view in (("rows", x), ("cols", x.transpose(1, 2))):
-            got, want = row_shift(view, k), row_shift_plain(view, k)
-            torch.cuda.synchronize()
-            if got.stride() != view.stride() or not torch.equal(got, want):
-                raise AssertionError(f"row_shift {layout} {dtype} differs from its plain version")
-            err = float((got.float() - want.float()).abs().max())
-            ms = cuda_ms(lambda: row_shift(view, k))
+        cases = shift_inputs(g, dtype)
+        for layout in ("rows", "cols"):
+            view, k = cases[(layout, "random")]
+            kernel = _one_launch_kernel(view, k)
+            want = {"rows": "shift_rows16", "cols": "shift_cols_band"}[layout]
+            if kernel != want or _one_launch_kernel(*cases[(layout, "paeth")]) != want:
+                raise AssertionError(f"row_shift {layout} {dtype} at {FLAGSHIP} took {kernel}, "
+                                     f"not {want}")
+            rnd, paeth = time_row_shift(view, k), time_row_shift(*cases[(layout, "paeth")])
             plain_ms = cuda_ms(lambda: row_shift_plain(view, k), iters=20)
-            nbytes = 2 * x.numel() * x.element_size() + k.numel() * 4
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms, paeth_bound_ms, full_ms = (
+                nbytes / HBM_BYTES_PER_S * 1e3 for nbytes in (
+                    _shift_bytes(view, k), _shift_bytes(*cases[(layout, "paeth")]),
+                    2 * view.numel() * view.element_size() + k.numel() * 4))
             # Yardstick: one torch.gather over a zero-padded copy in the same
             # layout computes the same function (the pad is set-up, untimed).
             pad = w // 2
             xp = _padded(view, pad)
             src = (torch.arange(w, device="cuda") - k.long().clamp(-pad, pad)[..., None]
                    + pad)[..., None].expand(b, h, w, c)
-            if not torch.equal(torch.gather(xp, 2, src), want):
+            if not torch.equal(torch.gather(xp, 2, src), row_shift_plain(view, k)):
                 raise AssertionError("gather yardstick computes another function")
             library_ms = cuda_ms(lambda: torch.gather(xp, 2, src))
-            log(f"[kernels] row_shift {layout} {str(dtype)[6:]} {FLAGSHIP}: bit-equal; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound")
+            log(f"[kernels] row_shift {layout} {str(dtype)[6:]} {FLAGSHIP} kernel {kernel}: "
+                f"bit-equal at random and Paeth shifts; random: eager {rnd['ms']:.4f} ms, graph "
+                f"{rnd['graph_ms']:.4f} ms, bound {bound_ms:.4f} ms; Paeth: eager "
+                f"{paeth['ms']:.4f} ms, graph {paeth['graph_ms']:.4f} ms, bound "
+                f"{paeth_bound_ms:.4f} ms; plain {plain_ms:.4f} ms, torch.gather "
+                f"{library_ms:.4f} ms; graph {bound_ms / rnd['graph_ms']:.1%} / "
+                f"{paeth_bound_ms / paeth['graph_ms']:.1%} of bound (random / Paeth); reading "
+                f"every input byte: bound {full_ms:.4f} ms, {full_ms / rnd['graph_ms']:.1%} / "
+                f"{full_ms / paeth['graph_ms']:.1%}")
+            numbers = {"ms": rnd["ms"], "graph_ms": rnd["graph_ms"],
+                       "paeth_ms": paeth["graph_ms"], "paeth_eager_ms": paeth["ms"],
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "paeth_bound_ms": paeth_bound_ms, "full_read_bound_ms": full_ms,
+                       "library_ms": library_ms, "kernel": kernel}
             if dtype == torch.float32:
                 entries[layout] = {
                     "name": f"row_shift[{layout}]", "route": "cuda",
                     "source": "mclstexp_tpu_torch/csrc/row_shift.cu",
                     "replaces": "mclstexp_tpu/ops/pallas_shift.py:36",
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": library_ms, "max_abs_err": err}
+                    "bound_by": "bytes", "max_abs_err": 0.0, **numbers}
             else:
-                entries[layout]["max_abs_err"] = max(entries[layout]["max_abs_err"], err)
+                entries[layout]["bf16"] = numbers
     return [entries["rows"], entries["cols"]]
 
 
@@ -277,21 +278,22 @@ def phase_train():
     state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(row_shift.layout_launches)
+    kernels = dict(row_shift.kernel_launches)
 
     losses = [r["loss"] for r in logger.records if "loss" in r]
     if state.step != steps or len(losses) != steps:
         raise AssertionError(f"expected {steps} steps, took {state.step} ({len(losses)} logged)")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if row_shift.launches != 3 * steps or launches != {"rows": 2 * steps, "cols": steps}:
-        raise AssertionError(f"row_shift launched {row_shift.launches} times ({launches}) in "
-                             f"{steps} steps; the Paeth rotation takes 3 per step, two "
-                             "row shears and one column shear")
+    if row_shift.launches != 3 * steps or kernels != _shear_launches(steps):
+        raise AssertionError(f"row_shift launched {row_shift.launches} times (kernels "
+                             f"{kernels}) in {steps} steps; the Paeth rotation takes 3 per "
+                             "step, two row shears (shift_rows16) and one column shear "
+                             "(shift_cols_band)")
     log(f"[train] train_fold: {steps} steps ({n_train} spots, remainder "
         f"{n_train % cfg.train.batch_size}) in {seconds:.1f} s incl. set-up; "
-        f"running losses {losses}; row_shift launches {row_shift.launches} {launches}")
-    return cfg, state, sections, launches
+        f"running losses {losses}; row_shift launches {row_shift.launches} {kernels}")
+    return cfg, state, sections, kernels
 
 
 def phase_reference(cfg, state, sections):
@@ -680,108 +682,97 @@ def phase_flash_bwd_long(fwd_entry, entries) -> None:
 I32_MIN = -2**31
 PATCH_SMALL_CENTERS = ((10, 12), (40, 30), (0, 0), (79, 59), (80, 60), (-5, 30), (-200, 5),
                        (500, 500), (40, -90), (I32_MIN, I32_MIN), (I32_MIN, 20), (2**31 - 1, 7))
-VISIUM_SIDE = 20_000  # a Visium full-resolution image.tif is about 20,000-25,000 px a side
-VISIUM_SPOTS = 4_992  # the spots of one Visium capture area
-PATCH = 224
+PATCH_SIZES = (15, 16, 32, 224)
 
 
-def _patch_centers(side: int):
-    """4,992 centers on a grid inside a side x side slide (78 x 64, 250 px
-    apart: no two patches overlap) and 64 at and past its border, two of them
-    a missing spot's floor(NaN) = -2147483648."""
-    import numpy as np
-
-    gx, gy = np.meshgrid(250 + 250 * np.arange(78), 250 + 300 * np.arange(64))
-    inside = np.stack([gx.ravel(), gy.ravel()], axis=1)
-    past = np.array([0, -1, -50, -111, -112, -113, -224, -300, -5000, side - 1, side,
-                     side + 111, side + 112, side + 300, side + 5000, I32_MIN])
-    along = np.linspace(0, side - 1, 16).astype(np.int64)
-    edge = np.concatenate([np.stack([past, along], 1), np.stack([along, past], 1),
-                           np.stack([past[::-1], along[::-1]], 1),
-                           np.stack([along[::-1], past], 1)])
-    return np.concatenate([inside, edge]).astype(np.int64)
-
-
-def _patch_bytes(centers, side: int, patch: int, channels: int) -> int:
-    """Bytes the crop must move: every output byte written once, and the
-    in-slide part of every patch read once."""
-    import numpy as np
+def _residue_centers(w: int, h: int, patch: int):
+    """Centers whose crop starts x0 = x - P//2 run over every residue mod 16,
+    inside the slide and across both of its side edges, on rows inside,
+    across the top and bottom edges and outside."""
+    import torch
 
     r = patch // 2
-    c = centers.astype(np.int64)
-    span = [np.clip(np.minimum(c[:, k] + r, side) - np.maximum(c[:, k] - r, 0), 0, None)
-            for k in (0, 1)]
-    return int((span[0] * span[1]).sum() * channels + len(c) * patch * patch * channels
-               + c.size * 8)
+    xs = torch.arange(r - 20, r + w + 4)  # x0 from -20 to w + 3
+    ys = torch.tensor([r, h // 2, h - 1, -r + 3, h + r - 3, -5 * h])
+    return torch.stack([xs, ys[xs % len(ys)]], 1).cuda()
 
 
 def phase_patches() -> dict:
     """extract_patches (csrc/extract_patches.cu) against extract_patches_plain,
     bit for bit: small cases (P 15, 16, 32, 224; C 1, 3, 4; centers inside,
-    on the border, far outside, at -2147483648; N = 0), then the full-size
-    case, timed: a 20,000 x 20,000 x 3 uint8 slide (1.2 GB, a Visium
-    full-resolution image) made on the card from a seed, 4,992 grid centers
-    and 64 at and past the border, P = 224. The yardstick (library_ms) is one
-    advanced-indexing call over a copy of the slide padded by P, with the
-    start indices clamped into it; the pad and the index tensors are made
-    before the timed window. Bound: the bytes of the crop (each output byte
-    written once, each in-slide source byte read once) at 3.35 TB/s."""
-    import numpy as np
+    on the border, far outside, at -2147483648; N = 0); a 50 x 83 slide,
+    whose rows of W * C bytes are no multiple of 16 (83, 249 and 332 at C
+    1, 3, 4), with crop starts at every residue mod 16 (the 16-byte path's
+    realignment, and the byte path at odd P * C); then the full-size case,
+    timed (``profile_kernels.time_patches``): a 20,000 x 20,000 x 3 uint8
+    slide (1.2 GB, a Visium full-resolution image) made on the card from a
+    seed, 4,992 grid centers and 64 at and past the border, P = 224, by
+    events over eager launches (``ms``) and CUDA-graph replays
+    (``graph_ms``). The yardstick (library_ms) is one advanced-indexing call
+    over a copy of the slide padded by P, with the start indices clamped into
+    it; the pad and the index tensors are made before the timed window.
+    Bound: the bytes of the crop (each output byte written once, each
+    in-slide source byte read once) at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
 
-    from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
+    from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain, patch_plan
+    from mclstexp_tpu_torch.profile_kernels import (
+        PATCH, VISIUM_SIDE, patch_bytes, patch_input, time_patches)
 
     g = torch.Generator(device="cuda").manual_seed(4)
     small = torch.tensor(PATCH_SMALL_CENTERS, device="cuda")
+    kernels = set()
     for c in (1, 3, 4):
         slide = torch.randint(0, 256, (60, 80, c), generator=g, device="cuda",
                               dtype=torch.uint8)
-        for p in (15, 16, 32, 224):
-            got, want = extract_patches(slide, small, p), extract_patches_plain(slide, small, p)
-            if not torch.equal(got, want):
-                raise AssertionError(f"extract_patches C={c} P={p} differs from its plain version")
+        odd = torch.randint(0, 256, (50, 83, c), generator=g, device="cuda", dtype=torch.uint8)
+        for p in PATCH_SIZES:
+            for s, centers in ((slide, small), (odd, _residue_centers(83, 50, p))):
+                got = extract_patches(s, centers, p)
+                if not torch.equal(got, extract_patches_plain(s, centers, p)):
+                    raise AssertionError(f"extract_patches {tuple(s.shape)} P={p} differs from "
+                                         "its plain version")
+            kernels.add(patch_plan(len(small), p, c).kernel)
         if extract_patches(slide, small[:0], 16).shape != (0, 16, 16, c):
             raise AssertionError("extract_patches with N = 0")
-    log(f"[patches] small cases: bit-equal at P 15/16/32/224, C 1/3/4, "
-        f"{len(PATCH_SMALL_CENTERS)} centers (inside, border, far outside, -2147483648); N = 0 ok")
+    if kernels != {"gather_rows16", "gather_bytes"}:
+        raise AssertionError(f"the small cases ran the kernels {kernels}, not both paths")
+    log(f"[patches] small cases: bit-equal at P {PATCH_SIZES}, C 1/3/4, "
+        f"{len(PATCH_SMALL_CENTERS)} centers (inside, border, far outside, -2147483648) on a "
+        f"60 x 80 slide, and crop starts at every residue mod 16 on a 50 x 83 slide (W * C "
+        f"no multiple of 16); paths {sorted(kernels)}; N = 0 ok")
 
     side, p = VISIUM_SIDE, PATCH
-    slide = torch.randint(0, 256, (side, side, 3), generator=g, device="cuda", dtype=torch.uint8)
-    host_centers = _patch_centers(side)
-    centers = torch.from_numpy(host_centers).cuda()
-    got = extract_patches(slide, centers, p)
-    want = extract_patches_plain(slide, centers, p)
+    slide, host_centers, centers = patch_input(g)
+    plan = patch_plan(len(host_centers), p, 3)
+    times = time_patches(slide, centers)
     r = p // 2
     padded = F.pad(slide, (0, 0, p, p, p, p))
     offs = torch.arange(p, device="cuda")
     rows = ((centers[:, 1] - r + p).clamp(0, side + p)[:, None] + offs)[:, :, None]
     cols = ((centers[:, 0] - r + p).clamp(0, side + p)[:, None] + offs)[:, None, :]
-    library = padded[rows, cols]
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("extract_patches at full size differs from its plain version")
-    if not torch.equal(library, want):
+    if not torch.equal(padded[rows, cols], extract_patches(slide, centers, p)):
         raise AssertionError("the indexing yardstick computes another function")
-    del want, library
-    ms = cuda_ms(lambda: extract_patches(slide, centers, p), iters=10, warmup=2)
     plain_ms = cuda_ms(lambda: extract_patches_plain(slide, centers, p), iters=3, warmup=1)
     library_ms = cuda_ms(lambda: padded[rows, cols], iters=10, warmup=2)
-    nbytes = _patch_bytes(host_centers, side, p, 3)
+    nbytes = patch_bytes(host_centers, side, p, 3)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"[patches] {side} x {side} x 3 slide ({slide.numel() / 1e9:.2f} GB), "
-        f"{len(host_centers)} centers, P={p}: bit-equal; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, indexing a pre-padded copy {library_ms:.4f} ms (pad and indices "
-        f"outside the timed window), bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB by bytes), "
-        f"{bound_ms / ms:.1%} of bound, on {card_line()}")
-    del slide, padded, got
+        f"{len(host_centers)} centers, P={p}, plan {plan}: bit-equal; kernel {times['ms']:.4f} "
+        f"ms (graph {times['graph_ms']:.4f} ms), plain {plain_ms:.4f} ms, indexing a pre-padded "
+        f"copy {library_ms:.4f} ms (pad and indices outside the timed window), bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB by bytes), {bound_ms / times['ms']:.1%} of "
+        f"bound, on {card_line()}")
+    del slide, padded
     torch.cuda.empty_cache()
     return {"name": "extract_patches", "route": "cuda",
             "source": "mclstexp_tpu_torch/csrc/extract_patches.cu",
             "replaces": "mclstexp_tpu/ops/pallas_patches.py:84",
             "also_replaces": "mclstexp_tpu/ops/pallas_patches.py:166",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms, "max_abs_err": 0.0}
+            "ms": times["ms"], "graph_ms": times["graph_ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "max_abs_err": 0.0, "kernel": plan.kernel}
 
 
 def _flash_counts() -> tuple:
@@ -796,7 +787,7 @@ def _reset_counts() -> None:
 
     fa.flash_attention.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
     row_shift.launches = 0
-    row_shift.layout_launches = {"rows": 0, "cols": 0}
+    row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
 
 def _train_flash_fold(cfg, sections, resume: bool):
@@ -813,7 +804,7 @@ def _train_flash_fold(cfg, sections, resume: bool):
     _reset_counts()
     state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda", resume=resume)
     torch.cuda.synchronize()
-    counts, shifts = _flash_counts(), dict(row_shift.layout_launches)
+    counts, shifts = _flash_counts(), dict(row_shift.kernel_launches)
     losses = [r["loss"] for r in logger.records if "loss" in r]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite or missing training losses: {losses}")
@@ -866,7 +857,7 @@ def phase_train_flash(cfg, sections, xla_state):
     if counts != (want, want, want):
         raise AssertionError(f"flash forward, dK/dV, dQ launched {counts} times in {steps} "
                              f"steps; head_layers x steps = {want} each")
-    if shifts != {"rows": 2 * steps, "cols": steps}:
+    if shifts != _shear_launches(steps):
         raise AssertionError(f"row_shift launched {shifts} in {steps} steps")
     log(f"[train-flash] train_fold attn_backend='flash': {steps} steps in {seconds:.1f} s "
         f"incl. set-up; running losses {losses}; launches forward/dK-dV/dQ {counts} "
@@ -1353,7 +1344,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     t_start = time.perf_counter()
     phase_device()
@@ -1364,8 +1354,8 @@ def main() -> int:
     phase_flash_bwd_long(flash_entry, bwd_entries)
     patch_entry = phase_patches()
     cfg, state, sections, launches = phase_train()
-    for entry, layout in zip(entries, ("rows", "cols")):
-        entry["launches"] = launches[layout]
+    for entry in entries:
+        entry["launches"] = launches[entry["kernel"]]
     phase_reference(cfg, state, sections)
     phase_step_time(cfg, state, sections)
     fcfg, steps, counts = phase_train_flash(cfg, sections, state)

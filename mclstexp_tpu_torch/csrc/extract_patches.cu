@@ -17,46 +17,68 @@
 // at 3.35 TB/s), less where patches reach past the slide.
 //
 // Design: the TPU kernels DMA an aligned window per patch into VMEM and roll
-// the sub-tile residual into place. Here each CTA owns one (patch, block of
-// kRows rows); its threads walk each output row's P * C bytes, so stores are
-// coalesced and loads read one contiguous run of a slide row. The valid
-// column range of a patch is computed once, so the inner loop has one
-// compare pair and no division. Offsets are 64-bit: a center may be
-// -2147483648 (a missing spot's floor(NaN)) and a slide may hold ~2^31 bytes.
-// Byte loads and stores; wider accesses across unaligned starts are a later
-// optimisation.
+// the sub-tile residual into place. Here, gather_rows16 (where a patch row,
+// P * C bytes, is whole 16-byte chunks, so every output row starts 16-byte
+// aligned) gives each block one patch and a block of rows_per_cta output
+// rows; thread t owns chunk t % lanes of rows t / lanes, t / lanes + rstep,
+// ... (lanes = the row's chunks, rstep = threads / lanes: whole rows per
+// pass). A chunk's source run starts at any byte of a slide row, so the
+// thread loads it with realign::load (realign.cuh): the one or two aligned
+// 16-byte words that hold its valid bytes, shifted right by the start's
+// residue, the bytes outside the slide or past 2r zeroed; then it stores 16
+// bytes. Rows outside the slide are 16-byte zero stores. Only aligned words
+// that hold a byte of the slide are read: such a word lies inside the
+// slide's allocation, so the slide itself needs no alignment. Where P * C is no
+// multiple of 16 (C = 1 or 3 at odd P), gather_bytes runs: one block per
+// (patch, 8 rows), one byte per thread per access. The valid byte range of
+// a patch row is computed once per block. Offsets are 64-bit: a center may
+// be -2147483648 (a missing spot's floor(NaN)) and a slide may hold ~2^31
+// bytes. The launch plan (threads, rows per block) is
+// ops/patches.py::patch_plan.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "realign.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 8;  // output rows per CTA
+// The crop of patch i: its top-left source pixel (x0, y0) and the bytes
+// [blo, bhi) of an output row that come from the slide (empty when none).
+struct Crop {
+  long long x0, y0, blo, bhi, r;
+};
 
-__global__ void extract_patches_kernel(const uint8_t* __restrict__ slide,
-                                       const long long* __restrict__ centers,
-                                       uint8_t* __restrict__ out, long long h, long long w,
-                                       int channels, int patch) {
+__device__ __forceinline__ Crop crop_of(const long long* centers, long long i, long long w,
+                                        int channels, int patch) {
+  Crop c;
+  c.r = patch / 2;
+  c.x0 = centers[2 * i] - c.r;
+  c.y0 = centers[2 * i + 1] - c.r;
+  // Valid columns px: px < 2r and 0 <= x0 + px < w.
+  const long long px_lo = c.x0 < 0 ? -c.x0 : 0;
+  const long long px_hi = min(2 * c.r, w - c.x0);
+  c.blo = px_lo * channels;
+  c.bhi = px_hi > px_lo ? px_hi * channels : c.blo;
+  return c;
+}
+
+__global__ void gather_bytes(const uint8_t* __restrict__ slide,
+                             const long long* __restrict__ centers, uint8_t* __restrict__ out,
+                             long long h, long long w, int channels, int patch,
+                             int rows_per_cta) {
   const long long i = blockIdx.x;
-  const long long r = patch / 2;
-  const long long x0 = centers[2 * i] - r;
-  const long long y0 = centers[2 * i + 1] - r;
+  const Crop c = crop_of(centers, i, w, channels, patch);
   const long long row_bytes = static_cast<long long>(patch) * channels;
-  // Valid columns px: px < 2r and 0 <= x0 + px < w, as a byte range [blo, bhi).
-  const long long px_lo = x0 < 0 ? -x0 : 0;
-  const long long px_hi = min(2 * r, w - x0);
-  const long long blo = px_lo * channels;
-  const long long bhi = px_hi > px_lo ? px_hi * channels : blo;
-  const int py_end = min(static_cast<int>(blockIdx.y + 1) * kRows, patch);
-  for (int py = blockIdx.y * kRows; py < py_end; ++py) {
-    const long long sy = y0 + py;
+  const int py_end = min(static_cast<int>(blockIdx.y + 1) * rows_per_cta, patch);
+  for (int py = blockIdx.y * rows_per_cta; py < py_end; ++py) {
+    const long long sy = c.y0 + py;
     uint8_t* dst = out + (i * patch + py) * row_bytes;
-    if (py < 2 * r && sy >= 0 && sy < h) {
+    if (py < 2 * c.r && sy >= 0 && sy < h) {
       // Only bytes j in [blo, bhi) are read: their offset is in the slide.
-      const long long src = (sy * w + x0) * channels;
+      const long long src = (sy * w + c.x0) * channels;
       for (long long j = threadIdx.x; j < row_bytes; j += blockDim.x) {
-        dst[j] = (j >= blo && j < bhi) ? slide[src + j] : uint8_t(0);
+        dst[j] = (j >= c.blo && j < c.bhi) ? slide[src + j] : uint8_t(0);
       }
     } else {
       for (long long j = threadIdx.x; j < row_bytes; j += blockDim.x) dst[j] = 0;
@@ -64,21 +86,71 @@ __global__ void extract_patches_kernel(const uint8_t* __restrict__ slide,
   }
 }
 
+__global__ void gather_rows16(const uint8_t* __restrict__ slide,
+                              const long long* __restrict__ centers, uint8_t* __restrict__ out,
+                              long long h, long long w, int channels, int patch,
+                              int rows_per_cta) {
+  const long long i = blockIdx.x;
+  const Crop c = crop_of(centers, i, w, channels, patch);
+  const long long row_bytes = static_cast<long long>(patch) * channels;
+  const int chunks = static_cast<int>(row_bytes / 16);
+  const int lanes = min(chunks, static_cast<int>(blockDim.x));
+  const int rstep = blockDim.x / lanes;
+  const int jt = threadIdx.x % lanes;
+  const int py0 = blockIdx.y * rows_per_cta;
+  const int py_end = min(py0 + rows_per_cta, patch);
+  for (int py = py0 + threadIdx.x / lanes; py < py_end; py += rstep) {
+    const long long sy = c.y0 + py;
+    uint4* dst = reinterpret_cast<uint4*>(out + (i * patch + py) * row_bytes);
+    const bool in_slide = py < 2 * c.r && sy >= 0 && sy < h;
+    // The address of output byte 0's source (outside the slide where x0 <
+    // 0); only valid bytes are read.
+    const uintptr_t src = in_slide ? reinterpret_cast<uintptr_t>(slide) +
+                                         static_cast<uintptr_t>((sy * w + c.x0) * channels)
+                                   : 0;
+    for (int j = jt; j < chunks; j += lanes) {
+      const long long q0 = 16LL * j;
+      const long long vlo = max(c.blo - q0, 0LL), vhi = min(c.bhi - q0, 16LL);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (in_slide && vlo < vhi) {
+        v = realign::load(src + static_cast<uintptr_t>(q0), static_cast<int>(vlo),
+                          static_cast<int>(vhi));
+      }
+      dst[j] = v;
+    }
+  }
+}
+
 }  // namespace
 
 // slide: device (h, w, channels) uint8, contiguous; centers: device (n, 2)
-// int64 (x, y); out: device (n, patch, patch, channels) uint8. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// int64 (x, y); out: device (n, patch, patch, channels) uint8. rows16 != 0
+// runs gather_rows16 (patch * channels a multiple of 16, out 16-byte
+// aligned), else gather_bytes; each block owns one patch and rows_per_cta
+// output rows with `threads` threads. Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// arguments the kernels do not take.
 extern "C" int extract_patches_launch(const void* slide, const void* centers, void* out,
                                       long long n, long long h, long long w, int channels,
-                                      int patch, void* stream) {
-  if (n <= 0 || patch <= 0 || channels <= 0 || n > 0x7fffffffLL ||
-      (patch + kRows - 1) / kRows > 65535) {
+                                      int patch, int rows16, int threads, int rows_per_cta,
+                                      void* stream) {
+  const long long row_bytes = static_cast<long long>(patch) * channels;
+  if (n <= 0 || patch <= 0 || channels <= 0 || n > 0x7fffffffLL || threads <= 0 ||
+      threads > 1024 || rows_per_cta <= 0 ||
+      (patch + static_cast<long long>(rows_per_cta) - 1) / rows_per_cta > 65535 ||
+      (rows16 && (row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned int>(n), static_cast<unsigned int>((patch + kRows - 1) / kRows));
-  extract_patches_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(slide), static_cast<const long long*>(centers),
-      static_cast<uint8_t*>(out), h, w, channels, patch);
+  const dim3 grid(static_cast<unsigned int>(n),
+                  static_cast<unsigned int>((patch + rows_per_cta - 1) / rows_per_cta));
+  const auto* src = static_cast<const uint8_t*>(slide);
+  const auto* xy = static_cast<const long long*>(centers);
+  auto* dst = static_cast<uint8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows16) {
+    gather_rows16<<<grid, threads, 0, s>>>(src, xy, dst, h, w, channels, patch, rows_per_cta);
+  } else {
+    gather_bytes<<<grid, threads, 0, s>>>(src, xy, dst, h, w, channels, patch, rows_per_cta);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -126,6 +126,20 @@ def rotate_batch(imgs: torch.Tensor, angles_deg: torch.Tensor,
                                                           device=imgs.device))
 
 
+def paeth_shears(angles_deg: torch.Tensor, size: int):
+    """The quarter turns and the shifts of the Paeth rotation of (B,) angles
+    on size x size images: (k (B,) long in [0, 4), shear_x (B, size) and
+    shear_y (B, size) int32). The angle is reduced to a residual t in
+    [-45, 45] degrees by k quarter turns; shear_x = round(tan(t/2) * c),
+    shear_y = round(-sin(t) * c), c = arange(size) - (size - 1) / 2."""
+    k90 = torch.round(angles_deg / 90.0)
+    theta = (angles_deg - k90 * 90.0) * (math.pi / 180.0)  # [-45, 45] residual
+    centered = torch.arange(size, dtype=torch.float32, device=angles_deg.device) - (size - 1) / 2.0
+    shear_x = torch.round(torch.tan(theta / 2.0)[:, None] * centered).int()  # (B, H)
+    shear_y = torch.round(-torch.sin(theta)[:, None] * centered).int()  # (B, W)
+    return torch.remainder(k90, 4).long(), shear_x, shear_y
+
+
 def rotate_batch_paeth(imgs: torch.Tensor, angles_deg: torch.Tensor,
                        hflip: torch.Tensor | None = None) -> torch.Tensor:
     """Rotate a square (B, H, H, C) batch by Paeth's three shears.
@@ -144,9 +158,8 @@ def rotate_batch_paeth(imgs: torch.Tensor, angles_deg: torch.Tensor,
     if hflip is not None:
         imgs = torch.where(hflip[:, None, None, None], imgs.flip(2), imgs)
 
-    k90 = torch.round(angles_deg / 90.0)
-    theta = (angles_deg - k90 * 90.0) * (math.pi / 180.0)  # [-45, 45] residual
-    k = torch.remainder(k90, 4).long()[:, None, None, None]
+    k, shear_x, shear_y = paeth_shears(angles_deg, h)
+    k = k[:, None, None, None]
     # The row shears need a contiguous base. torch.where takes its output
     # layout from its leading operands, so the contiguous ones come before
     # the rot90 views (transposed strides) and .contiguous() copies nothing.
@@ -156,10 +169,6 @@ def rotate_batch_paeth(imgs: torch.Tensor, angles_deg: torch.Tensor,
                     torch.where(k == 1, torch.rot90(imgs, 1, dims=(1, 2)),
                                 torch.rot90(imgs, 3, dims=(1, 2)))),
     ).contiguous()
-
-    centered = torch.arange(h, dtype=torch.float32, device=imgs.device) - (h - 1) / 2.0
-    shear_x = torch.round(torch.tan(theta / 2.0)[:, None] * centered).int()  # (B, H)
-    shear_y = torch.round(-torch.sin(theta)[:, None] * centered).int()  # (B, W)
 
     out = row_shift(base, shear_x)
     out = row_shift(out.transpose(1, 2), shear_y).transpose(1, 2)  # column shear

@@ -18,8 +18,9 @@ every center, inside the slide or far outside it, and every P).
   in PyTorch, on any device; it serves CPU tensors and is the oracle the
   kernel is held to;
 * ``extract_patches``: a CUDA slide launches ``csrc/extract_patches.cu``
-  (built at first use), counted in ``extract_patches.launches``, or raises; a
-  CPU slide runs ``extract_patches_plain``.
+  (built at first use) as ``patch_plan`` chooses, counted in
+  ``extract_patches.launches``, or raises; a CPU slide runs
+  ``extract_patches_plain``.
 
 Offsets are 64-bit: a missing spot's center is -2147483648 (the readers
 floor a NaN coordinate) and a Visium full-resolution image holds up to
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +39,36 @@ import torch
 from mclstexp_tpu_torch.ops.build import load_library
 
 SOURCE = "extract_patches.cu"
+ROWS16_THREADS = 256  # gather_rows16: at most, whole output rows per pass
+ROWS16_PASSES = 4  # passes over a block's rows
+BYTE_THREADS, BYTE_ROWS = 128, 8  # gather_bytes: threads and output rows per block
+
+
+class PatchPlan(NamedTuple):
+    """How ``extract_patches`` launches: the kernel, threads per block,
+    output rows per block and the number of blocks (one patch each)."""
+
+    kernel: str  # "gather_rows16" or "gather_bytes"
+    threads: int
+    rows_per_cta: int
+    ctas: int
+
+
+def patch_plan(n: int, patch: int, channels: int) -> PatchPlan:
+    """The launch of ``extract_patches`` for ``n`` patches of ``patch`` x
+    ``patch`` pixels of ``channels`` bytes. Where a patch row (patch *
+    channels bytes) is whole 16-byte chunks, ``gather_rows16``: a block's
+    threads are whole rows of chunk lanes (lanes = the row's chunks, at most
+    ``ROWS16_THREADS``), and it owns ``ROWS16_PASSES`` passes of rows.
+    Otherwise ``gather_bytes``: ``BYTE_THREADS`` threads and ``BYTE_ROWS``
+    rows a block."""
+    row_bytes = patch * channels
+    if row_bytes % 16:
+        return PatchPlan("gather_bytes", BYTE_THREADS, BYTE_ROWS, n * -(-patch // BYTE_ROWS))
+    lanes = min(row_bytes // 16, ROWS16_THREADS)
+    per_pass = ROWS16_THREADS // lanes
+    rows = min(patch, per_pass * ROWS16_PASSES)
+    return PatchPlan("gather_rows16", lanes * per_pass, rows, n * -(-patch // rows))
 
 
 @functools.cache
@@ -44,8 +76,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.extract_patches_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -129,10 +160,12 @@ def extract_patches(slide: torch.Tensor, centers: torch.Tensor,
     if out.numel() == 0:
         return out
     xy = centers.to(torch.int64).contiguous()
+    plan = patch_plan(centers.shape[0], patch_size, c)
     with torch.cuda.device(slide.device):
         err = _library().extract_patches_launch(
             slide.data_ptr(), xy.data_ptr(), out.data_ptr(), centers.shape[0], h, w, c,
-            patch_size, torch.cuda.current_stream().cuda_stream)
+            patch_size, plan.kernel == "gather_rows16", plan.threads, plan.rows_per_cta,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"extract_patches kernel launch failed with CUDA error {err}")
     extract_patches.launches += 1

@@ -5,7 +5,8 @@ without one. On the card:
 
     python -m pytest --noconftest tests/test_torch_port_kernels.py -m gpu
 
-The patch gather is bit-equal to its plain version (a byte copy).
+row_shift and the patch gather are bit-equal to their plain versions (both
+copy raw words or bytes), on every kernel path their plans choose.
 Flash-attention tolerances: atol 2e-5 for the forward and both backward
 kernels against their plain versions, the forward's l relative (fp32 on
 both sides; sums in another order, the forward's online softmax rescaling,
@@ -22,8 +23,9 @@ from mclstexp_tpu_torch.core.layers import MultiHeadSelfAttention
 from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.ops import flash_attention as fa
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
-from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
-from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
+from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain, patch_plan
+from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_plan
+from mclstexp_tpu_torch.profile_kernels import shift_inputs
 
 torch.set_num_threads(1)
 
@@ -53,6 +55,61 @@ def test_row_shift_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "paeth"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_shift_kernel_at_the_flagship(cuda, dtype, kind):
+    """(128, 224, 224, 3) at random shifts and at the Paeth shears of drawn
+    angles, bit-equal in both layouts: the row shears launch shift_rows16,
+    the column shear shift_cols_band."""
+    cases = shift_inputs(cuda, dtype)
+    for layout, kernel in (("rows", "shift_rows16"), ("cols", "shift_cols_band")):
+        view, k = cases[(layout, kind)]
+        before = dict(row_shift.kernel_launches)
+        got = row_shift(view, k)
+        assert row_shift.kernel_launches[kernel] == before[kernel] + 1
+        torch.cuda.synchronize()
+        assert got.stride() == view.stride()
+        assert torch.equal(got, row_shift_plain(view, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,t_shape,kernel", [
+    ("cols", (3, 24, 40, 3), "shift_cols_band"),  # bands of 16 / 32 px, a narrower last
+    ("cols", (2, 16, 38, 3), "shift_cols"),  # a memory row of 456 / 228 bytes
+    ("cols", (1, 4096, 64, 3), "shift_cols"),  # the band's column exceeds 48 KB
+    ("cols", "offset", "shift_cols"),  # the buffer one element off a 16-byte boundary
+    ("rows", (3, 24, 40, 3), "shift_rows16"),  # source starts at every word residue
+    ("rows", (2, 16, 1000, 4), "shift_rows16"),  # more chunks than threads
+    ("rows", (2, 16, 38, 3), "shift_rows"),  # memory rows of no whole 16-byte chunks
+    ("rows", "offset", "shift_rows"),
+])
+def test_row_shift_kernel_paths(cuda, dtype, layout, t_shape, kernel):
+    """Each path the plan chooses, bit-equal to the plain version at
+    clamp-edge shifts: the column layout on the (1, 2)-transpose of a
+    contiguous T (B, rows, row_px, C), the row layout on T itself."""
+    if t_shape == "offset":
+        buf = torch.rand(3 * 24 * 40 * 3 + 1, generator=cuda, device="cuda").to(dtype)
+        t = buf[1:].view(3, 24, 40, 3)
+        assert t.data_ptr() % 16 != 0
+    else:
+        t = torch.rand(t_shape, generator=cuda, device="cuda").to(dtype)
+    view = t.transpose(1, 2) if layout == "cols" else t
+    b, rows, row_px, c = t.shape
+    n, w = (row_px, rows) if layout == "cols" else (rows, row_px)  # shifts per image, clamp
+    k = torch.randint(-w, w + 1, (b, n), generator=cuda, device="cuda", dtype=torch.int32)
+    k[0, :6] = torch.tensor([0, w // 2, -(w // 2), w // 2 + 1, -w, 3 * w])
+    assert shift_plan(b, rows, row_px, c, t.element_size(), layout == "cols",
+                      aligned=t.data_ptr() % 16 == 0).kernel == kernel
+    before = dict(row_shift.kernel_launches)
+    got = row_shift(view, k)
+    assert row_shift.kernel_launches[kernel] == before[kernel] + 1
+    torch.cuda.synchronize()
+    assert got.stride() == view.stride()
+    assert torch.equal(got, row_shift_plain(view, k))
+
+
+@pytest.mark.gpu
 def test_row_shift_kernel_rejects_other_layouts(cuda):
     x = torch.rand((2, 8, 8, 3), generator=cuda, device="cuda")
     k = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
@@ -66,15 +123,17 @@ def test_row_shift_kernel_rejects_other_layouts(cuda):
 def test_paeth_rotation_on_card_matches_cpu(cuda):
     """Three kernel launches on the card give the CPU's plain rotation for
     the same shears (angles that are multiples of 90, and small ones whose
-    shears are integers on both devices): two launches in the row layout,
-    one in the column layout."""
+    shears are integers on both devices): two launches in the row layout
+    (shift_rows16), one in the column layout (shift_cols_band)."""
     imgs = torch.rand((6, 16, 16, 3), generator=cuda, device="cuda")
     angles = torch.tensor([0.0, 90.0, 180.0, -90.0, 270.0, 0.0], device="cuda")
     hflip = torch.tensor([True, False, True, False, True, True], device="cuda")
-    before, layouts = row_shift.launches, dict(row_shift.layout_launches)
+    before, kernels = row_shift.launches, dict(row_shift.kernel_launches)
     got = augment.rotate_batch_paeth(imgs, angles, hflip)
     assert row_shift.launches == before + 3
-    assert row_shift.layout_launches == {"rows": layouts["rows"] + 2, "cols": layouts["cols"] + 1}
+    kernels["shift_rows16"] += 2
+    kernels["shift_cols_band"] += 1
+    assert row_shift.kernel_launches == kernels
     want = augment.rotate_batch_paeth(imgs.cpu(), angles.cpu(), hflip.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
@@ -373,6 +432,29 @@ def test_extract_patches_kernel_matches_plain(cuda, c, p):
     assert got.shape == (len(PATCH_CENTERS), p, p, c) and got.dtype == torch.uint8
     assert torch.equal(got, extract_patches_plain(slide, centers, p))
     assert torch.equal(got, extract_patches(slide, centers, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [15, 16, 32, 224])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_extract_patches_kernel_at_every_start_residue(cuda, c, p):
+    """A 50 x 83 slide (W * C = 83, 249, 332 bytes: no multiple of 16), once
+    16-byte aligned and once one byte off; crop starts x0 from -20 to W + 3
+    (every residue mod 16) on rows inside, across the edges and outside:
+    bit-equal on the 16-byte path (P * C a multiple of 16) and the byte
+    path (P = 15)."""
+    buf = torch.randint(0, 256, (50 * 83 * c + 1,), generator=cuda, device="cuda",
+                        dtype=torch.int32).to(torch.uint8)
+    r = p // 2
+    xs = torch.arange(r - 20, r + 87)
+    ys = torch.tensor([r, 25, 49, -r + 3, 50 + r - 3, -250])
+    centers = torch.stack([xs, ys[xs % len(ys)]], 1).cuda()
+    for slide in (buf[:-1].view(50, 83, c), buf[1:].view(50, 83, c)):
+        before = extract_patches.launches
+        got = extract_patches(slide, centers, p)
+        assert extract_patches.launches == before + 1
+        assert torch.equal(got, extract_patches_plain(slide, centers, p))
+    assert patch_plan(len(xs), p, c).kernel == ("gather_bytes" if p == 15 else "gather_rows16")
 
 
 @pytest.mark.gpu
