@@ -79,7 +79,22 @@ order; any failure exits non-zero and prints no result line:
      ``evaluate_fold_resident`` (host and device metrics agreeing); a
      Visium tree (10x triplets, positions CSV, PPM ``image.tif``) ->
      ``build_visium_preprocessed`` -> ``load_visium`` (BGR patches) ->
-     ``PosRemap`` -> one "tenx" step of the visium preset.
+     ``PosRemap`` -> one "tenx" step of the visium preset;
+ 14. baselines: the flash kernels with segment ids (the padded slide's mask
+     as int32, as the JAX package builds ``SegmentIds``) at the slide
+     baselines' (1, 16, n, 64): n = 384, 768 and 4,096 with padded tails and
+     one case of interleaved ids, each kernel within 2e-5 of its plain
+     segment version, deterministic, padded rows the segment softmax's (not
+     the key mask's), timed against the same kernel without ids and against
+     ``F.scaled_dot_product_attention`` with the boolean same-segment mask;
+     then HisToGene at the her2st flow's widths (dim 1024, 8 layers of 16 x
+     64 heads, 112 px, 785 genes) through ``train_baseline_fold`` with
+     ``attn_backend="flash"`` (one epoch of 3 slide steps; 8 segment
+     launches of each kernel per step), flash against xla gradients on one
+     padded slide, ``predict_slide`` on the card against the CPU,
+     ``evaluate_baseline_fold``, ms per slide step; THItoGene (4 layers, ViT
+     width 1,408, GAT) the same fold with "flash"; and one whole-slide
+     HisToGene step at 3,969 spots (padded to 4,096), xla against flash.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -775,17 +790,20 @@ def phase_patches() -> dict:
             "max_abs_err": 0.0, "kernel": plan.kernel}
 
 
-def _flash_counts() -> tuple:
+def _flash_counts(segments: bool = False) -> tuple:
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
-    return fa.flash_attention.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    name = "segment_launches" if segments else "launches"
+    return tuple(getattr(w, name) for w in (fa.flash_attention, fa.flash_bwd_dkv,
+                                            fa.flash_bwd_dq))
 
 
 def _reset_counts() -> None:
     from mclstexp_tpu_torch.ops import flash_attention as fa
     from mclstexp_tpu_torch.ops.row_shift import row_shift
 
-    fa.flash_attention.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+    for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq):
+        w.launches = w.segment_launches = 0
     row_shift.launches = 0
     row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
@@ -1337,6 +1355,350 @@ def phase_data() -> int:
     return extract_patches.launches
 
 
+SEG_CASES = ((384, 346, "tail"), (768, 705, "tail"), (4096, 3969, "tail"),
+             (768, None, "interleaved"))  # (n, real rows, ids) at (1, 16, n, 64)
+SEG_NAMES = {"fwd": "flash_attention[fwd,segments]", "bwd_dkv": "flash_bwd_dkv[segments]",
+             "bwd_dq": "flash_bwd_dq[segments]"}
+SEG_REPLACES = {"fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+                **BWD_REPLACES}
+
+
+def _seg_ids(g, n, real, kind):
+    """(1, n) int32 segment ids: the padded slide's mask as int32 (real 1,
+    padded 0), or ids drawn from {0, 1, 2}."""
+    import torch
+
+    if kind == "interleaved":
+        return torch.randint(0, 3, (1, n), generator=g, device="cuda", dtype=torch.int32)
+    return (torch.arange(n, device="cuda") < real).to(torch.int32)[None]
+
+
+def _seg_case(g, n, real, kind):
+    """The segment kernels at (1, 16, n, 64) against their plain versions:
+    errors, determinism, the padded rows, and the times (CUDA-graph replays
+    below n = 4,096, events over eager launches at it). Returns one record
+    per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    shape = (1, 16, n, 64)
+    (q, k, v, do, _, _, _, scale), _, _ = _bwd_case(g, shape)
+    seg = _seg_ids(g, n, real, kind)
+    out, l, m = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
+    alone = fa.flash_forward(q, k, v, scale, segment_ids=seg)
+    want, want_l, want_m = fa.flash_forward_plain(q, k, v, scale, seg)
+    di = (want * do).sum(-1).contiguous()
+    args = (q, k, v, do, want_l, want_m, di, scale, seg)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    errs = {"fwd": max(_max_err((out, alone, m), (want, want, want_m)),
+                       float(((l - want_l) / want_l).abs().max())),
+            "bwd_dkv": _max_err((dk, dv), fa.flash_bwd_dkv_plain(*args)),
+            "bwd_dq": _max_err(dq, fa.flash_bwd_dq_plain(*args))}
+    for name, err in errs.items():
+        if not err <= FLASH_ATOL:
+            raise AssertionError(f"{SEG_NAMES[name]} {shape} {kind}: max abs err {err:.3e} > "
+                                 f"{FLASH_ATOL}")
+    again = (*fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg),
+             *fa.flash_bwd_dkv(*args), fa.flash_bwd_dq(*args))
+    if not all(torch.equal(a, b) for a, b in zip((out, l, m, dk, dv, dq), again)):
+        raise AssertionError(f"segment kernels {shape} {kind}: two runs differ")
+    padded = (seg[0] == 0)
+    key_mask = fa.attention_plain(q, k, v, scale, seg != 0)
+    gap = float((out - key_mask)[:, :, padded].abs().max()) if padded.any() else 0.0
+    if padded.any() and not gap > 1e-3:
+        raise AssertionError(f"segment forward {shape}: padded rows equal the key mask's")
+    same = fa.same_segment(seg)  # (1, 1, n, n) bool: SDPA's attn_mask
+    sdpa_err = float((F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+                      - want).abs().max())
+    if not sdpa_err <= 1e-4:
+        raise AssertionError(f"the masked SDPA yardstick computes another function ({sdpa_err})")
+    qkv_g = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2).detach().requires_grad_()
+
+    def library_pair():
+        sq, sk, sv = (qkv_g[:, :, i].transpose(1, 2) for i in range(3))
+        return torch.autograd.grad((F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=same, scale=scale) * do).sum(), qkv_g)[0]
+
+    def pair():
+        o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
+        dd = (o * do).sum(-1).contiguous()
+        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale, seg)
+        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale, seg)
+
+    eager = n >= 4096
+    timed = (lambda fn, plain=False: cuda_ms(fn, iters=3 if plain else 10,
+                                             warmup=1 if plain else 2)) if eager else (
+        lambda fn, plain=False: graph_ms(fn))
+    kernels = {
+        "fwd": (lambda: fa.flash_forward(q, k, v, scale, segment_ids=seg),
+                lambda: fa.flash_forward(q, k, v, scale),
+                lambda: fa.flash_forward_plain(q, k, v, scale, seg),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)),
+        "bwd_dkv": (lambda: fa.flash_bwd_dkv(*args), lambda: fa.flash_bwd_dkv(*args[:-1]),
+                    lambda: fa.flash_bwd_dkv_plain(*args), None),
+        "bwd_dq": (lambda: fa.flash_bwd_dq(*args), lambda: fa.flash_bwd_dq(*args[:-1]),
+                   lambda: fa.flash_bwd_dq_plain(*args), None)}
+    pair_ms, library_pair_ms = timed(pair), timed(library_pair)
+    rows, split, ctas = fa.cluster_plan(*shape)
+    bounds = {"fwd": _flash_fwd_bound(shape)}
+    for name, _, _, bound_ms, bound_by, nbytes, flops in _bwd_kernels(shape):
+        bounds[name] = (bound_ms, bound_by, nbytes, flops)
+    out_records = {}
+    for name, (kernel, unmasked, plain, library) in kernels.items():
+        _, _, nbytes, flops = bounds[name]
+        nbytes += 4 * n  # the segment ids, read once
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+        ms, plain_ms = timed(kernel), timed(plain, plain=True)
+        unmasked_ms = timed(unmasked)
+        library_ms = timed(library) if library is not None else None
+        log(f"[baselines] {SEG_NAMES[name]} fp32 {shape} {kind} ids"
+            f"{'' if real is None else f' ({real} real rows)'} plan rows={rows} split={split} "
+            f"ctas={ctas}: max abs err {errs[name]:.3e} (atol {FLASH_ATOL}), deterministic; "
+            f"kernel {ms:.5f} ms, without ids {unmasked_ms:.5f} ms, plain {plain_ms:.5f} ms"
+            + (f", SDPA with the boolean mask {library_ms:.5f} ms (err {sdpa_err:.1e})"
+               if library_ms is not None else "")
+            + f", bound {bound_ms:.6f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP), "
+            f"{bound_ms / ms:.1%} of bound ({'events' if eager else 'graph replays'})")
+        out_records[name] = {"shape": list(shape), "ids": kind, "real": real, "ms": ms,
+                             "unmasked_ms": unmasked_ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "max_abs_err": errs[name],
+                             "plan": {"rows": rows, "split": split, "ctas": ctas},
+                             "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
+    log(f"[baselines] segment pair (forward with residuals + dK/dV + dQ) {shape} {kind}: "
+        f"{pair_ms:.5f} ms; SDPA with the boolean mask, forward + backward "
+        f"{library_pair_ms:.5f} ms; padded rows {gap:.2e} from the key mask's answer")
+    return out_records
+
+
+def phase_segment_kernels() -> list:
+    """The three flash kernels with segment ids at the slide baselines'
+    shapes (``SEG_CASES``); one kernels-line entry per kernel, carrying the
+    (1, 16, 768, 64) tail case's numbers and every case under ``cases``.
+    Bounds as in [kernels] plus the ids' 4 n bytes; ``library_ms`` of the
+    forward is SDPA with the boolean same-segment mask (a yardstick; the
+    port never calls it), none for dK/dV and dQ alone (the pair carries
+    SDPA's forward + backward)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    entries = {name: {"name": SEG_NAMES[name], "route": "cuda",
+                      "source": "mclstexp_tpu_torch/csrc/" + (
+                          "flash_attention.cu" if name == "fwd" else "flash_attention_bwd.cu"),
+                      "replaces": SEG_REPLACES[name], "cases": [], "max_abs_err": 0.0}
+               for name in SEG_NAMES}
+    for n, real, kind in SEG_CASES:
+        for name, record in _seg_case(g, n, real, kind).items():
+            entry = entries[name]
+            entry["cases"].append(record)
+            entry["max_abs_err"] = max(entry["max_abs_err"], record["max_abs_err"])
+            if (n, kind) == (768, "tail"):
+                entry.update({key: record[key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "unmasked_ms",
+                    "plan", "pair_ms", "library_pair_ms")})
+        torch.cuda.empty_cache()
+    return [entries[name] for name in SEG_NAMES]
+
+
+BASELINE_SPOTS = (346, 613, 705, 524)  # her2st-like sections; fold 0 holds out the first
+WHOLE_SLIDE = 63  # a 63 x 63 grid: 3,969 spots, padded to 4,096
+
+
+def _baseline_sections(n_genes: int):
+    """Four synthetic sections at 112 px (``make_section``, a seed, shared
+    gene loadings); positions on a grid, all below the 64-entry tables."""
+    import numpy as np
+
+    from mclstexp_tpu_torch.data import synthetic
+
+    loadings = np.random.default_rng(30).normal(size=(4, n_genes))
+    return [synthetic.make_section(f"B{i + 1}", n, n_genes, patch_size=112, seed=300 + i,
+                                   gene_loadings=loadings)
+            for i, n in enumerate(BASELINE_SPOTS)]
+
+
+def _slide_step_ms(state, cfg, batch, n: int = 3) -> float:
+    """Host ms per slide step (after one warm-up step), ending in a
+    synchronize."""
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+
+    step = trainer.make_slide_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss = step(state, batch, gen)
+    torch.cuda.synchronize()
+    if not math.isfinite(float(loss)):
+        raise AssertionError("non-finite loss in the timed slide steps")
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _baseline_fold(cfg, sections, want_per_step: int):
+    """train_baseline_fold with attn_backend="flash", the counts set to 0
+    just before it and read just after: (state, seconds, segment launches)."""
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    logger = MetricLogger(echo=False)
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.train_baseline_fold(cfg, sections, 0, logger=logger, device="cuda",
+                                        attn_backend="flash")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, segments = _flash_counts(), _flash_counts(segments=True)
+    steps = len(sections) - 1
+    want = (want_per_step * steps,) * 3
+    if state.step != steps or counts != want or segments != want:
+        raise AssertionError(f"{cfg.model}: {state.step} steps, launches {counts}, segment "
+                             f"launches {segments}; expected {steps} steps and {want}")
+    losses = [r["loss"] for r in logger.records]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.model}: non-finite or missing losses {losses}")
+    return state, seconds, segments, losses
+
+
+def _slide_grads(model, cfg, batch):
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.baselines.layers import seed_dropout
+    from mclstexp_tpu_torch.ops import augment
+
+    model.zero_grad(set_to_none=True)
+    seed_dropout(model, augment.reseed(torch.Generator(device="cuda"), 0, 1))
+    trainer.slide_loss(model, cfg, batch).backward()
+    return {name: p.grad.clone() for name, p in model.named_parameters() if p.grad is not None}
+
+
+def phase_baselines():
+    """HisToGene and THItoGene at the her2st flow's widths on the card (see
+    the module docstring, phase 14). Returns the segment launches of the
+    HisToGene fold (the main path) and of the THItoGene fold."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.section import Section
+
+    t0 = time.perf_counter()
+    sections = _baseline_sections(785)
+    log(f"[baselines] {len(sections)} synthetic sections of {BASELINE_SPOTS} spots at 112 px, "
+        f"785 genes, made in {time.perf_counter() - t0:.1f} s")
+    cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
+                                 max_epochs=1)
+    state, seconds, counts, losses = _baseline_fold(cfg, sections, 8)
+    log(f"[baselines] HisToGene (dim 1024, 8 layers, 16 x 64 heads, mlp 2048) "
+        f"train_baseline_fold attn_backend='flash': {state.step} slide steps in {seconds:.1f} s "
+        f"incl. set-up, loss {losses}; segment launches forward/dK-dV/dQ {counts} (8 per step)")
+
+    # One padded slide's gradients, flash against xla, from the same weights.
+    batch = trainer.slide_tensors(trainer.pad_slide(sections[2], cfg.bucket, False, cfg), "cuda")
+    xla = trainer.init_baseline(cfg, "cuda", "xla")
+    xla.model.load_state_dict(state.model.state_dict())
+    got, want = _slide_grads(state.model, cfg, batch), _slide_grads(xla.model, cfg, batch)
+    if set(got) != set(want) or len(got) != len(list(state.model.parameters())):
+        raise AssertionError(f"flash and xla gradients cover other parameters: {sorted(got)}")
+    worst, worst_name = 0.0, None
+    for name, gr in got.items():
+        scale = float(want[name].abs().max())
+        err = float((gr - want[name]).abs().max()) / max(scale, 1e-30)
+        if not (torch.isfinite(gr).all() and err <= GRAD_RTOL):
+            raise AssertionError(f"HisToGene {name}: flash vs xla gradient off by {err:.3e} of "
+                                 f"its largest magnitude {scale:.3e} (allowed {GRAD_RTOL})")
+        if err >= worst:
+            worst, worst_name = err, name
+    log(f"[baselines] HisToGene gradients on a {sections[2].num_spots}-spot slide padded to "
+        f"{len(batch['mask'])}, flash vs xla, {len(got)} tensors: largest error {worst:.3e} of "
+        f"the tensor's largest magnitude ({worst_name}; allowed {GRAD_RTOL})")
+
+    # predict_slide's eager scaling on the card: a true division, as on the CPU.
+    u8 = torch.arange(256, dtype=torch.uint8)
+    want_u8 = (u8.float() / torch.tensor(255.0)).numpy().view(np.uint32)
+    if not np.array_equal(trainer.to_float_eager(u8.cuda()).cpu().numpy().view(np.uint32),
+                          want_u8):
+        raise AssertionError("to_float_eager on the card is not the true division")
+    scalar_diff = int(((u8.cuda().float() / 255.0).cpu().numpy().view(np.uint32)
+                       != want_u8).sum())
+    log(f"[baselines] to_float_eager on the card bit-equal to the true division over 256 "
+        f"values (x / 255.0 by a Python scalar differs on {scalar_diff})")
+
+    # predict_slide on the held-out section: the card against the CPU.
+    test = sections[0]
+    pred = trainer.predict_slide(state.model, test, cfg)
+    cpu = trainer.build_baseline(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    want_pred = trainer.predict_slide(cpu, test, cfg)
+    err = float(np.abs(pred - want_pred).max())
+    if pred.shape != (test.num_spots, 785) or not err <= 1e-3:
+        raise AssertionError(f"predict_slide {pred.shape}: card vs CPU off by {err:.3e}")
+    metrics = trainer.evaluate_baseline_fold(cfg, sections, 0, state.model)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"evaluate_baseline_fold: {metrics}")
+    log(f"[baselines] HisToGene predict_slide on {test.name} ({test.num_spots} spots): card vs "
+        f"CPU max abs err {err:.3e} (atol 1e-3); evaluate_baseline_fold {metrics}")
+
+    times = {"xla": [], "flash": []}
+    for name in ("xla", "flash", "flash", "xla"):
+        times[name].append(_slide_step_ms(xla if name == "xla" else state, cfg, batch))
+    log(f"[baselines] HisToGene ms per slide step at {len(batch['mask'])} rows (xla, flash, "
+        f"flash, xla; 3 steps each): xla {times['xla']}, flash {times['flash']} on "
+        f"{card_line()}")
+    del xla, batch, cpu
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, model="thitogene", n_layers=4)
+    tstate, seconds, tcounts, tlosses = _baseline_fold(tcfg, sections, 4)
+    tpred = trainer.predict_slide(tstate.model, test, tcfg)
+    if tpred.shape != (test.num_spots, 785) or not np.isfinite(tpred).all():
+        raise AssertionError(f"THItoGene predict_slide: {tpred.shape}, finite "
+                             f"{np.isfinite(tpred).all()}")
+    log(f"[baselines] THItoGene (4 layers, caps 20 x 64, ViT width 1408, heads (16, 8)) "
+        f"train_baseline_fold attn_backend='flash': {tstate.step} slide steps in {seconds:.1f} "
+        f"s incl. set-up, loss {tlosses}; segment launches {tcounts} (4 per step); "
+        f"predict_slide finite")
+    del tstate
+    torch.cuda.empty_cache()
+
+    # One whole-slide HisToGene step: 3,969 spots padded to 4,096.
+    n = WHOLE_SLIDE * WHOLE_SLIDE
+    rng = np.random.default_rng(31)
+    grid = np.stack(np.meshgrid(np.arange(WHOLE_SLIDE), np.arange(WHOLE_SLIDE)), -1)
+    whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32),
+                    grid.reshape(-1, 2).astype(np.int32), grid.reshape(-1, 2).astype(np.int32),
+                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
+    whole_times, peaks = {"xla": [], "flash": []}, {}
+    xla = trainer.init_baseline(cfg, "cuda", "xla")
+    flash = trainer.init_baseline(cfg, "cuda", "flash")
+    for name in ("xla", "flash", "flash", "xla"):
+        torch.cuda.reset_peak_memory_stats()
+        whole_times[name].append(_slide_step_ms(xla if name == "xla" else flash, cfg, batch,
+                                                n=2))
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[baselines] HisToGene whole-slide step, {n} spots padded to {len(batch['mask'])} "
+        f"(attention (1, 16, 4096, 64) per layer), ms per slide step (xla, flash, flash, xla; "
+        f"2 steps each): xla {whole_times['xla']}, flash {whole_times['flash']}; peak memory "
+        f"(both models and their Adam state resident) xla {peaks['xla']:.1f} GiB, flash "
+        f"{peaks['flash']:.1f} GiB, on {card_line()}")
+    del xla, flash, batch
+    torch.cuda.empty_cache()
+    return counts, tcounts
+
+
 def main() -> int:
     import torch
 
@@ -1364,6 +1726,11 @@ def main() -> int:
     eval_model, eval_launches = phase_eval(cfg, sections)
     serve_launches = phase_serve(cfg, eval_model)
     patch_entry["launches"] = phase_data()
+    seg_entries = phase_segment_kernels()
+    seg_counts, thitogene_counts = phase_baselines()
+    for entry, count, other in zip(seg_entries, seg_counts, thitogene_counts):
+        entry["launches"] = count  # the HisToGene fold, this slice's main path
+        entry["launches_by_path"] = {"histogene_fold": count, "thitogene_fold": other}
     # Launches on this slice's main path, flash training; the forward's
     # counts on the eval and serving paths beside them.
     flash_entry["launches"] = counts[0]
@@ -1371,7 +1738,7 @@ def main() -> int:
                                        "serve": serve_launches}
     for entry, count in zip(bwd_entries, counts[1:]):
         entry["launches"] = count
-    entries += [flash_entry, *bwd_entries, patch_entry]
+    entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -12,9 +12,10 @@ Attention takes the JAX module's ``backend``: "xla" is the fused-matmul path
 of the JAX build (fp32 softmax, scale ``dim_head**-0.5``, masked keys filled
 with -1e30; ``ops.flash_attention.attention_plain``), "flash" the CUDA
 flash-attention kernels (``ops.flash_attention``: the forward, and under
-autograd the dK/dV and dQ kernels in the backward; on a CPU tensor the plain
-versions, as the JAX build falls back off a TPU). "ring" raises: the port
-has no device mesh yet.
+autograd the dK/dV and dQ kernels in the backward; a padded sequence's mask
+becomes their segment ids; on a CPU tensor the plain versions and the key
+mask, as the JAX build falls back off a TPU). "ring" raises: the port has no
+device mesh yet.
 
 Initialization reproduces torch defaults as the JAX build does (Linear
 U(+-1/sqrt(fan_in)), Embedding N(0, 1)), drawn from an explicit

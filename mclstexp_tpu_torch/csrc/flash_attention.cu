@@ -9,10 +9,21 @@
 //
 // What it computes is the TPU kernel's function: an online softmax over key
 // tiles, so no (n, n) matrix ever reaches device memory, with running max
-// and sum in fp32 and the output normalized once at the end. Segment ids
-// (the key mask) are not supported yet; the wrapper raises for them. Keys
-// are masked by one per-key predicate (`key_ok` below), where a segment
-// comparison can join the bound check.
+// and sum in fp32 and the output normalized once at the end.
+//
+// Segment ids (the TPU kernel's SegmentIds(q=m, kv=m), built from a padded
+// slide's mask at mclstexp_tpu/core/layers.py:207-212; its mask at :412-424):
+// given a non-null `seg`, a contiguous int32 (batch, n) array, query i sees
+// key j only where seg[b][i] == seg[b][j]. Each thread reads the ids of its
+// two accumulator rows once; a tile's 32 key ids are staged with its K tile.
+// The predicate of a score is then per (row, key): key < n and the ids
+// equal. The branch is a template variant (kSeg), so a null `seg` launches
+// code without it (a run-time test cost the unmasked launch 4-8%; PERF.md
+// section 6). With segments a whole key group, or a whole cluster rank's share
+// of the walk, can see no valid key for a row (a padded row's rank that
+// walks only real keys): its (m, l) stays (-inf, 0) and it weighs 0 in both
+// merges (`weight`), never NaN. Every row sees at least itself, so no row
+// is left empty.
 //
 // Residuals: given non-null `l_out` and `m_out`, the kernel also writes each
 // row's max m and sum l = sum_j exp(s_j - m) as contiguous fp32 (b, h, n)
@@ -100,8 +111,9 @@ template <int D>
 struct Smem {
   static constexpr int kTile = kRows * D;  // floats of a 32 x D tile
   // q (big and small parts), 2 stages of k and v (raw), the key groups' m
-  // and l (4 x 32 each), the rank's m and l (32 each)
-  static constexpr int kFloats = 6 * kTile + 2 * kGroups * kRows + 2 * kRows;
+  // and l (4 x 32 each), the rank's m and l (32 each), 2 stages of the
+  // walked keys' segment ids (32 ints each)
+  static constexpr int kFloats = 6 * kTile + 2 * kGroups * kRows + 2 * kRows + 2 * kRows;
 };
 
 // B fragments of p v over a warp's 8 keys n0.. (B[k][c] = v[n0 + k][c0 + c]):
@@ -133,12 +145,12 @@ __device__ __forceinline__ float weight(float m_i, float m) {
   return m_i == -INFINITY ? 0.f : exp2f(m_i - m);
 }
 
-template <int D, bool kVec>
+template <int D, bool kVec, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, float* __restrict__ l_out,
-              float* __restrict__ m_out, Strides sq, Strides sk, Strides sv, Strides so,
-              int heads, int n, int d, int split, float scale) {
+              float* __restrict__ m_out, const int* __restrict__ seg, Strides sq, Strides sk,
+              Strides sv, Strides so, int heads, int n, int d, int split, float scale) {
   constexpr int T = Smem<D>::kTile;
   constexpr int kN = D / 8;  // the warp's 16 x 8 output fragments: all D columns
   extern __shared__ __align__(16) float smem[];
@@ -147,6 +159,7 @@ __global__ void __launch_bounds__(kThreads)
   float* group_m = stage + 4 * T;  // m of key group j at group_m + 32j; l at group_l + 32j
   float* group_l = group_m + kGroups * kRows;
   float* rank_ml = group_l + kGroups * kRows;  // the rank's m (32), then l (32)
+  int* key_seg = reinterpret_cast<int*>(rank_ml + 2 * kRows);  // stage s at key_seg + 32s
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -159,11 +172,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
+  const int* sb = kSeg ? seg + b * n : nullptr;  // this batch row's ids
   flash::stage_rows<kRows, D, kThreads, kVec>(qs, q + b * sq.b + h * sq.h, sq.n, q0, n, d);
   auto stage_walk = [&](int tile, int s) {
     float* st = stage + 2 * s * T;
     flash::stage_rows<kRows, D, kThreads, kVec>(st, kb, sk.n, tile * kRows, n, d);
     flash::stage_rows<kRows, D, kThreads, kVec>(st + T, vb, sv.n, tile * kRows, n, d);
+    if constexpr (kSeg) flash::stage_ids(key_seg + kRows * s, sb, tile * kRows, n, 0);
   };
   if (first < last) stage_walk(first, 0);
   flash::cp_async_commit();
@@ -181,6 +196,14 @@ __global__ void __launch_bounds__(kThreads)
   // quad, element c % 2
   const int src_a = (lane & ~3) | (t >> 1), src_b = src_a + 2;
   const bool odd = t & 1;
+  int row_seg[2] = {0, 0};  // the ids of rows g and g + 8
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + m0 + (lane >> 2) + 8 * r;
+      row_seg[r] = qi < n ? sb[qi] : 0;  // rows past n are not written
+    }
+  }
 
   const float scale2 = scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8: running max over the group's keys
@@ -203,18 +226,20 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < D; e += 8)
       flash::mma_3xtf32(sc, flash::load_a(qs, qs + T, fq, e), flash::load_b_t_raw(ks, fk, e));
     const int key = it * kRows + n0 + 2 * t;  // the key of elements 0 and 2; +1 for 1 and 3
-    const bool key_ok[2] = {key < n, key + 1 < n};
+    const int* ks_seg = key_seg + kRows * s + n0 + 2 * t;
     float p[4], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {  // rows g, g + 8
+      const bool ok0 = key < n && (!kSeg || ks_seg[0] == row_seg[r]);
+      const bool ok1 = key + 1 < n && (!kSeg || ks_seg[1] == row_seg[r]);
       const float s0 = flash::sum3(sc, 2 * r) * scale2, s1 = flash::sum3(sc, 2 * r + 1) * scale2;
-      float mx = fmaxf(key_ok[0] ? s0 : -INFINITY, key_ok[1] ? s1 : -INFINITY);
+      float mx = fmaxf(ok0 ? s0 : -INFINITY, ok1 ? s1 : -INFINITY);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
       alpha[r] = weight(m[r], m_new);
-      p[2 * r] = key_ok[0] ? exp2f(s0 - m_new) : 0.f;
-      p[2 * r + 1] = key_ok[1] ? exp2f(s1 - m_new) : 0.f;
+      p[2 * r] = ok0 ? exp2f(s0 - m_new) : 0.f;
+      p[2 * r + 1] = ok1 ? exp2f(s1 - m_new) : 0.f;
       l[r] = l[r] * alpha[r] + (p[2 * r] + p[2 * r + 1]);
       m[r] = m_new;
     }
@@ -343,11 +368,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, bool kVec>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* out, float* l_out,
-                       float* m_out, const Strides* s, int batch, int heads, int n, int d,
-                       int split, float scale, cudaStream_t stream) {
-  return flash::launch_cluster<&flash_fwd<D, kVec>>(Smem<D>::kFloats, batch, heads, n, split,
-                                                   stream, q, k, v, out, l_out, m_out, s[0],
-                                                   s[1], s[2], s[3], heads, n, d, split, scale);
+                       float* m_out, const int* seg, const Strides* s, int batch, int heads, int n,
+                       int d, int split, float scale, cudaStream_t stream) {
+  return flash::with_segments(seg, [&](auto segments) {
+    return flash::launch_cluster<&flash_fwd<D, kVec, decltype(segments)::value>>(
+        Smem<D>::kFloats, batch, heads, n, split, stream, q, k, v, out, l_out, m_out, seg, s[0],
+        s[1], s[2], s[3], heads, n, d, split, scale);
+  });
 }
 
 }  // namespace
@@ -356,12 +383,14 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* ou
 // given element strides (3 per tensor: batch, head, row; the last dimension
 // contiguous); out: written as (batch, heads, n, d) through its strides (the
 // fourth triple); l_out, m_out: null, or both contiguous fp32 (batch, heads,
-// n) buffers for the residuals. 1 <= d <= 128, n >= 1. The plan: rows per
-// query block (32) and the split of the key walk (1..8, at most ceil(n/32)).
+// n) buffers for the residuals; seg: null, or contiguous int32 (batch, n)
+// segment ids. 1 <= d <= 128, n >= 1. The plan: rows per query block (32)
+// and the split of the key walk (1..8, at most ceil(n/32)).
 // Launches once on `stream` and returns the launch's error or
 // cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                                          void* l_out, void* m_out, const long long* strides,
+                                          void* l_out, void* m_out, const void* seg,
+                                          const long long* strides,
                                           int batch, int heads, int n, int d, int rows, int split,
                                           float scale, void* stream) {
   if (!flash::plan_ok(batch, heads, n, d, rows, split) || (l_out == nullptr) != (m_out == nullptr))
@@ -373,6 +402,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   return static_cast<int>(FLASH_DISPATCH(
       launch_fwd, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(l_out),
-      static_cast<float*>(m_out), s, batch, heads, n, d, split, scale,
+      static_cast<float*>(m_out), static_cast<const int*>(seg), s, batch, heads, n, d, split,
+      scale,
       static_cast<cudaStream_t>(stream)));
 }

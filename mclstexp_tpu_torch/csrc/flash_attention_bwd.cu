@@ -51,6 +51,15 @@
 // while this one is computed (two stages). Shared memory is dynamic: 99 KB
 // (dK/dV) and 90 KB (dQ) at D = 64, 181 / 172 KB at D = 128.
 //
+// Segment ids (the TPU kernels' SegmentIds, masks at :861-891 and
+// :1201-1224): given a non-null `seg`, a contiguous int32 (batch, n) array,
+// p is 0 wherever the query's and the key's ids differ (the library adds
+// its mask value to the logits instead, which gives the same 0 in fp32).
+// As in the forward, each thread reads the ids of its two owned rows once
+// (rows g and g + 8 of its fragment), and a walked tile's 32 ids are staged
+// with the tile. The branch is a template variant (kSeg), so a null `seg`
+// launches code without it.
+//
 // Any n >= 1: rows past n are zero-filled, masked out of p, and not
 // written. Any d <= 128: the tile width D is 32, 64 or 128 and columns past
 // d are zero-filled. Inputs are read through strides with the last
@@ -99,6 +108,12 @@ __device__ __forceinline__ void split_tile(float* hi, float* lo) {
   flash::split_staged<kRows, D, kThreads, kVec>(hi, lo);
 }
 
+// The ids of owned rows i and i + 8 (0 past n: such rows are masked and
+// not written).
+__device__ __forceinline__ int2 owned_ids(const int* ids, int i, int n) {
+  return int2{i < n ? ids[i] : 0, i + 8 < n ? ids[i + 8] : 0};
+}
+
 // l -> 1/l in staged row stats, by the threads that staged l (after their
 // cp_async_wait): p is then one multiply. Rows past n give inf, masked.
 __device__ __forceinline__ void invert_l(float* stats) {
@@ -142,20 +157,23 @@ struct Smem {
   static constexpr int kTile = kRows * D;  // floats of a 32 x D tile
   static constexpr int kScores = kRows * kRows;
   // dK/dV: k, v (owned; big and small parts), 2 stages of q, dout, their
-  // small parts, p and ds (big and small), 2 stages of m, l, di
-  static constexpr int kDkv = 10 * kTile + 4 * kScores + 2 * 3 * kRows;
+  // small parts, p and ds (big and small), 2 stages of m, l, di; segment
+  // ids of 2 stages of queries (32 ints each)
+  static constexpr int kDkv = 10 * kTile + 4 * kScores + 2 * 3 * kRows + 2 * kRows;
   // dQ: q, dout (owned; big and small), 2 stages of k, v, their small
-  // parts, ds (big and small), m, l, di of the owned rows
-  static constexpr int kDq = 10 * kTile + 2 * kScores + 3 * kRows;
+  // parts, ds (big and small), m, l, di of the owned rows; segment ids of
+  // 2 stages of keys
+  static constexpr int kDq = 10 * kTile + 2 * kScores + 3 * kRows + 2 * kRows;
 };
 
-template <int D, bool kVec>
+template <int D, bool kVec, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ l, const float* __restrict__ m,
                   const float* __restrict__ di, float* __restrict__ dk,
-                  float* __restrict__ dv, Strides sq, Strides sk, Strides sv, Strides sdo,
+                  float* __restrict__ dv, const int* __restrict__ seg, Strides sq, Strides sk,
+                  Strides sv, Strides sdo,
                   Strides sdk, Strides sdv, int heads, int n, int d, int split, float scale) {
   constexpr int T = Smem<D>::kTile, P = Smem<D>::kScores;
   constexpr int kCols = D / 4;  // output columns per warp
@@ -169,6 +187,7 @@ __global__ void __launch_bounds__(kThreads)
   float* ps = do_lo + T;  // 32 keys x 32 queries, then its small parts
   float* dss = ps + 2 * P;
   float* stats = dss + 2 * P;  // stage s: m, 1/l, di at stats + 96s
+  int* walk_seg = reinterpret_cast<int*>(stats + 2 * 3 * kRows);  // stage s: at walk_seg + 32s
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -182,12 +201,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
+  const int* sb = kSeg ? seg + b * n : nullptr;  // this batch row's ids
   stage_tile<D, kVec>(ks, k + b * sk.b + h * sk.h, sk.n, k0, n, d);
   stage_tile<D, kVec>(vs, v + b * sv.b + h * sv.h, sv.n, k0, n, d);
   auto stage_walk = [&](int tile, int s) {
     stage_tile<D, kVec>(stage + 2 * s * T, qb, sq.n, tile * kRows, n, d);
     stage_tile<D, kVec>(stage + 2 * s * T + T, dob, sdo.n, tile * kRows, n, d);
     stage_row_stats(stats + 3 * kRows * s, m + rb, l + rb, di + rb, tile * kRows, n);
+    if constexpr (kSeg) flash::stage_ids(walk_seg + kRows * s, sb, tile * kRows, n, 3 * kRows);
   };
   if (first < last) stage_walk(first, 0);
   flash::cp_async_commit();
@@ -197,6 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = (warp & 1) * 16;      // the warp's 16 keys of the block
   const int n0 = (warp >> 1) * 8;      // its 8 queries of the score tile
   const int c0 = (warp >> 1) * kCols;  // its columns of dk and dv
+  const int2 key_seg = kSeg ? owned_ids(sb, k0 + m0 + g, n) : int2{0, 0};  // keys g, g + 8
   const flash::Frag<D> fk = flash::frag_a<D>(m0);      // k, v rows
   const flash::Frag<D> fq = flash::frag_bt<D>(n0);     // q, dout rows
   const flash::Frag<kRows> fp = flash::frag_a<kRows>(m0);  // p, ds rows
@@ -213,6 +235,7 @@ __global__ void __launch_bounds__(kThreads)
     float* qs = stage + 2 * s * T;
     float* dos = qs + T;
     float* st = stats + 3 * kRows * s;
+    const int* qseg = walk_seg + kRows * s;
     if (it == first) {
       split_tile<D, kVec>(ks, ks + T);
       split_tile<D, kVec>(vs, vs + T);
@@ -235,7 +258,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = m0 + g + 8 * (i >> 1);  // key in the block
       const int c = n0 + 2 * t + (i & 1);   // query in the tile
       const float e = expf(flash::sum3(sc, i) * scale - st[c]) * st[kRows + c];
-      const float p = q0 + c < n && k0 + r < n ? e : 0.f;
+      const bool ok = q0 + c < n && k0 + r < n &&
+                      (!kSeg || (i < 2 ? key_seg.x : key_seg.y) == qseg[c]);
+      const float p = ok ? e : 0.f;
       const int at = tile_at<kRows>(r, c);
       flash::split_tf32(p, ps[at], ps[P + at]);
       flash::split_tf32(p * (flash::sum3(dp, i) - st[2 * kRows + c]) * scale, dss[at],
@@ -275,14 +300,14 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();  // every rank's shared memory stays until all have read it
 }
 
-template <int D, bool kVec>
+template <int D, bool kVec, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ l, const float* __restrict__ m,
-                 const float* __restrict__ di, float* __restrict__ dq, Strides sq, Strides sk,
-                 Strides sv, Strides sdo, Strides sdq, int heads, int n, int d, int split,
-                 float scale) {
+                 const float* __restrict__ di, float* __restrict__ dq,
+                 const int* __restrict__ seg, Strides sq, Strides sk, Strides sv, Strides sdo,
+                 Strides sdq, int heads, int n, int d, int split, float scale) {
   constexpr int T = Smem<D>::kTile, P = Smem<D>::kScores;
   constexpr int kCols = D / 4;
   constexpr int kN = kCols / 8;
@@ -294,6 +319,7 @@ __global__ void __launch_bounds__(kThreads)
   float* v_lo = k_lo + T;
   float* dss = v_lo + T;  // 32 queries x 32 keys, then its small parts
   float* stats = dss + 2 * P;  // m, 1/l, di of the owned queries
+  int* walk_seg = reinterpret_cast<int*>(stats + 3 * kRows);  // stage s: at walk_seg + 32s
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -307,12 +333,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
+  const int* sb = kSeg ? seg + b * n : nullptr;  // this batch row's ids
   stage_tile<D, kVec>(qs, q + b * sq.b + h * sq.h, sq.n, q0, n, d);
   stage_tile<D, kVec>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, n, d);
   stage_row_stats(stats, m + rb, l + rb, di + rb, q0, n);
   auto stage_walk = [&](int tile, int s) {
     stage_tile<D, kVec>(stage + 2 * s * T, kb, sk.n, tile * kRows, n, d);
     stage_tile<D, kVec>(stage + 2 * s * T + T, vb, sv.n, tile * kRows, n, d);
+    if constexpr (kSeg) flash::stage_ids(walk_seg + kRows * s, sb, tile * kRows, n, 3 * kRows);
   };
   if (first < last) stage_walk(first, 0);
   flash::cp_async_commit();
@@ -322,6 +350,7 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = (warp & 1) * 16;      // the warp's 16 queries of the block
   const int n0 = (warp >> 1) * 8;      // its 8 keys of the score tile
   const int c0 = (warp >> 1) * kCols;  // its columns of dq
+  const int2 row_seg = kSeg ? owned_ids(sb, q0 + m0 + g, n) : int2{0, 0};  // rows g, g + 8
   const flash::Frag<D> fq = flash::frag_a<D>(m0);      // q, dout rows
   const flash::Frag<D> fk = flash::frag_bt<D>(n0);     // k, v rows
   const flash::Frag<kRows> fs = flash::frag_a<kRows>(m0);  // ds rows
@@ -337,6 +366,7 @@ __global__ void __launch_bounds__(kThreads)
     flash::cp_async_wait<1>();
     float* ks = stage + 2 * s * T;
     float* vs = ks + T;
+    const int* kseg = walk_seg + kRows * s;
     if (it == first) {
       split_tile<D, kVec>(qs, qs + T);
       split_tile<D, kVec>(dos, dos + T);
@@ -359,7 +389,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = m0 + g + 8 * (i >> 1);  // query in the block
       const int c = n0 + 2 * t + (i & 1);   // key in the tile
       const float e = expf(flash::sum3(sc, i) * scale - stats[r]) * stats[kRows + r];
-      const float p = q0 + r < n && kt0 + c < n ? e : 0.f;
+      const bool ok = q0 + r < n && kt0 + c < n &&
+                      (!kSeg || (i < 2 ? row_seg.x : row_seg.y) == kseg[c]);
+      const float p = ok ? e : 0.f;
       const int at = tile_at<kRows>(r, c);
       flash::split_tf32(p * (flash::sum3(dp, i) - stats[2 * kRows + r]) * scale, dss[at],
                         dss[P + at]);
@@ -391,21 +423,25 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, bool kVec>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
                        const float* l, const float* m, const float* di, float* dk, float* dv,
-                       const Strides* s, int batch, int heads, int n, int d, int split,
-                       float scale, cudaStream_t stream) {
-  return flash::launch_cluster<&flash_bwd_dkv<D, kVec>>(
-      Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dk, dv, s[0], s[1],
-      s[2], s[3], s[4], s[5], heads, n, d, split, scale);
+                       const int* seg, const Strides* s, int batch, int heads, int n, int d,
+                       int split, float scale, cudaStream_t stream) {
+  return flash::with_segments(seg, [&](auto segments) {
+    return flash::launch_cluster<&flash_bwd_dkv<D, kVec, decltype(segments)::value>>(
+        Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dk, dv, seg,
+        s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d, split, scale);
+  });
 }
 
 template <int D, bool kVec>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                       const float* l, const float* m, const float* di, float* dq,
-                      const Strides* s, int batch, int heads, int n, int d, int split,
-                      float scale, cudaStream_t stream) {
-  return flash::launch_cluster<&flash_bwd_dq<D, kVec>>(
-      Smem<D>::kDq, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dq, s[0], s[1], s[2],
-      s[3], s[4], heads, n, d, split, scale);
+                      const int* seg, const Strides* s, int batch, int heads, int n, int d,
+                      int split, float scale, cudaStream_t stream) {
+  return flash::with_segments(seg, [&](auto segments) {
+    return flash::launch_cluster<&flash_bwd_dq<D, kVec, decltype(segments)::value>>(
+        Smem<D>::kDq, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dq, seg, s[0],
+        s[1], s[2], s[3], s[4], heads, n, d, split, scale);
+  });
 }
 
 }  // namespace
@@ -413,14 +449,16 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
 // q, k, v, dout: device fp32 buffers read as (batch, heads, n, d) through
 // the given element strides (3 per tensor: batch, head, row; the last
 // dimension contiguous); l, m, di: contiguous fp32 (batch, heads, n); dk,
-// dv: written as (batch, heads, n, d) through their strides. 1 <= d <= 128,
-// n >= 1. The plan: rows per tile (32) and the split of the walked side
-// (1..8, at most ceil(n/32)). Launches once on `stream` and returns the
+// dv: written as (batch, heads, n, d) through their strides; seg: null, or
+// contiguous int32 (batch, n) segment ids. 1 <= d <= 128, n >= 1. The
+// plan: rows per tile (32) and the split of the walked side (1..8, at most
+// ceil(n/32)). Launches once on `stream` and returns the
 // launch's error or cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
-    const void* m, const void* di, void* dk, void* dv, const long long* strides, int batch,
-    int heads, int n, int d, int rows, int split, float scale, void* stream) {
+    const void* m, const void* di, void* dk, void* dv, const void* seg,
+    const long long* strides, int batch, int heads, int n, int d, int rows, int split,
+    float scale, void* stream) {
   if (!flash::plan_ok(batch, heads, n, d, rows, split))
     return static_cast<int>(cudaErrorInvalidValue);
   Strides s[6];
@@ -431,16 +469,17 @@ extern "C" int flash_attention_bwd_dkv_launch(
       launch_dkv, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(l), static_cast<const float*>(m),
-      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), s, batch,
-      heads, n, d, split, scale, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<const int*>(seg), s, batch, heads, n, d, split, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// The same inputs and plan; dq written as (batch, heads, n, d) through its
-// strides (5 stride triples: q, k, v, dout, dq).
+// The same inputs, segment ids and plan; dq written as (batch, heads, n, d)
+// through its strides (5 stride triples: q, k, v, dout, dq).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
-    const void* m, const void* di, void* dq, const long long* strides, int batch, int heads,
-    int n, int d, int rows, int split, float scale, void* stream) {
+    const void* m, const void* di, void* dq, const void* seg, const long long* strides,
+    int batch, int heads, int n, int d, int rows, int split, float scale, void* stream) {
   if (!flash::plan_ok(batch, heads, n, d, rows, split))
     return static_cast<int>(cudaErrorInvalidValue);
   Strides s[5];
@@ -451,6 +490,6 @@ extern "C" int flash_attention_bwd_dq_launch(
       launch_dq, vec, d, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(l), static_cast<const float*>(m),
-      static_cast<const float*>(di), static_cast<float*>(dq), s, batch, heads, n, d, split,
-      scale, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(di), static_cast<float*>(dq), static_cast<const int*>(seg), s,
+      batch, heads, n, d, split, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -25,7 +25,9 @@
 // rows (queries or keys) and splits its walk over the other side's tiles
 // among `split` CTAs of one thread-block cluster (1 <= split <= 8, the
 // portable cluster size, and at most the number of tiles); the caller's
-// plan (ops/flash_attention.cluster_plan) picks split. launch_cluster
+// plan (ops/flash_attention.cluster_plan) picks split. Segment ids, where
+// given, are staged beside the walked tiles of their rows (stage_ids); a
+// thread reads those of the rows it owns once. launch_cluster
 // launches a kernel on a grid of (batch * heads * split, ceil(n / 32))
 // blocks of kThreads in clusters of (split, 1, 1), after allowing its
 // dynamic shared memory once per kernel variant and device.
@@ -36,6 +38,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace flash {
 
@@ -121,6 +124,14 @@ cudaError_t launch_cluster(int smem_floats, int batch, int heads, int n, int spl
    : (d) <= 64 ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))    \
                : ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__)))
 
+// The segment-id variant: go(std::true_type{}) for non-null ids, else
+// go(std::false_type{}); each kernel takes it as its kSeg template flag, so
+// a launch without ids runs code without the branch.
+template <typename Go>
+cudaError_t with_segments(const int* seg, Go go) {
+  return seg != nullptr ? go(std::true_type{}) : go(std::false_type{});
+}
+
 // index of element (r, c) in a tile of row width D
 template <int D>
 __device__ __forceinline__ int tile_at(int r, int c) {
@@ -144,6 +155,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// The segment ids of rows [r0, r0 + 32) (`ids`: one batch row's n ids) into
+// dst[0..32), asynchronously, zero past n; threads [first, first + 32) copy.
+__device__ __forceinline__ void stage_ids(int* dst, const int* ids, int r0, int n, int first) {
+  const int i = static_cast<int>(threadIdx.x) - first;
+  if (i >= 0 && i < kRows) {
+    const int r = r0 + i;
+    cp_async4(reinterpret_cast<float*>(dst + i),
+              reinterpret_cast<const float*>(r < n ? ids + r : ids), r < n);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -11,6 +11,12 @@ writes, and loads into the port's ``MclSTExp`` with ``strict=True``:
 The densenet block layout is read from the tree, so ``tiny_densenet`` is
 covered as well as densenet121. Position tables keep their ``pos_vocab``
 rows. Every leaf must be consumed, or the conversion raises.
+
+``baseline_params_from_jax`` does the same for the slide baselines
+HisToGene and THItoGene, into the reference keys that
+``mclstexp_tpu/baselines/torch_import.py`` reads (the inverse of its
+importers); THItoGene's 1x1-conv Denses become (out, in, 1, 1) weights and
+ODConv's candidate kernels go back to (Kn, Cout, Cin, k, k).
 """
 
 from __future__ import annotations
@@ -39,8 +45,16 @@ class _Converter:
     def put(self, key: str, value: np.ndarray):
         self.out[key] = torch.from_numpy(np.array(value, order="C"))  # a writable copy
 
-    def conv(self, key: str, *path: str):
+    def conv(self, key: str, *path: str, bias: bool = False):
         self.put(f"{key}.weight", np.transpose(self.get(False, *path, "kernel"), (3, 2, 0, 1)))
+        if bias:
+            self.put(f"{key}.bias", self.get(False, *path, "bias"))
+
+    def conv1x1(self, key: str, *path: str, bias: bool = True):
+        """A Dense over pooled features -> a 1x1 conv's (out, in, 1, 1)."""
+        self.put(f"{key}.weight", self.get(False, *path, "kernel").T[:, :, None, None])
+        if bias:
+            self.put(f"{key}.bias", self.get(False, *path, "bias"))
 
     def linear(self, key: str, *path: str, bias: bool = True):
         self.put(f"{key}.weight", self.get(False, *path, "kernel").T)
@@ -128,6 +142,64 @@ def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
         c.linear(f"{head}.fc", head, "fc")
         c.ln(f"{head}.layer_norm", head, "layer_norm")
 
+    leftovers = c.leftovers()
+    if leftovers:
+        raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")
+    return c.out
+
+
+def _slide_vit(c: _Converter, depth: int):
+    """The baselines' ViT (``vit.block{i}``) -> ``vit.transformer.layers.{i}``."""
+    for i in range(depth):
+        base, src = f"vit.transformer.layers.{i}", ("vit", f"block{i}")
+        c.ln(f"{base}.0.norm", *src, "norm_attn")
+        c.linear(f"{base}.0.fn.to_qkv", *src, "attn", "to_qkv", bias=False)
+        c.linear(f"{base}.0.fn.to_out.0", *src, "attn", "to_out")
+        c.ln(f"{base}.1.norm", *src, "norm_ff")
+        c.linear(f"{base}.1.fn.net.0", *src, "ff", "fc1")
+        c.linear(f"{base}.1.fn.net.3", *src, "ff", "fc2")
+
+
+def baseline_params_from_jax(model, params: Mapping[str, Any],
+                             batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert the JAX build's ``HisToGene`` or ``THItoGene`` variables to
+    the state_dict of the port's ``model`` of the same family."""
+    from mclstexp_tpu_torch.baselines.models import HisToGene, THItoGene
+
+    c = _Converter(params, batch_stats)
+    if isinstance(model, HisToGene):
+        c.linear("patch_embedding", "patch_embedding")
+        c.put("x_embed.weight", c.get(False, "pos", "x_embed"))
+        c.put("y_embed.weight", c.get(False, "pos", "y_embed"))
+        _slide_vit(c, model.n_layers)
+        c.ln("gene_head.0", "head_norm")
+        c.linear("gene_head.1", "gene_head")
+    elif isinstance(model, THItoGene):
+        a = "odconv2d.attention"
+        c.conv1x1(f"{a}.fc", "odconv", "fc", bias=False)
+        c.bn(f"{a}.bn", "odconv", "bn")
+        for name in ("channel_fc", "filter_fc", "spatial_fc", "kernel_fc"):
+            c.conv1x1(f"{a}.{name}", "odconv", name)
+        kn, cout, cin, k, _ = model.odconv2d.weight.shape
+        w = c.get(False, "odconv", "weight")  # (Kn, k*k*Cin, Cout), taps (ki, kj, c)
+        c.put("odconv2d.weight", w.reshape(kn, k, k, cin, cout).transpose(0, 4, 3, 1, 2))
+        for i in range(1, 5):
+            c.conv(f"caps_layer.conv{i}", "caps", f"c{i}_conv", bias=True)
+            c.bn(f"caps_layer.batch_norm{i}", "caps", f"c{i}_bn")
+        c.conv("caps_layer.primary_caps.depthwise_conv", "caps", "primary_dw", bias=True)
+        for name in ("W", "b"):
+            c.put(f"caps_layer.digit_caps.{name}", c.get(False, "caps", "digit_caps", name))
+        c.put("x_embed.weight", c.get(False, "x_embed"))
+        c.put("y_embed.weight", c.get(False, "y_embed"))
+        _slide_vit(c, model.n_layers)
+        for head in [f"attention_{i}" for i in range(model.heads[1])] + ["out_att"]:
+            c.put(f"gat.{head}.W", c.get(False, "gat", head, "W", "kernel"))
+            c.put(f"gat.{head}.a", c.get(False, "gat", head, "a"))
+        c.linear("gene_head.0", "head_fc1")
+        c.ln("gene_head.2", "head_norm")
+        c.linear("gene_head.3", "head_fc2")
+    else:
+        raise NotImplementedError(f"{type(model).__name__} is not a ported baseline")
     leftovers = c.leftovers()
     if leftovers:
         raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")

@@ -26,13 +26,21 @@ All three are deterministic (no atomics) and share one plan,
 cores in the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the
 plain versions; one plain TF32 product would not be).
 
+Segment ids (the TPU kernels' ``SegmentIds(q=m, kv=m)``, which
+``core/layers.py:207-212`` builds from a slide's padding mask): an int32
+(b, n) tensor, one for both sides; query i and key j interact only where
+``seg[b, i] == seg[b, j]``. Every row then sees at least itself, so no row's
+softmax is empty. All three kernels take them (null for none), and each
+counts such launches in ``segment_launches`` beside ``launches``.
+
 ``attention_plain`` is the spot tower's fused-matmul path ("xla"): it serves
-CPU tensors without a gradient and the key mask. ``flash_forward_plain``,
-``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain`` compute exactly what the
-three kernels compute, with the same decomposition: they serve CPU tensors
-and are the oracles the kernels are held to. Each wrapper launches its
-kernel (built at first use) for a CUDA tensor, counted in its ``launches``,
-or raises; it never runs a plain version on the card.
+CPU tensors without a gradient and, on the CPU, the key mask (what the JAX
+module computes off a TPU). ``flash_forward_plain``, ``flash_bwd_dkv_plain``
+and ``flash_bwd_dq_plain`` compute exactly what the three kernels compute,
+with the same decomposition and the same segment ids: they serve CPU
+tensors and are the oracles the kernels are held to. Each wrapper launches
+its kernel (built at first use) for a CUDA tensor, counted in its
+``launches``, or raises; it never runs a plain version on the card.
 
 ``flash_attention`` is differentiable: where an input needs a gradient it
 runs ``FlashAttention``, a ``torch.autograd.Function`` whose forward keeps
@@ -48,9 +56,8 @@ d) on one card, any n >= 1 with ceil(n / 32) <= 65535 and b * h * split <
 2**31, and 1 <= d <= 128;
 each tensor's last dimension contiguous, any strides otherwise, so the (b,
 n, 3, h, d) qkv buffer's views are read in place. Outputs are (b, n, h, d)
-buffers returned as their (b, h, n, d) views. A CUDA call outside the rule
-raises, and so does a key mask (the TPU kernel's segment ids), not ported
-yet.
+buffers returned as their (b, h, n, d) views; segment ids a contiguous
+int32 (b, n) on the same card. A CUDA call outside the rule raises.
 """
 
 from __future__ import annotations
@@ -72,10 +79,10 @@ MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
-# Every entry point ends in: strides; b, h, n, d, then the plan's rows and
-# split; scale, stream.
-_TAIL = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
+# Every entry point ends in: the segment ids (null for none); strides; b, h,
+# n, d, then the plan's rows and split; scale, stream.
+_TAIL = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.cache
@@ -111,36 +118,53 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return torch.matmul(attn, v)
 
 
-def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+def same_segment(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(b, n) ids -> (b, 1, n, n) bool: query i may see key j."""
+    return segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+
+
+def _scores(q, k, scale, segment_ids):
+    """s = q @ k^T * scale, -inf where the segment ids differ."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if segment_ids is None:
+        return s
+    return s.masked_fill(~same_segment(segment_ids), -torch.inf)
+
+
+def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward with its residuals: (out, l, m), l and m (b, h, n) fp32,
-    ``out = (exp(s - m) / l) @ v`` for ``s = q @ k^T * scale``."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    ``out = (exp(s - m) / l) @ v`` for ``s = q @ k^T * scale`` over the keys
+    of each query's segment."""
+    s = _scores(q, k, scale, segment_ids)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     return torch.matmul(p * (1.0 / l)[..., None], v), l, m
 
 
-def _probs_and_ds(q, k, v, do, l, m, di, scale):
-    """The backward kernels' common part: p = exp(s - m) / l and
-    ds = p * (do @ v^T - di) * scale, both (b, h, n, n)."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+def _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids):
+    """The backward kernels' common part: p = exp(s - m) / l (0 across
+    segments) and ds = p * (do @ v^T - di) * scale, both (b, h, n, n)."""
+    s = _scores(q, k, scale, segment_ids)
     p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
     dp = torch.matmul(do, v.transpose(-1, -2))
     return p, (dp - di[..., None]) * p * scale
 
 
-def flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float
+def flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float,
+                        segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) = (ds^T @ q, p^T @ do): what the dK/dV kernel computes."""
-    p, ds = _probs_and_ds(q, k, v, do, l, m, di, scale)
+    p, ds = _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids)
     return torch.matmul(ds.transpose(-1, -2), q), torch.matmul(p.transpose(-1, -2), do)
 
 
-def flash_bwd_dq_plain(q, k, v, do, l, m, di, scale: float) -> torch.Tensor:
+def flash_bwd_dq_plain(q, k, v, do, l, m, di, scale: float,
+                       segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq = ds @ k: what the dQ kernel computes."""
-    _, ds = _probs_and_ds(q, k, v, do, l, m, di, scale)
+    _, ds = _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids)
     return torch.matmul(ds, k)
 
 
@@ -166,6 +190,25 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
                          f"strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
+def _check_segments(q: torch.Tensor, segment_ids: Optional[torch.Tensor]) -> None:
+    """Raise unless ``segment_ids`` is None or a contiguous int32 (b, n) on
+    q's device."""
+    if segment_ids is None:
+        return
+    b, _, n, _ = q.shape
+    if (segment_ids.shape != (b, n) or segment_ids.dtype != torch.int32
+            or not segment_ids.is_contiguous() or segment_ids.device != q.device):
+        raise ValueError(f"segment ids must be a contiguous int32 ({b}, {n}) on {q.device}, "
+                         f"got {segment_ids.dtype} {tuple(segment_ids.shape)} on "
+                         f"{segment_ids.device}")
+
+
+def _count(wrapper, segment_ids: Optional[torch.Tensor]) -> None:
+    wrapper.launches += 1
+    if segment_ids is not None:
+        wrapper.segment_launches += 1
+
+
 def _on_cuda(q: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raise for any other."""
     if q.device.type not in ("cuda", "cpu"):
@@ -180,18 +223,20 @@ def _bhnd_like(q: torch.Tensor) -> torch.Tensor:
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                  residuals: bool = False):
+                  residuals: bool = False, segment_ids: Optional[torch.Tensor] = None):
     """Launch the forward kernel on CUDA tensors: ``out``, or ``(out, l, m)``
-    with ``residuals``. Counted in ``flash_attention.launches``."""
+    with ``residuals``. Counted in ``flash_attention.launches`` (and
+    ``.segment_launches`` with segment ids)."""
     check_kernel_inputs(q, k, v)
+    _check_segments(q, segment_ids)
     b, h, n, d = q.shape
     out = _bhnd_like(q)
     l = m = None
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     _launch(_library().flash_attention_fwd_launch, "flash_attention",
-            (q, k, v, out, l, m), (q, k, v, out), scale)
-    flash_attention.launches += 1
+            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
+    _count(flash_attention, segment_ids)
     return (out, l, m) if residuals else out
 
 
@@ -219,15 +264,17 @@ def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
     return ROWS, split, blocks * split
 
 
-def _launch(fn, what: str, pointers, strided, scale: float) -> None:
-    """``fn(*pointers, strides, b, h, n, d, rows, split, scale, stream)`` for
-    q = ``strided[0]`` under ``cluster_plan``; raises on a CUDA error."""
+def _launch(fn, what: str, pointers, segment_ids, strided, scale: float) -> None:
+    """``fn(*pointers, segment_ids, strides, b, h, n, d, rows, split, scale,
+    stream)`` for q = ``strided[0]`` under ``cluster_plan``; raises on a
+    CUDA error."""
     q = strided[0]
     strides = (ctypes.c_longlong * (3 * len(strided)))(
         *(s for t in strided for s in t.stride()[:3]))
     rows, split, _ = cluster_plan(*q.shape)
     with torch.cuda.device(q.device):
-        err = fn(*(None if t is None else t.data_ptr() for t in pointers), strides, *q.shape,
+        err = fn(*(None if t is None else t.data_ptr() for t in (*pointers, segment_ids)),
+                 strides, *q.shape,
                  rows, split, float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
@@ -246,45 +293,52 @@ def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
         raise ValueError("the backward's inputs lie on more than one device")
 
 
-def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float,
+                  segment_ids: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv): ``flash_bwd_dkv_plain`` for CPU tensors; the dK/dV kernel,
-    counted in ``flash_bwd_dkv.launches``, for CUDA ones."""
+    counted in ``flash_bwd_dkv.launches`` (and ``.segment_launches``), for
+    CUDA ones."""
     if not _on_cuda(q, "flash_bwd_dkv"):
-        return flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
+        return flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale, segment_ids)
     _check_bwd_inputs(q, k, v, do, l, m, di)
+    _check_segments(q, segment_ids)
     dk, dv = _bhnd_like(q), _bhnd_like(q)
     _launch(_bwd_library().flash_attention_bwd_dkv_launch, "flash_attention backward",
-            (q, k, v, do, l, m, di, dk, dv), (q, k, v, do, dk, dv), scale)
-    flash_bwd_dkv.launches += 1
+            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale)
+    _count(flash_bwd_dkv, segment_ids)
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, l, m, di, scale: float) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, do, l, m, di, scale: float,
+                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq: ``flash_bwd_dq_plain`` for CPU tensors; the dQ kernel, counted in
-    ``flash_bwd_dq.launches``, for CUDA ones."""
+    ``flash_bwd_dq.launches`` (and ``.segment_launches``), for CUDA ones."""
     if not _on_cuda(q, "flash_bwd_dq"):
-        return flash_bwd_dq_plain(q, k, v, do, l, m, di, scale)
+        return flash_bwd_dq_plain(q, k, v, do, l, m, di, scale, segment_ids)
     _check_bwd_inputs(q, k, v, do, l, m, di)
+    _check_segments(q, segment_ids)
     dq = _bhnd_like(q)
     _launch(_bwd_library().flash_attention_bwd_dq_launch, "flash_attention backward",
-            (q, k, v, do, l, m, di, dq), (q, k, v, do, dq), scale)
-    flash_bwd_dq.launches += 1
+            (q, k, v, do, l, m, di, dq), segment_ids, (q, k, v, do, dq), scale)
+    _count(flash_bwd_dq, segment_ids)
     return dq
 
 
 class FlashAttention(torch.autograd.Function):
     """softmax(q k^T * scale) v with the flash backward: the forward keeps
     (out, l, m), the backward computes ``di = rowsum(out * dout)`` (outside
-    the kernels, as the JAX library does) and runs dK/dV and dQ."""
+    the kernels, as the JAX library does) and runs dK/dV and dQ, all with
+    the same segment ids (None for none; they take no gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
+    def forward(ctx, q, k, v, scale: float, segment_ids: Optional[torch.Tensor] = None):
         if _on_cuda(q, "flash_attention"):
-            out, l, m = flash_forward(q, k, v, scale, residuals=True)
+            out, l, m = flash_forward(q, k, v, scale, residuals=True, segment_ids=segment_ids)
         else:
-            out, l, m = flash_forward_plain(q, k, v, scale)
+            out, l, m = flash_forward_plain(q, k, v, scale, segment_ids)
         ctx.save_for_backward(q, k, v, out, l, m)
-        ctx.scale = scale
+        ctx.scale, ctx.segment_ids = scale, segment_ids
         return out
 
     @staticmethod
@@ -294,34 +348,39 @@ class FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
             do = do.contiguous()
         di = (out * do).sum(dim=-1).contiguous()
-        dk, dv = flash_bwd_dkv(q, k, v, do, l, m, di, ctx.scale)
-        dq = flash_bwd_dq(q, k, v, do, l, m, di, ctx.scale)
-        return dq, dk, dv, None
+        dk, dv = flash_bwd_dkv(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
+        dq = flash_bwd_dq(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (b, h, n, d) tensors.
+    """softmax(q k^T * scale) v over (b, h, n, d) tensors; ``mask``: (b, n)
+    or (n,) validity of a padded sequence.
 
-    Where an input needs a gradient, ``FlashAttention`` (kernels on the card,
-    plain versions on the CPU). Otherwise a CPU tensor goes to
-    ``attention_plain`` (mask included) and a CUDA tensor launches the
-    forward kernel without residuals. A key mask on the card raises.
+    On a CUDA tensor the mask becomes segment ids (``int32(mask)``, as
+    ``core/layers.py:211-212`` builds them): real rows see real keys only,
+    padded rows padded keys only. Where an input needs a gradient,
+    ``FlashAttention`` (the kernels); otherwise the forward kernel without
+    residuals. On a CPU tensor a mask keeps the key mask of
+    ``attention_plain``, what the JAX module computes off a TPU (the two
+    agree on real rows); without a mask, ``FlashAttention`` over the plain
+    versions where a gradient is wanted, else ``attention_plain``.
     """
     on_cuda = _on_cuda(q, "flash_attention")
+    if mask is not None and not on_cuda:
+        return attention_plain(q, k, v, scale, mask)
+    seg = None
     if mask is not None:
-        if not on_cuda:
-            return attention_plain(q, k, v, scale, mask)
-        raise NotImplementedError(
-            "flash_attention with a key mask (the TPU kernel's segment ids) is not ported "
-            "yet (ROADMAP.md Queue 1, baselines); use attn_backend='xla'")
+        b, n = q.shape[0], q.shape[2]
+        seg = torch.broadcast_to(mask, (b, n)).to(torch.int32).contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, scale)
+        return FlashAttention.apply(q, k, v, scale, seg)
     if not on_cuda:
         return attention_plain(q, k, v, scale)
-    return flash_forward(q, k, v, scale)
+    return flash_forward(q, k, v, scale, segment_ids=seg)
 
 
-flash_attention.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+flash_attention.launches = flash_attention.segment_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.segment_launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.segment_launches = 0

@@ -1,4 +1,4 @@
-"""Device times of the data-movement kernels at the inputs the main path gives them.
+"""Device times of the port's kernels at the inputs the main path gives them.
 
     python -m mclstexp_tpu_torch.profile_kernels
 
@@ -11,19 +11,28 @@
   ``shear_x`` for the rows, ``shear_y`` for the column shear);
 * ``extract_patches`` on a 20,000 x 20,000 x 3 uint8 slide (a Visium
   full-resolution image) with 4,992 grid centers and 64 at and past its
-  border (``patch_centers``), P = 224.
+  border (``patch_centers``), P = 224;
+* the three flash kernels (the forward without residuals, dK/dV, dQ) on
+  the views of one qkv buffer at ``FLASH_SHAPES`` (the flagship's eval
+  sweep, training and ragged lengths, the slide baselines' 768 and 4,096
+  rows), without segment ids and, where the package's kernels take them,
+  with them (the last 63 rows padded), by graph replays below n = 4,096
+  and by events over eager launches at it (``time_flash``).
 
-Each case is checked bit-equal to the plain version and timed two ways:
-``ms``, CUDA events over eager launches (the wrapper's host cost included
-when it exceeds the kernel's time), and ``graph_ms``, CUDA-graph replays
-(device time alone). Prints one JSON object with the card's name and power
-limit. ``chip_smoke.py`` takes its kernel timings from here; to compare a
-parent commit in one chip call, unpack it into ``build/parent``, copy this
-file and ``ops/augment.py`` into its package and run both in turns.
+Each data-movement case is checked bit-equal to the plain version (the
+flash kernels are checked by ``chip_smoke.py`` and the card tests) and
+timed two ways: ``ms``, CUDA events over eager launches (the wrapper's host
+cost included when it exceeds the kernel's time), and ``graph_ms``,
+CUDA-graph replays (device time alone). Prints one JSON object with the
+card's name and power limit. ``chip_smoke.py`` takes its kernel timings
+from here; to compare a parent commit in one chip call, unpack it into
+``build/parent``, copy this file into its package and run parent, change,
+change, parent.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.ops import flash_attention as fa
 from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
 from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
 
@@ -38,6 +48,9 @@ FLAGSHIP = (128, 224, 224, 3)  # the Paeth shears' images at the her2st widths
 I32_MIN = -2**31
 VISIUM_SIDE = 20_000  # a Visium full-resolution image.tif is about 20,000-25,000 px a side
 PATCH = 224
+FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 16, 768, 64),
+                (1, 16, 4096, 64))
+FLASH_PADDED = 63  # rows of the padded tail in the segment-id case
 
 
 def card_line() -> str:
@@ -178,6 +191,25 @@ def time_patches(slide, centers) -> dict:
                                  iters=5)}
 
 
+def time_flash(shape, g, segments: bool) -> dict:
+    """ms per call of the flash forward (no residuals), dK/dV and dQ at
+    ``shape`` on the views of one qkv buffer, with segment ids (the last
+    ``FLASH_PADDED`` rows padded) or without."""
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, h, n, d), generator=g, device="cuda")
+    scale = d**-0.5
+    ids = ((torch.arange(n, device="cuda") < n - FLASH_PADDED).to(torch.int32)[None]
+           .expand(b, n).contiguous(),) if segments else ()
+    out, l, m = fa.flash_forward(q, k, v, scale, True, *ids)
+    di = (out * do).sum(-1).contiguous()
+    timed = (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if n >= 4096 else graph_ms
+    return {"fwd": timed(lambda: fa.flash_forward(q, k, v, scale, False, *ids)),
+            "bwd_dkv": timed(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale, *ids)),
+            "bwd_dq": timed(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale, *ids))}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -188,8 +220,15 @@ def main() -> None:
             shifts[f"{layout} {str(dtype)[6:]} {kind}"] = time_row_shift(view, k)
     slide, _, centers = patch_input(g)
     patches = time_patches(slide, centers)
-    print(json.dumps({"card": card_line(), "row_shift": shifts, "extract_patches": patches}),
-          flush=True)
+    del slide, centers
+    has_ids = "segment_ids" in inspect.signature(fa.flash_forward).parameters
+    flash = {}
+    for shape in FLASH_SHAPES:
+        flash[str(shape)] = {"no_ids": time_flash(shape, g, False)}
+        if has_ids:
+            flash[str(shape)]["ids"] = time_flash(shape, g, True)
+    print(json.dumps({"card": card_line(), "row_shift": shifts, "extract_patches": patches,
+                      "flash": flash}), flush=True)
 
 
 if __name__ == "__main__":

@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
             "mclstexp_tpu_torch.data.io", "mclstexp_tpu_torch.data.st_dataset",
             "mclstexp_tpu_torch.data.visium", "mclstexp_tpu_torch.data.panel",
             "mclstexp_tpu_torch.data.hvg", "mclstexp_tpu_torch.data.genes",
-            "mclstexp_tpu_torch.data.posremap"} <= set(modules)
+            "mclstexp_tpu_torch.data.posremap", "mclstexp_tpu_torch.baselines.graph",
+            "mclstexp_tpu_torch.baselines.layers", "mclstexp_tpu_torch.baselines.models",
+            "mclstexp_tpu_torch.baselines.trainer"} <= set(modules)
     assert len(modules) > 35
     code = (
         "import importlib, sys\n"

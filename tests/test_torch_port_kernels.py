@@ -220,25 +220,134 @@ def test_flash_attention_reads_the_qkv_buffer_in_place(cuda):
 
 @pytest.mark.gpu
 def test_flash_attention_raises_for_mask_grad_and_shape(cuda):
-    """A gradient now runs (the backward kernels), a key mask still raises."""
+    """A key mask launches the segment kernels (forward alone without a
+    gradient; forward with residuals, dK/dV and dQ with one), counted in
+    ``launches`` and ``segment_launches``; shapes outside the rule raise."""
     q = torch.randn((1, 2, 32, 16), generator=cuda, device="cuda")
-    with pytest.raises(NotImplementedError, match="key mask"):
-        flash_attention(q, q, q, 0.25, torch.ones(32, dtype=torch.bool, device="cuda"))
+    mask = torch.arange(32, device="cuda") < 20
+    counts = lambda: tuple((w.launches, w.segment_launches) for w in (  # noqa: E731
+        flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq))
+    before = counts()
+    got = flash_attention(q, q, q, 0.25, mask)
+    assert counts() == ((before[0][0] + 1, before[0][1] + 1), *before[1:])
+    seg = mask.to(torch.int32)[None]
+    torch.testing.assert_close(got, fa.flash_forward_plain(q, q, q, 0.25, seg)[0], rtol=0,
+                               atol=2e-5)
     qg = q.clone().requires_grad_()
-    before = (flash_attention.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
-    (g,) = torch.autograd.grad(flash_attention(qg, qg, qg, 0.25).sum(), qg)
+    before = counts()
+    (g,) = torch.autograd.grad(flash_attention(qg, qg, qg, 0.25, mask).sum(), qg)
     assert torch.isfinite(g).all()
-    assert (flash_attention.launches, fa.flash_bwd_dkv.launches,
-            fa.flash_bwd_dq.launches) == tuple(c + 1 for c in before)
-    with pytest.raises(NotImplementedError, match="key mask"):
-        flash_attention(qg, qg, qg, 0.25, torch.ones(32, dtype=torch.bool, device="cuda"))
+    assert counts() == tuple((c + 1, s + 1) for c, s in before)
+    before = counts()
+    (g,) = torch.autograd.grad(flash_attention(qg, qg, qg, 0.25).sum(), qg)
+    assert counts() == tuple((c + 1, s) for c, s in before)
     with torch.no_grad():
         flash_attention(qg, qg, qg, 0.25)  # no gradient wanted: the forward alone runs
+    with pytest.raises(ValueError, match="segment ids"):
+        fa.flash_forward(q, q, q, 0.25, segment_ids=seg.long())
     with pytest.raises(ValueError, match="d <= 128"):
         x = torch.zeros((1, 1, 4, 160), device="cuda")
         flash_attention(x, x, x, 1.0)
     with pytest.raises(TypeError, match="float32"):
         flash_attention(q.half(), q.half(), q.half(), 0.25)
+
+
+def _segment_ids(cuda, b, n, kind):
+    """(b, n) int32 ids: "tail", a padded tail of min(127, n - 1) rows in
+    row 0 and of 1 row in the others (the baselines' mask as int32: real
+    rows 1, padded 0); "interleaved", ids drawn from {0, 1, 2}."""
+    if kind == "interleaved":
+        return torch.randint(0, 3, (b, n), generator=cuda, device="cuda", dtype=torch.int32)
+    seg = torch.ones((b, n), dtype=torch.int32, device="cuda")
+    seg[0, n - min(127, n - 1):] = 0
+    seg[1:, n - min(1, n - 1):] = 0
+    return seg
+
+
+def _check_segment_kernels(q, k, v, seg, scale):
+    """The three kernels with segment ids against their plain versions (atol
+    2e-5, l relative), deterministic, one (segment) launch each; and the
+    padded rows' output is the segment softmax's, not the key mask's."""
+    counts = lambda: tuple((w.launches, w.segment_launches) for w in (  # noqa: E731
+        flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq))
+    before = counts()
+    out, l, m = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
+    alone = fa.flash_forward(q, k, v, scale, segment_ids=seg)
+    do = torch.randn(q.shape, device="cuda")
+    want_out, want_l, want_m = fa.flash_forward_plain(q, k, v, scale, seg)
+    di = (want_out * do).sum(-1).contiguous()
+    args = (q, k, v, do, want_l, want_m, di, scale, seg)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    assert counts() == ((before[0][0] + 2, before[0][1] + 2), (before[1][0] + 1, before[1][1] + 1),
+                        (before[2][0] + 1, before[2][1] + 1))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (out, l, m, alone, dk, dv, dq))
+    for got, want in ((out, want_out), (alone, want_out), (m, want_m),
+                      *zip((dk, dv), fa.flash_bwd_dkv_plain(*args)),
+                      (dq, fa.flash_bwd_dq_plain(*args))):
+        torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL)
+    torch.testing.assert_close(l, want_l, rtol=FLASH_ATOL, atol=0)
+    again = (*fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg),
+             *fa.flash_bwd_dkv(*args), fa.flash_bwd_dq(*args))
+    for a, b in zip((out, l, m, dk, dv, dq), again):
+        assert torch.equal(a, b)
+    padded = seg == 0
+    if padded.any() and (~padded).any():
+        key_mask = fa.attention_plain(q, k, v, scale, seg != 0)
+        rows = padded[:, None, :, None].expand_as(out)
+        assert (out - key_mask)[rows].abs().max() > 1e-3  # the key mask differs there
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tail", "interleaved"])
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "qkv_views"])
+@pytest.mark.parametrize("n", [1, 66, 128, 300, 384, 1000, 4096])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_segment_kernels_match_plain(cuda, n, d, strided, kind):
+    """Forward (with and without residuals), dK/dV and dQ with segment ids at
+    (2, 4, n, d): padded tails of 127 and 1 rows and interleaved ids, every
+    split of the plan (128: 4, where a padded row's first ranks see no key of
+    its segment; 4,096: 1)."""
+    q, k, v = _qkv(cuda, 2, 4, n, d, strided)
+    _check_segment_kernels(q, k, v, _segment_ids(cuda, 2, n, kind), d**-0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 128, 64), (1, 16, 384, 64), (1, 16, 768, 64),
+                                   (1, 1, 32, 32), (1, 1, 32, 62), (1, 1, 32, 64),
+                                   (1, 1, 32, 128)])
+def test_flash_segment_kernels_at_the_baselines_shapes(cuda, shape):
+    """The slide baselines' heads at her2st-like lengths, padded to a
+    128-multiple ((1, 8, 128, 64) splits each walk 4 ways: a padded row's
+    last rank sees only real keys), and on unaligned inputs (4-byte
+    staging); one 32-row tile at each D (1, 1, 32, 64) is the smallest case
+    at which a form of the dQ kernel that staged its owned rows' ids in
+    shared memory raised an illegal address (ptxas -O1 and above)."""
+    b, h, n, d = shape
+    seg = (torch.arange(n, device="cuda") < n - 50).to(torch.int32)[None]
+    _check_segment_kernels(*_qkv(cuda, b, h, n, d, True), seg, 0.125)
+    _check_segment_kernels(*_offset_views(cuda, b, h, n, d), seg, 0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [100, 384])
+def test_flash_segment_autograd_matches_plain_autograd(cuda, n):
+    """torch.autograd.grad through flash_attention with a mask (the segment
+    kernels) against autograd of the plain segment forward, on the views of
+    one qkv buffer."""
+    qkv = torch.randn((1, n, 3, 8, 64), generator=cuda, device="cuda", requires_grad=True)
+    cot = torch.randn((1, 8, n, 64), generator=cuda, device="cuda")
+    mask = torch.arange(n, device="cuda") < n - 37
+    seg = mask.to(torch.int32)[None]
+
+    def grad(attend):
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        return torch.autograd.grad((attend(q, k, v) * cot).sum(), qkv)[0]
+
+    got = grad(lambda q, k, v: flash_attention(q, k, v, 0.125, mask))
+    want = grad(lambda q, k, v: fa.flash_forward_plain(q, k, v, 0.125, seg)[0])
+    torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL)
 
 
 @pytest.mark.gpu
