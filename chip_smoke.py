@@ -80,7 +80,20 @@ order; any failure exits non-zero and prints no result line:
      Visium tree (10x triplets, positions CSV, PPM ``image.tif``) ->
      ``build_visium_preprocessed`` -> ``load_visium`` (BGR patches) ->
      ``PosRemap`` -> one "tenx" step of the visium preset;
- 14. baselines: the flash kernels with segment ids (the padded slide's mask
+ 14. cli: the port's command line (``mclstexp_tpu_torch.cli``) at the her2st
+     preset's width on a synthetic HER2ST tree (4 sections of 300-700 spots x
+     2,000 genes): ``hvg --select-panel`` (785 genes), ``hvg``, ``train``
+     (fold 0, one epoch; row_shift 3 launches per step, extract_patches one
+     per section on the cold patch cache), ``eval`` with host and then
+     device metrics (agreeing within rtol 1e-4), ``predict`` (its metrics
+     equal to eval's fold), ``export-torch`` and ``eval --torch-checkpoint``
+     (averages bit-equal to eval's), ``eval --save-embeddings`` and
+     ``--from-embeddings`` (equal), every load after train a cache hit with
+     no launch; then ``serve`` as a process of its own on a free port,
+     answering a POST of 37 patches as an in-process ``PredictionService``
+     built from the same checkpoint; seconds per subcommand and the train
+     ms/step from ``train_log.jsonl``;
+ 15. baselines: the flash kernels with segment ids (the padded slide's mask
      as int32, as the JAX package builds ``SegmentIds``) at the slide
      baselines' (1, 16, n, 64): n = 384, 768 and 4,096 with padded tails and
      one case of interleaved ids, each kernel within 2e-5 of its plain
@@ -1355,6 +1368,250 @@ def phase_data() -> int:
     return extract_patches.launches
 
 
+# A subcommand as a user starts it, ``python -m mclstexp_tpu_torch.cli``, in
+# a process of its own; after it, the kernels' launch counts of that process
+# on the last line of its standard output.
+_CLI_CHILD = """import json, sys
+from mclstexp_tpu_torch.cli.main import main
+from mclstexp_tpu_torch.ops.patches import extract_patches
+from mclstexp_tpu_torch.ops.row_shift import row_shift
+rc = main(sys.argv[1:])
+print(json.dumps({"row_shift": dict(row_shift.kernel_launches),
+                  "extract_patches": extract_patches.launches}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _child_env(repo: str) -> dict:
+    path = [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+
+
+def _cli(argv, repo: str) -> tuple:
+    """Run one subcommand of the port's command line in a new process from
+    the current directory; returns (its standard output, its kernels' launch
+    counts, the seconds from start to exit). A non-zero exit fails the
+    phase."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLI_CHILD] + argv, capture_output=True,
+                          text=True, env=_child_env(repo), timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {argv[0]} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+    return out, json.loads(last), seconds
+
+
+def _json_file(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_cli() -> dict:
+    """The port's command line on the card at the her2st preset's width, on a
+    synthetic HER2ST tree (4 sections of 300-700 spots x 2,000 genes), each
+    subcommand a process of its own as a user starts it: ``hvg
+    --select-panel`` (785 genes), ``hvg``, ``train`` (fold 0, one epoch),
+    ``eval`` (host, then device metrics), ``predict``, ``export-torch`` and
+    ``eval --torch-checkpoint``, ``eval --save-embeddings`` and
+    ``--from-embeddings``, and ``serve`` answering a POST of 37 patches as an
+    in-process service built from the same checkpoint. Returns the kernels'
+    launches over the phase: row_shift 3 per train step, extract_patches one
+    per section on the cold patch cache (train) and none on the cache hits."""
+    import base64
+    import shutil
+    import subprocess
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.config import get_config
+    from mclstexp_tpu_torch.data import genes, st_dataset, synthetic
+    from mclstexp_tpu_torch.data.pipeline import num_train_steps
+    from mclstexp_tpu_torch.infer.serve import PredictionService
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.train import checkpoint
+
+    torch.cuda.empty_cache()  # the subcommands' processes share the card with this one
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "her2st")
+    sizes = [int(n) for n in np.random.default_rng(7).integers(300, 701, size=4)]
+    t0 = time.perf_counter()
+    names, _ = synthetic.write_st_layout(root, num_sections=4, num_spots=sizes,
+                                         num_genes=2000, seed=1)
+    log(f"[cli] her2st tree: {len(names)} sections of {sizes} spots x 2000 genes, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = get_config("her2st")
+    m = cfg.model
+    panel_path = os.path.join(work, "panel", "her2st_hvg_panel.npy")
+    data = ["--dataset", "her2st", "--data-root", root]
+    flags = data + ["--gene-panel", panel_path]
+    seconds, counts = {}, {}
+
+    def cli(name, argv):
+        out, counts[name], seconds[name] = _cli(argv, repo)
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI's relative defaults: patch_cache/, model_result/, ...
+    try:
+        out = cli("hvg --select-panel",
+                  ["hvg", "--select-panel", "--panel-size", str(m.spot_dim), "--out", "panel"]
+                  + data)
+        if len(genes.load_panel("her2st", panel_path)) != m.spot_dim:
+            raise AssertionError(f"hvg --select-panel: {out.strip()}")
+        cli("hvg", ["hvg", "--out", "pre"] + flags)
+        for name, n in zip(names, sizes):
+            mat = np.load(os.path.join("pre", "her2st", name, "preprocessed_matrix.npy"))
+            if mat.shape != (m.spot_dim, n) or not np.isfinite(mat).all():
+                raise AssertionError(f"hvg: {name} matrix {mat.shape}")
+
+        cli("train", ["train", "--fold", "0", "--max_epochs", "1"] + flags)
+        steps = num_train_steps(sum(sizes[1:]), cfg.train.batch_size)
+        trained = counts["train"]
+        if trained["extract_patches"] != len(names) or \
+                trained["row_shift"] != _shear_launches(steps):
+            raise AssertionError(f"train: {trained} for {len(names)} sections and {steps} "
+                                 f"steps")
+        log_rows = [json.loads(line) for line in open(os.path.join("model_result",
+                                                                   "train_log.jsonl"))]
+        epoch = [r for r in log_rows if "epoch_loss" in r]
+        if len(epoch) != 1 or not math.isfinite(epoch[0]["epoch_loss"]):
+            raise AssertionError(f"train_log.jsonl: {log_rows}")
+        ms_per_step = sum(sizes[1:]) / epoch[0]["spots_per_sec"] / steps * 1e3
+        ckpt = checkpoint.fold_checkpoint_dir("model_result", "her2st", names[0], 0)
+
+        cli("eval", ["eval", "--fold", "0", "--json", "eval.json"] + flags)
+        host = _json_file("eval.json")
+        cli("eval --device-metrics",
+            ["eval", "--fold", "0", "--device-metrics", "--json", "dev.json"] + flags)
+        dev = _json_file("dev.json")
+        for k, v in host["avg"].items():
+            if not (math.isfinite(v) and math.isclose(v, dev["avg"][k], rel_tol=1e-4)):
+                raise AssertionError(f"eval: {k} host {v}, device {dev['avg'][k]}")
+
+        out = cli("predict", ["predict", "--fold", "0", "--checkpoint", ckpt,
+                              "--out", "pred.npy"] + flags)
+        if json.loads(out) != host["per_fold"][0]:
+            raise AssertionError(f"predict {out} differs from eval's fold {host['per_fold'][0]}")
+        if np.load("pred.npy").shape != (m.spot_dim, sizes[0]):
+            raise AssertionError(f"predict --out: {np.load('pred.npy').shape}")
+
+        cli("export-torch", ["export-torch", "--checkpoint", ckpt, "--out", "ref.pt"] + flags)
+        cli("eval --torch-checkpoint",
+            ["eval", "--fold", "0", "--torch-checkpoint", "ref.pt", "--json", "pt.json"] + flags)
+        if _json_file("pt.json") != host:
+            raise AssertionError(f"eval --torch-checkpoint {_json_file('pt.json')['avg']} "
+                                 f"differs from eval {host['avg']}")
+
+        cli("eval --save-embeddings",
+            ["eval", "--fold", "0", "--save-embeddings", "--json", "save.json"] + flags)
+        cli("eval --from-embeddings",
+            ["eval", "--fold", "0", "--from-embeddings",
+             os.path.join("embedding_result", "her2st_result"), "--preprocessed-root", "pre",
+             "--json", "dumps.json"] + flags)
+        if _json_file("dumps.json")["per_fold"] != _json_file("save.json")["per_fold"]:
+            raise AssertionError("eval --from-embeddings scores the dumps otherwise than eval")
+        for name, c in counts.items():
+            if name != "train" and (c["extract_patches"] or any(c["row_shift"].values())):
+                raise AssertionError(f"{name} launched {c}: hvg reads no slide, and every "
+                                     f"command after train hits the patch cache")
+        launches = {"row_shift": dict(trained["row_shift"]),
+                    "extract_patches": trained["extract_patches"]}
+
+        # serve, on a free port; the seconds run to its banner line
+        patches = np.ascontiguousarray(st_dataset.load_her2st(
+            root, genes.load_panel("her2st", panel_path), names=names[:1],
+            patch_size=cfg.data.patch_size,
+            cache_dir=os.path.join("patch_cache", f"her2st_{cfg.data.patch_size}"),
+            device="cuda")[0].patches[:37])
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mclstexp_tpu_torch.cli", "serve", "--checkpoint", ckpt,
+             "--port", "0", "--exclude-fold", "0"] + flags,
+            stdout=subprocess.PIPE, text=True, env=_child_env(repo))
+        drain = None
+        try:
+            banner = None
+            for line in proc.stdout:  # ends when the process does
+                if line.startswith('{"serving"'):
+                    banner = json.loads(line)
+                    break
+            if banner is None:
+                raise AssertionError(f"serve exited {proc.wait()} without serving")
+            seconds["serve (to its banner)"] = time.perf_counter() - t0
+            drain = threading.Thread(target=proc.stdout.read)  # to its end
+            drain.start()
+            body = {"patches_b64": base64.b64encode(patches.tobytes()).decode(),
+                    "shape": list(patches.shape), "b64": True}
+            req = urllib.request.Request(banner["serving"] + "/predict",
+                                         data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"},
+                                         method="POST")
+            post_ms = []
+            for _ in range(2):  # the first request of a bucket shape is cold
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answer = json.loads(r.read())
+                post_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            if drain is not None:
+                drain.join()
+            proc.stdout.close()
+        got = np.frombuffer(base64.b64decode(answer["result_b64"]),
+                            np.float32).reshape(answer["shape"])
+        model = MclSTExp(cfg.model, device="cuda")
+        checkpoint.load_checkpoint(ckpt, model)
+        sections = st_dataset.load_her2st(
+            root, genes.load_panel("her2st", panel_path), with_patches=False, device="cuda")
+        service = PredictionService.from_sections(
+            model, sections, batch_size=cfg.eval.batch_size, exclude_section=0,
+            top_k=cfg.eval.top_k, weight_ord=cfg.eval.weight_ord,
+            patch_size=cfg.data.patch_size, device="cuda")
+        try:
+            want = service.predict(patches)
+            info = service.info()
+        finally:
+            service.close()
+        err = float(np.abs(got - want).max())
+        if got.shape != (37, m.spot_dim) or not err <= 1e-6 or \
+                banner["num_active_keys"] != info["num_active_keys"]:
+            raise AssertionError(f"serve: answer {got.shape}, max abs diff {err} from the "
+                                 f"in-process service; {banner} vs {info}")
+    finally:
+        os.chdir(cwd)
+    log(f"[cli] model {m.encoder_name} {cfg.data.patch_size} px, spot_dim {m.spot_dim}, "
+        f"pos_vocab {m.pos_vocab}, {m.head_layers}x{m.heads_num}x{m.heads_dim} heads, "
+        f"projection {m.projection_dim}, batch {cfg.train.batch_size}, fp32")
+    log(f"[cli] seconds per subcommand, each a new process from start to exit (the kernels "
+        f"already built): " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    log(f"[cli] train: {steps} steps of fold 0 ({sum(sizes[1:])} spots), epoch loss "
+        f"{epoch[0]['epoch_loss']:.4f}, {ms_per_step:.1f} ms/step (train_log.jsonl's epoch "
+        f"rate, the first step's warm-up included); row_shift {3 * steps} launches "
+        f"({launches['row_shift']}), extract_patches {launches['extract_patches']} on the "
+        f"cold cache, 0 in every other subcommand")
+    log(f"[cli] eval fold 0 {host['avg']}; device metrics within rtol 1e-4; predict equal; "
+        f"eval --torch-checkpoint bit-equal; --from-embeddings equal to --save-embeddings")
+    log(f"[cli] serve (python -m mclstexp_tpu_torch.cli serve, exited {proc.returncode} on "
+        f"SIGTERM): POST /predict of 37 patches in {post_ms[0]:.1f} ms cold, "
+        f"{post_ms[1]:.1f} ms warm, equal to the "
+        f"in-process service (max abs diff {err:.1e}), {info['num_active_keys']} keys")
+    return launches
+
+
 SEG_CASES = ((384, 346, "tail"), (768, 705, "tail"), (4096, 3969, "tail"),
              (768, None, "interleaved"))  # (n, real rows, ids) at (1, 16, n, 64)
 SEG_NAMES = {"fwd": "flash_attention[fwd,segments]", "bwd_dkv": "flash_bwd_dkv[segments]",
@@ -1726,6 +1983,7 @@ def main() -> int:
     eval_model, eval_launches = phase_eval(cfg, sections)
     serve_launches = phase_serve(cfg, eval_model)
     patch_entry["launches"] = phase_data()
+    cli_launches = phase_cli()
     seg_entries = phase_segment_kernels()
     seg_counts, thitogene_counts = phase_baselines()
     for entry, count, other in zip(seg_entries, seg_counts, thitogene_counts):
@@ -1738,6 +1996,12 @@ def main() -> int:
                                        "serve": serve_launches}
     for entry, count in zip(bwd_entries, counts[1:]):
         entry["launches"] = count
+    # The command line's path ([cli]) beside each kernel's own main path
+    for entry in entries:
+        entry["launches_by_path"] = {"train": entry["launches"],
+                                     "cli": cli_launches["row_shift"][entry["kernel"]]}
+    patch_entry["launches_by_path"] = {"data": patch_entry["launches"],
+                                       "cli": cli_launches["extract_patches"]}
     entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -41,7 +41,9 @@ class ModelConfig:
     # dK/dV and dQ kernels when training; the plain versions on the CPU),
     # and "ring" raises until the port has a device mesh (ROADMAP.md).
     attn_backend: str = "xla"
-    pretrained_path: Optional[str] = None  # tower import is queued; the port raises if set
+    # torch .pt of an ImageNet-pretrained image tower (torchvision/timm
+    # state_dict), grafted into the fresh model (models/image/torch_import.py)
+    pretrained_path: Optional[str] = None
     # TPU layout knobs, accepted and ignored by the port: rematerialization
     # and the dense-block materialization strategy change memory traffic on
     # the TPU build only (identical parameters and numerics).
@@ -107,6 +109,22 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+# Feature dims of the supported image towers (the JAX package's
+# ENCODER_DIMS; the reference's torchvision/timm towers and two test towers).
+ENCODER_DIMS = {
+    "densenet121": 1024,
+    "resnet50": 2048,
+    "res101": 2048,
+    "res18": 512,
+    "vit": 768,  # ViT-B/32, mean-pooled patch tokens
+    "resnet152": 2048,
+    "vit_l": 1024,  # ViT-L/32
+    "clip_vit": 768,  # CLIP ViT-B/32 (pre-norm trunk)
+    "tiny_cnn": 128,  # test-sized tower, the synthetic preset's
+    "tiny_densenet": 16,  # test-sized densenet code paths
+}
+
+
 def _preset(
     dataset: str,
     spot_dim: int,
@@ -154,6 +172,12 @@ PRESETS = {
 }
 
 
+def get_config(name: str) -> Config:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+    return PRESETS[name]
+
+
 def her2st_config(checkpoint_dir: str = "model_result") -> Config:
     """The her2st preset at full width for short runs on the card: batch 128,
     one epoch, logging every step, the final checkpoint only."""
@@ -164,8 +188,15 @@ def her2st_config(checkpoint_dir: str = "model_result") -> Config:
     ))
 
 
+REFERENCE_DATA_FALLBACK = "/root/reference/data"  # the JAX package's mount point
+
+
 def reference_data_root() -> Optional[str]:
-    """The directory that holds the reference's shipped gene panels, named by
-    ``MCLSTEXP_REFERENCE_DATA``; None when it is unset or not a directory."""
-    root = os.environ.get("MCLSTEXP_REFERENCE_DATA")
-    return root if root and os.path.isdir(root) else None
+    """The directory that holds the reference's shipped gene panels:
+    ``MCLSTEXP_REFERENCE_DATA`` if it names a directory, else the reference
+    checkout's data directory where one is mounted, as in the JAX package;
+    None when neither exists."""
+    for cand in (os.environ.get("MCLSTEXP_REFERENCE_DATA"), REFERENCE_DATA_FALLBACK):
+        if cand and os.path.isdir(cand):
+            return cand
+    return None

@@ -45,13 +45,20 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator):
     w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
+    """flax's default kernel init: N(0, 1/fan_in) truncated at 2 std."""
+    _trunc_normal_(w, math.sqrt(1.0 / fan_in) / _TRUNC_STD, generator)
+
+
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``module`` from ``generator``.
 
     Linear: torch default U(+-1/sqrt(fan_in)) for weight and bias.
     Embedding: N(0, 1). Conv2d: kaiming-normal fan-out, truncated at 2 std
-    (the JAX build's conv init). Norm layers: weight 1, bias 0.
+    (the JAX build's conv init). Norm layers: weight 1, bias 0. Then each
+    submodule with an ``init_weights(generator)`` method redraws its own
+    parameters where the JAX module's initializers differ (flax defaults).
     """
     for m in module.modules():
         if isinstance(m, nn.Linear):
@@ -66,9 +73,12 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _trunc_normal_(m.weight, math.sqrt(2.0 / fan_out) / _TRUNC_STD, generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+    for m in module.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(generator)
     return module
 
 
@@ -81,15 +91,16 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def LayerNormT(dim: int, device=None) -> nn.LayerNorm:
-    """LayerNorm with torch semantics (eps 1e-5, fp32 statistics)."""
-    return nn.LayerNorm(dim, eps=1e-5, device=device)
+def LayerNormT(dim: int, device=None, eps: float = 1e-5) -> nn.LayerNorm:
+    """LayerNorm with torch semantics (eps 1e-5 by default, fp32 statistics)."""
+    return nn.LayerNorm(dim, eps=eps, device=device)
 
 
 class MultiHeadSelfAttention(nn.Module):
     """Softmax MHA over a (batch, seq, dim) activation: fused qkv projection
-    without bias, per-head scale ``dim_head**-0.5``, output projection
-    (present whenever heads != 1 or dim_head != dim).
+    (without bias in the reference's spot attention, with one in the timm
+    ViT towers: ``qkv_bias``), per-head scale ``dim_head**-0.5``, output
+    projection (present whenever heads != 1 or dim_head != dim).
 
     backend: "xla" (plain path) or "flash" (the CUDA kernels on a CUDA
     tensor, forward and backward; the plain versions on a CPU one); "ring"
@@ -97,7 +108,8 @@ class MultiHeadSelfAttention(nn.Module):
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 dropout: float = 0.0, device=None, backend: str = "xla"):
+                 dropout: float = 0.0, device=None, backend: str = "xla",
+                 qkv_bias: bool = False):
         super().__init__()
         if backend == "ring":
             raise NotImplementedError(
@@ -107,7 +119,7 @@ class MultiHeadSelfAttention(nn.Module):
             raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash'")
         self.heads, self.dim_head, self.backend = heads, dim_head, backend
         inner = heads * dim_head
-        self.to_qkv = DenseT(dim, inner * 3, bias=False, device=device)
+        self.to_qkv = DenseT(dim, inner * 3, bias=qkv_bias, device=device)
         if heads == 1 and dim_head == dim:
             self.to_out = nn.Identity()
         else:
@@ -143,9 +155,9 @@ class FeedForward(nn.Module):
 class PreNorm(nn.Module):
     """``fn(LayerNorm(x))`` (the reference's ``PreNorm``; keys ``norm``/``fn``)."""
 
-    def __init__(self, dim: int, fn: nn.Module, device=None):
+    def __init__(self, dim: int, fn: nn.Module, device=None, eps: float = 1e-5):
         super().__init__()
-        self.norm = LayerNormT(dim, device=device)
+        self.norm = LayerNormT(dim, device=device, eps=eps)
         self.fn = fn
 
     def forward(self, x: torch.Tensor, *args) -> torch.Tensor:
@@ -153,15 +165,19 @@ class PreNorm(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Pre-LN transformer block: x + MHA(LN(x)); x + FF(LN(x))."""
+    """Pre-LN transformer block: x + MHA(LN(x)); x + FF(LN(x)).
+
+    The defaults are the reference's spot blocks; the timm ViT towers take
+    ``qkv_bias=True`` and ``ln_eps=1e-6``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
-                 dropout: float = 0.0, device=None, backend: str = "xla"):
+                 dropout: float = 0.0, device=None, backend: str = "xla",
+                 qkv_bias: bool = False, ln_eps: float = 1e-5):
         super().__init__()
         self.attn = PreNorm(
-            dim, MultiHeadSelfAttention(dim, heads, dim_head, dropout, device, backend), device
-        )
-        self.ff = PreNorm(dim, FeedForward(dim, mlp_dim, dropout, device), device)
+            dim, MultiHeadSelfAttention(dim, heads, dim_head, dropout, device, backend,
+                                        qkv_bias), device, ln_eps)
+        self.ff = PreNorm(dim, FeedForward(dim, mlp_dim, dropout, device), device, ln_eps)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(x, mask)

@@ -8,9 +8,11 @@ writes, and loads into the port's ``MclSTExp`` with ``strict=True``:
   * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``, plus a zero ``num_batches_tracked``;
   * LayerNorm ``scale``/``bias`` -> ``weight``/``bias``.
-The densenet block layout is read from the tree, so ``tiny_densenet`` is
-covered as well as densenet121. Position tables keep their ``pos_vocab``
-rows. Every leaf must be consumed, or the conversion raises.
+Every image tower is covered: the densenet and resnet block layouts and the
+ViT depth are read from the tree (so ``tiny_densenet`` too), and
+``tiny_cnn``'s convs keep their biases and its GroupNorms map like
+LayerNorms. Position tables keep their ``pos_vocab`` rows. Every leaf must
+be consumed, or the conversion raises.
 
 ``baseline_params_from_jax`` does the same for the slide baselines
 HisToGene and THItoGene, into the reference keys that
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from mclstexp_tpu_torch.config import ModelConfig
+from mclstexp_tpu_torch.models.image.torch_import import RESNETS, VITS
 
 
 class _Converter:
@@ -111,26 +114,102 @@ def _densenet(c: _Converter, prefix: str, src: str):
     c.bn(f"{prefix}.norm5", src, "norm5")
 
 
+def _resnet(c: _Converter, prefix: str, src: str):
+    """``stem``, ``layer{s}_block{b}/cb{i}`` -> torchvision's Sequential
+    numbering (0 conv1, 1 bn1, 4..7 layer1..4)."""
+    tree = c.params[src]
+    c.conv(f"{prefix}.0", src, "stem", "conv")
+    c.bn(f"{prefix}.1", src, "stem", "bn")
+    for s in range(4):
+        b = 0
+        while f"layer{s + 1}_block{b}" in tree:
+            name = f"layer{s + 1}_block{b}"
+            base = f"{prefix}.{4 + s}.{b}"
+            for i in range(1, _numbered(tree[name], "cb") + 1):
+                c.conv(f"{base}.conv{i}", src, name, f"cb{i}", "conv")
+                c.bn(f"{base}.bn{i}", src, name, f"cb{i}", "bn")
+            if "downsample" in tree[name]:
+                c.conv(f"{base}.downsample.0", src, name, "downsample", "conv")
+                c.bn(f"{base}.downsample.1", src, name, "downsample", "bn")
+            b += 1
+
+
+def _attn_block(c: _Converter, base: str, *src: str, qkv_bias: bool = False):
+    """An ``AttnBlock`` (``norm_attn``, ``attn``, ``norm_ff``, ``ff``)."""
+    c.ln(f"{base}.attn.norm", *src, "norm_attn")
+    c.linear(f"{base}.attn.fn.to_qkv", *src, "attn", "to_qkv", bias=qkv_bias)
+    node = c.params
+    for p in src:
+        node = node[p]
+    if "to_out" in node["attn"]:
+        c.linear(f"{base}.attn.fn.to_out.0", *src, "attn", "to_out")
+    c.ln(f"{base}.ff.norm", *src, "norm_ff")
+    c.linear(f"{base}.ff.fn.net.0", *src, "ff", "fc1")
+    c.linear(f"{base}.ff.fn.net.3", *src, "ff", "fc2")
+
+
+def _vit(c: _Converter, prefix: str, src: str):
+    tree = c.params[src]
+    for name in ("cls_token", "pos_embed"):
+        c.put(f"{prefix}.{name}", c.get(False, src, name))
+    c.conv(f"{prefix}.patch_embed", src, "patch_embed", bias=True)
+    if "norm_pre" in tree:
+        c.ln(f"{prefix}.norm_pre", src, "norm_pre")
+    for i in range(sum(k.startswith("block") for k in tree)):
+        _attn_block(c, f"{prefix}.blocks.{i}", src, f"block{i}", qkv_bias=True)
+    c.ln(f"{prefix}.norm", src, "norm")
+
+
+def _tiny_cnn(c: _Converter, prefix: str, src: str):
+    for i in range(sum(k.startswith("conv") for k in c.params[src])):
+        c.conv(f"{prefix}.conv{i}", src, f"conv{i}", bias=True)
+        c.ln(f"{prefix}.gn{i}", src, f"gn{i}")
+    c.linear(f"{prefix}.head", src, "head")
+
+
+def _tower(c: _Converter, encoder_name: str, tower: str):
+    """The image tower's leaves (``image_encoder`` in the JAX tree) -> the
+    port's keys under ``tower``."""
+    if encoder_name in ("densenet121", "tiny_densenet"):
+        _densenet(c, f"{tower}.model.0", "image_encoder")
+    elif encoder_name in RESNETS:
+        _resnet(c, f"{tower}.model", "image_encoder")
+    elif encoder_name in VITS:
+        _vit(c, f"{tower}.model", "image_encoder")
+    elif encoder_name == "tiny_cnn":
+        _tiny_cnn(c, tower, "image_encoder")
+    else:
+        raise KeyError(f"unknown image encoder {encoder_name!r}")
+
+
+def _finish(c: _Converter) -> Dict[str, torch.Tensor]:
+    leftovers = c.leftovers()
+    if leftovers:
+        raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")
+    return c.out
+
+
+def tower_params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                          encoder_name: str) -> Dict[str, torch.Tensor]:
+    """Convert the variables of a JAX image tower alone (``TinyCNN``,
+    ``ResNetEncoder``, ``ViTEncoder``, ``DenseNetEncoder``) to the
+    ``state_dict`` of the port's tower of the same kind."""
+    c = _Converter({"image_encoder": params}, {"image_encoder": batch_stats})
+    _tower(c, encoder_name, "t")
+    return {k[2:]: v for k, v in _finish(c).items()}
+
+
 def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
                     model_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Convert the JAX build's ``MclSTExp`` variables to the port's
     ``state_dict`` (reference key layout)."""
-    if model_cfg.encoder_name not in ("densenet121", "tiny_densenet"):
-        raise NotImplementedError(f"encoder {model_cfg.encoder_name!r} is not ported yet")
     c = _Converter(params, batch_stats)
     tower = "image_encoder" if model_cfg.variant == "attention" else "image_ecode"
-    _densenet(c, f"{tower}.model.0", "image_encoder")
+    _tower(c, model_cfg.encoder_name, tower)
 
     if model_cfg.variant == "attention":
         for i in range(model_cfg.head_layers):
-            base, src = f"spot_encoder.{i}", ("spot_encoder", f"block{i}")
-            c.ln(f"{base}.attn.norm", *src, "norm_attn")
-            c.linear(f"{base}.attn.fn.to_qkv", *src, "attn", "to_qkv", bias=False)
-            if "to_out" in c.params["spot_encoder"][f"block{i}"]["attn"]:
-                c.linear(f"{base}.attn.fn.to_out.0", *src, "attn", "to_out")
-            c.ln(f"{base}.ff.norm", *src, "norm_ff")
-            c.linear(f"{base}.ff.fn.net.0", *src, "ff", "fc1")
-            c.linear(f"{base}.ff.fn.net.3", *src, "ff", "fc2")
+            _attn_block(c, f"spot_encoder.{i}", "spot_encoder", f"block{i}")
         pos = ("spot_encoder", "pos")
     else:
         pos = ("pos",)
@@ -141,11 +220,7 @@ def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
         c.linear(f"{head}.projection", head, "projection")
         c.linear(f"{head}.fc", head, "fc")
         c.ln(f"{head}.layer_norm", head, "layer_norm")
-
-    leftovers = c.leftovers()
-    if leftovers:
-        raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")
-    return c.out
+    return _finish(c)
 
 
 def _slide_vit(c: _Converter, depth: int):
@@ -200,7 +275,4 @@ def baseline_params_from_jax(model, params: Mapping[str, Any],
         c.linear("gene_head.3", "head_fc2")
     else:
         raise NotImplementedError(f"{type(model).__name__} is not a ported baseline")
-    leftovers = c.leftovers()
-    if leftovers:
-        raise ValueError(f"unconverted tree leaves: {leftovers[:8]}")
-    return c.out
+    return _finish(c)

@@ -4,7 +4,9 @@ Port of ``mclstexp_tpu/models/mclstexp.py``: the product variant
 ("attention") and the MLP ablation ("mlp", no spot transformer). Attribute
 names are the reference torch ones, including the mlp variant's
 ``image_ecode`` typo, so a reference-layout ``state_dict`` (from
-``interop.params_from_jax`` or the JAX exporter) loads with ``strict=True``.
+``interop.params_from_jax`` or the JAX exporter) loads with ``strict=True``;
+the ViT towers' blocks are the port's ``AttnBlock``, whose keys
+``models/image/torch_import.py`` maps from timm's.
 
 ``forward`` returns the pair of (B, P) projected embeddings; the loss lives
 in ``core.losses``. ``config.dropout`` is live, as in the JAX build.

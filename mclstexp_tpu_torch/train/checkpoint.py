@@ -7,6 +7,10 @@ and the optimizer state. ``load_checkpoint`` restores the model from it
 (what eval and serving need); ``restore_checkpoint`` + ``apply_checkpoint``
 restore the whole train state (what resuming a fold needs), as the JAX
 build's functions of the same names do.
+
+``load_torch_state_dict`` reads a reference ``.pt`` (a bare ``state_dict``)
+with the reference's key shims: a ``module.`` prefix stripped (DataParallel
+saves) and ``well`` renamed ``spot`` (older attribute names).
 """
 
 from __future__ import annotations
@@ -61,3 +65,11 @@ def load_checkpoint(path: str, model: nn.Module) -> int:
     saved = restore_checkpoint(path, next(model.parameters()).device)
     model.load_state_dict(saved["model"], strict=True)
     return int(saved["step"])
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Read a reference ``state_dict`` ``.pt`` onto the CPU and apply the
+    reference's key shims."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {key.replace("module.", "").replace("well", "spot"): tensor
+            for key, tensor in sd.items()}

@@ -35,11 +35,15 @@ def torch_adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
 def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        device="cuda") -> TrainState:
     """Build the model on ``device``, its parameters drawn from a generator
-    seeded with ``train_cfg.seed``, and a fresh optimizer."""
-    if model_cfg.pretrained_path:
-        raise NotImplementedError("the port does not import pretrained towers yet")
+    seeded with ``train_cfg.seed``, and a fresh optimizer. With
+    ``model_cfg.pretrained_path`` the image tower is then replaced by the
+    pretrained one of that ``.pt`` (the reference's default start)."""
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
     model = init_parameters(MclSTExp(model_cfg, device=device), generator)
+    if model_cfg.pretrained_path:
+        from mclstexp_tpu_torch.models.image.torch_import import load_pretrained_tower
+
+        load_pretrained_tower(model, model_cfg.pretrained_path, model_cfg.encoder_name)
     return TrainState(model, torch_adam(model.parameters(), train_cfg.lr,
                                         train_cfg.weight_decay))

@@ -34,7 +34,11 @@ def test_port_imports_no_jax():
             "mclstexp_tpu_torch.data.hvg", "mclstexp_tpu_torch.data.genes",
             "mclstexp_tpu_torch.data.posremap", "mclstexp_tpu_torch.baselines.graph",
             "mclstexp_tpu_torch.baselines.layers", "mclstexp_tpu_torch.baselines.models",
-            "mclstexp_tpu_torch.baselines.trainer"} <= set(modules)
+            "mclstexp_tpu_torch.baselines.trainer", "mclstexp_tpu_torch.cli.main",
+            "mclstexp_tpu_torch.data.fetch", "mclstexp_tpu_torch.models.image.vit",
+            "mclstexp_tpu_torch.models.image.resnet",
+            "mclstexp_tpu_torch.models.image.torch_import",
+            "mclstexp_tpu_torch.models.image.torch_export"} <= set(modules)
     assert len(modules) > 35
     code = (
         "import importlib, sys\n"
