@@ -107,7 +107,26 @@ order; any failure exits non-zero and prints no result line:
      padded slide, ``predict_slide`` on the card against the CPU,
      ``evaluate_baseline_fold``, ms per slide step; THItoGene (4 layers, ViT
      width 1,408, GAT) the same fold with "flash"; and one whole-slide
-     HisToGene step at 3,969 spots (padded to 4,096), xla against flash.
+     HisToGene step at 3,969 spots (padded to 4,096), xla against flash;
+ 16. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
+     embeddings and loss). The bf16 flash kernels (built with the others in
+     [build]) against their plain bf16 versions at (1, 8, n, 64), n = 32,
+     128, 300, at d = 32 and 128, at the segment shapes (n = 384 and 768
+     with padded tails, interleaved ids at 768) and at (1, 16, 4,096, 64)
+     (events): bf16 outputs within 2**-7 of their largest magnitude +
+     1e-5, l and m within 1e-5, the same bits on a second run; each timed
+     beside the fp32 kernel on the same values, bf16 SDPA (with the
+     boolean same-segment mask where ids are given) and its bound (bytes
+     at 3.35 TB/s, operations at the 989 TFLOP/s bf16 rate). Then the
+     her2st flagship in bf16 with "flash" through ``train_fold`` (every
+     spot-tower attention in the bf16 kernels and none in the fp32 ones,
+     row_shift's shears on bf16 images, the checkpoint's saved dtype), its
+     embeddings and LOO fold 0, and ms/step and peak memory bf16 against
+     fp32; ``cli train --dtype bfloat16`` and ``eval`` of its checkpoint on
+     [cli]'s tree, each a process of its own; HisToGene in bf16 (a fold of
+     3 slide steps with 8 bf16 segment launches of each kernel per step,
+     ms per slide step and peak memory bf16 against fp32 at 768 rows and
+     at the whole slide's 4,096) and a THItoGene fold in bf16.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -153,7 +172,7 @@ def phase_build():
         return (*build.build_library(source), time.perf_counter() - t)
 
     sources = (row_shift.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE,
-               patches.SOURCE)
+               flash_attention.BF16_SOURCE, flash_attention.BF16_BWD_SOURCE, patches.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed_build, sources))
@@ -803,10 +822,12 @@ def phase_patches() -> dict:
             "max_abs_err": 0.0, "kernel": plan.kernel}
 
 
-def _flash_counts(segments: bool = False) -> tuple:
+def _flash_counts(segments: bool = False, prefix: str = "") -> tuple:
+    """The (forward, dK/dV, dQ) launch counts of the fp32 kernels, or with
+    ``prefix`` "bf16_" of the bf16 ones."""
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
-    name = "segment_launches" if segments else "launches"
+    name = prefix + ("segment_launches" if segments else "launches")
     return tuple(getattr(w, name) for w in (fa.flash_attention, fa.flash_bwd_dkv,
                                             fa.flash_bwd_dq))
 
@@ -816,7 +837,7 @@ def _reset_counts() -> None:
     from mclstexp_tpu_torch.ops.row_shift import row_shift
 
     for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq):
-        w.launches = w.segment_launches = 0
+        w.launches = w.segment_launches = w.bf16_launches = w.bf16_segment_launches = 0
     row_shift.launches = 0
     row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
@@ -1799,9 +1820,11 @@ def _slide_step_ms(state, cfg, batch, n: int = 3) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def _baseline_fold(cfg, sections, want_per_step: int):
+def _baseline_fold(cfg, sections, want_per_step: int, prefix: str = ""):
     """train_baseline_fold with attn_backend="flash", the counts set to 0
-    just before it and read just after: (state, seconds, segment launches)."""
+    just before it and read just after: (state, seconds, segment launches,
+    losses); the fp32 kernels' counts, or with ``prefix`` "bf16_" the bf16
+    ones (and then none of the fp32 ones)."""
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
@@ -1814,10 +1837,11 @@ def _baseline_fold(cfg, sections, want_per_step: int):
                                         attn_backend="flash")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts, segments = _flash_counts(), _flash_counts(segments=True)
+    counts, segments = _flash_counts(prefix=prefix), _flash_counts(True, prefix=prefix)
     steps = len(sections) - 1
     want = (want_per_step * steps,) * 3
-    if state.step != steps or counts != want or segments != want:
+    others = _flash_counts() if prefix else (0, 0, 0)
+    if state.step != steps or counts != want or segments != want or others != (0, 0, 0):
         raise AssertionError(f"{cfg.model}: {state.step} steps, launches {counts}, segment "
                              f"launches {segments}; expected {steps} steps and {want}")
     losses = [r["loss"] for r in logger.records]
@@ -1956,6 +1980,364 @@ def phase_baselines():
     return counts, tcounts
 
 
+BF16_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 8, 128, 32),
+               (1, 8, 128, 128))  # eval sweep, train, ragged; d = 32 and 128
+BF16_TRAIN_SHAPE = (1, 8, 128, 64)
+BF16_SEG_CASES = ((384, 346, "tail"), (768, 705, "tail"), (768, None, "interleaved"))
+BF16_REL = 2.0**-7  # of each bf16 output's largest magnitude (tests/test_torch_port_flash_bf16.py)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
+BF16_KERNELS = ("fwd", "bwd_dkv", "bwd_dq")
+BF16_NAMES = {"fwd": "flash_attention[fwd,bf16]", "bwd_dkv": "flash_bwd_dkv[bf16]",
+              "bwd_dq": "flash_bwd_dq[bf16]"}
+BF16_SOURCES = {"fwd": "mclstexp_tpu_torch/csrc/flash_attention_bf16.cu",
+                "bwd_dkv": "mclstexp_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+                "bwd_dq": "mclstexp_tpu_torch/csrc/flash_attention_bwd_bf16.cu"}
+
+
+def _bf16_bound(name, shape, segments: bool):
+    """(bound ms, bound_by) of a bf16 kernel at ``shape``: q, k, v (and
+    dout) read and the outputs written once in bf16, l, m, di in fp32, the
+    ids' int32 where given, against the products' operations at 989
+    TFLOP/s (bf16 dense)."""
+    b, h, n, d = shape
+    values, stats = b * h * n * d * 2, b * h * n * 4
+    nbytes, flops = {"fwd": (4 * values + 2 * stats, 4), "bwd_dkv": (6 * values + 3 * stats, 8),
+                     "bwd_dq": (5 * values + 3 * stats, 6)}[name]
+    nbytes += 4 * b * n if segments else 0
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops * b * h * n * n * d / BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _bf16_case(g, shape, seg=None, events=False, kind=""):
+    """The three bf16 kernels at ``shape`` on the views of a (b, n, 3, h, d)
+    bf16 qkv buffer (with segment ids ``seg`` or none): each against its
+    plain bf16 version (bf16 outputs within 2**-7 of their largest
+    magnitude + 1e-5, l within 1e-5 relative, m 1e-5), the same bits on a
+    second run; timed (graph replays, or events over eager launches with
+    ``events``) beside the fp32 kernel on the same values, the plain
+    version and, for the forward, bf16 SDPA (with the boolean same-segment
+    mask where ids are given, and without); the backward kernels' records
+    carry the pair (forward with residuals + dK/dV + dQ) against
+    ``torch.autograd.grad`` of bf16 SDPA. Returns {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda").bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    scale = d**-0.5
+    ro, rl, rm = fa.flash_forward_plain(q, k, v, scale, seg)
+    di = (ro.float() * do.float()).sum(-1).contiguous()
+    args = (q, k, v, do, rl, rm, di, scale, seg)
+    qkv32 = qkv.float()
+    q32, k32, v32 = (qkv32[:, :, i].transpose(1, 2) for i in range(3))
+    do32 = do.float()
+    o32, l32, m32 = fa.flash_forward(q32, k32, v32, scale, True, seg)
+    args32 = (q32, k32, v32, do32, l32, m32, (o32 * do32).sum(-1).contiguous(), scale, seg)
+    calls = {"fwd": (lambda: fa.flash_forward(q, k, v, scale, True, seg),
+                     lambda: fa.flash_forward_plain(q, k, v, scale, seg),
+                     lambda: fa.flash_forward(q32, k32, v32, scale, True, seg)),
+             "bwd_dkv": (lambda: fa.flash_bwd_dkv(*args), lambda: fa.flash_bwd_dkv_plain(*args),
+                         lambda: fa.flash_bwd_dkv(*args32)),
+             "bwd_dq": (lambda: (fa.flash_bwd_dq(*args),), lambda: (fa.flash_bwd_dq_plain(*args),),
+                        lambda: (fa.flash_bwd_dq(*args32),))}
+    mask = None if seg is None else fa.same_segment(seg)
+    timer = (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if events else graph_ms
+    plain_timer = (lambda fn: cuda_ms(fn, iters=3, warmup=1)) if events else graph_ms
+    qkv_g = qkv.clone().requires_grad_()
+
+    def pair():
+        o, ll, mm = fa.flash_forward(q, k, v, scale, True, seg)
+        dd = (o.float() * do.float()).sum(-1).contiguous()
+        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale, seg)
+        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale, seg)
+
+    def library_pair():  # views taken inside: autograd replays them on the capturing stream
+        sq, sk, sv = (qkv_g[:, :, i].transpose(1, 2) for i in range(3))
+        out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=scale)
+        return torch.autograd.grad((out * do).float().sum(), qkv_g)[0]
+
+    pair_ms, library_pair_ms = timer(pair), timer(library_pair)
+    log(f"[bf16] forward with residuals + dK/dV + dQ {shape}"
+        f"{' ids ' + kind if seg is not None else ''}: {pair_ms:.5f} ms; bf16 SDPA forward + "
+        f"backward{' (masked)' if mask is not None else ''} {library_pair_ms:.5f} ms; pair / "
+        f"SDPA {pair_ms / library_pair_ms:.3f}")
+    records = {}
+    for name, (kernel, plain, fp32) in calls.items():
+        got, want, again = kernel(), plain(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"bf16 {name} {shape}: two runs differ")
+        err, worst = 0.0, 0.0  # bf16 outputs: abs error, and its share of the tolerance
+        for i, (x, w) in enumerate(zip(got, want)):
+            if name == "fwd" and i == 1:  # l, fp32: relative
+                off, tol = float(((x - w) / w).abs().max()), 1e-5
+            elif name == "fwd" and i == 2:  # m, fp32
+                off, tol = float((x - w).abs().max()), 1e-5
+            else:
+                if x.dtype != torch.bfloat16:
+                    raise AssertionError(f"bf16 {name} {shape}: output {i} is {x.dtype}")
+                off = float((x.float() - w.float()).abs().max())
+                tol = BF16_REL * float(w.float().abs().max()) + 1e-5
+                err = max(err, off)
+            worst = max(worst, off / tol)
+        if not worst <= 1.0:
+            raise AssertionError(f"bf16 {name} {shape}: off by {worst:.2f} of its tolerance")
+        bound_ms, bound_by = _bf16_bound(name, shape, seg is not None)
+        rec = {"ms": timer(kernel), "fp32_ms": timer(fp32), "plain_ms": plain_timer(plain),
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+               "tolerance_share": worst, "plan": dict(zip(("rows", "split", "ctas"),
+                                                          fa.cluster_plan(*shape)))}
+        if name == "fwd":
+            rec["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale))
+            if mask is not None:
+                rec["library_unmasked_ms"] = timer(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        else:
+            rec["pair_ms"], rec["library_pair_ms"] = pair_ms, library_pair_ms
+        records[name] = rec
+        sdpa = (f", bf16 SDPA{' (masked)' if mask is not None else ''} "
+                f"{rec['library_ms']:.5f} ms, kernel / SDPA "
+                f"{rec['ms'] / rec['library_ms']:.3f}" if name == "fwd" else "")
+        log(f"[bf16] {BF16_NAMES[name]} {shape}{' ids ' + kind if seg is not None else ''} plan "
+            f"{tuple(rec['plan'].values())}: max abs err {err:.3e} ({worst:.2f} of the "
+            f"tolerance), deterministic; kernel {rec['ms']:.5f} ms, fp32 kernel "
+            f"{rec['fp32_ms']:.5f} ms (bf16 / fp32 {rec['ms'] / rec['fp32_ms']:.3f}), plain "
+            f"{rec['plain_ms']:.5f} ms{sdpa}, bound {bound_ms:.6f} ms by {bound_by}, "
+            f"{bound_ms / rec['ms']:.1%} of bound{' (events)' if events else ''}")
+    return records
+
+
+def phase_bf16_kernels() -> list:
+    """[bf16] the bf16 flash kernels against their plain bf16 versions at
+    ``BF16_SHAPES``, the segment shapes of [baselines] and (1, 16, 4,096,
+    64) (events), each beside the fp32 kernel, bf16 SDPA and its bound.
+    Returns one kernels-line entry per kernel with the training shape's
+    numbers, every case under ``cases`` and the long one under ``long``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    cases = [(str(shape), _bf16_case(g, shape)) for shape in BF16_SHAPES]
+    for n, real, kind in BF16_SEG_CASES:
+        cases.append((f"(1, 16, {n}, 64) {kind}", _bf16_case(g, (1, 16, n, 64),
+                                                            _seg_ids(g, n, real, kind),
+                                                            kind=kind)))
+    long = _bf16_case(g, BWD_LONG, events=True)
+    train = dict(cases)[str(BF16_TRAIN_SHAPE)]
+    entries = []
+    for name in BF16_KERNELS:
+        rec = train[name]
+        entries.append({
+            "name": BF16_NAMES[name], "route": "cuda", "source": BF16_SOURCES[name],
+            "replaces": SEG_REPLACES[name], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"), "fp32_ms": rec["fp32_ms"],
+            "max_abs_err": max(c[name]["max_abs_err"] for _, c in cases + [("", long)]),
+            "plan": rec["plan"], "cases": {key: c[name] for key, c in cases},
+            "long": {"shape": list(BWD_LONG), **long[name]}})
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _bf16_counts(segments: bool = False) -> tuple:
+    return _flash_counts(segments, prefix="bf16_")
+
+
+def phase_bf16_train(cfg, sections) -> tuple:
+    """[bf16] the her2st flagship in bf16 with "flash": ``train_fold`` for one
+    epoch (the counts set to 0 just before it and read just after: every
+    attention of the spot tower in the bf16 kernels, none in the fp32
+    ones; row_shift's 3 shears a step on bf16 images), the checkpoint's
+    saved dtype, the held-out section's embeddings and the LOO fold's
+    metrics; then ms/step and peak memory bf16 against fp32 (flash, fresh
+    weights) in this process. Returns the bf16 launches (fwd, dK/dV, dQ)."""
+    import dataclasses
+
+    import torch
+
+    from mclstexp_tpu_torch.data.pipeline import num_train_steps
+    from mclstexp_tpu_torch.infer import embed, evaluate
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+    from mclstexp_tpu_torch.train import checkpoint
+    from mclstexp_tpu_torch.train.loop import train_fold
+    from mclstexp_tpu_torch.train.state import create_train_state
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    bcfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype="bfloat16", attn_backend="flash"),
+        train=dataclasses.replace(cfg.train, checkpoint_dir=os.path.join(
+            root, "build", "chip_smoke", "model_result_bf16")))
+    m = bcfg.model
+    steps = num_train_steps(sum(s.num_spots for s in sections[1:]), cfg.train.batch_size)
+    logger = MetricLogger(echo=True)
+    t0 = time.perf_counter()
+    _reset_counts()
+    state = train_fold(bcfg, sections, fold=0, logger=logger, device="cuda")
+    torch.cuda.synchronize()
+    counts, fp32_counts = _bf16_counts(), _flash_counts()
+    shifts = dict(row_shift.kernel_launches)
+    seconds = time.perf_counter() - t0
+    want = m.head_layers * steps
+    losses = [r["loss"] for r in logger.records if "loss" in r]
+    if state.step != steps or not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bf16 fold: {state.step} steps of {steps}, losses {losses}")
+    if counts != (want,) * 3 or fp32_counts != (0, 0, 0):
+        raise AssertionError(f"bf16 fold: bf16 flash launches {counts} (want {want} each), "
+                             f"fp32 launches {fp32_counts} (want none)")
+    if shifts != _shear_launches(steps):
+        raise AssertionError(f"bf16 fold: row_shift launched {shifts} in {steps} steps")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("bf16 fold: a parameter left fp32")
+    saved = checkpoint.fold_checkpoint_dir(bcfg.train.checkpoint_dir, bcfg.data.dataset,
+                                           sections[0].name, 0)
+    if checkpoint.saved_dtype(saved) != "bfloat16":
+        raise AssertionError(f"bf16 fold: the checkpoint says {checkpoint.saved_dtype(saved)}")
+    log(f"[bf16] train_fold dtype='bfloat16' attn_backend='flash': {steps} steps in "
+        f"{seconds:.1f} s incl. set-up; running losses {losses}; bf16 flash launches "
+        f"forward/dK-dV/dQ {counts}, fp32 {fp32_counts}; row_shift {shifts}; checkpoint "
+        f"dtype bfloat16")
+
+    _reset_counts()
+    prepared = embed.prepare_eval_arrays(sections, device="cuda")
+    img, spot = embed.compute_embeddings(state.model, sections, bcfg.eval.batch_size,
+                                         prepared=prepared, as_device=True, device="cuda")
+    torch.cuda.synchronize()
+    eval_counts = _bf16_counts()
+    sizes = [s.num_spots for s in sections]
+    if img.dtype != torch.float32 or not (torch.isfinite(img).all() and
+                                          torch.isfinite(spot).all()):
+        raise AssertionError(f"bf16 embeddings: {img.dtype}, finite {torch.isfinite(img).all()}")
+    metrics = evaluate.evaluate_fold_resident(
+        0, img, spot, prepared["eval_expression"], evaluate.section_bounds(sizes),
+        sections[0].eval_expression, top_k=bcfg.eval.top_k, weight_ord=bcfg.eval.weight_ord,
+        device="cuda")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"bf16 LOO fold 0: {metrics}")
+    log(f"[bf16] embeddings of {sum(sizes)} spots (fp32 out, bf16 towers; bf16 forward "
+        f"launches {eval_counts[0]}) and LOO fold 0: {metrics}")
+
+    batch, draws = _step_batch(cfg, sections)
+    fp32 = create_train_state(dataclasses.replace(m, dtype="float32"), bcfg.train, "cuda")
+    times, peaks = {"bf16": [], "fp32": []}, {}
+    for name in ("bf16", "fp32", "fp32", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        times[name].append(_step_ms(cfg, state if name == "bf16" else fp32, batch, draws, n=3))
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[bf16] flagship ms/step at B={cfg.train.batch_size}, flash (bf16, fp32, fp32, bf16; "
+        f"3 steps each): bf16 {times['bf16']}, fp32 {times['fp32']}; peak memory bf16 "
+        f"{peaks['bf16']:.1f} GiB, fp32 {peaks['fp32']:.1f} GiB, on {card_line()}")
+    del fp32, state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bf16_cli() -> None:
+    """[bf16] the command line in bf16 on [cli]'s tree, each a process of its
+    own: ``train --dtype bfloat16`` (fold 0, one epoch) and ``eval`` of its
+    checkpoint without ``--dtype`` (the checkpoint keeps its dtype)."""
+    from mclstexp_tpu_torch.train import checkpoint
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke", "cli")
+    flags = ["--dataset", "her2st", "--data-root", os.path.join(work, "her2st"),
+             "--gene-panel", os.path.join(work, "panel", "her2st_hvg_panel.npy"),
+             "--checkpoint-dir", "model_result_bf16"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _, trained, train_s = _cli(["train", "--fold", "0", "--max_epochs", "1",
+                                    "--dtype", "bfloat16"] + flags, repo)
+        names = sorted(os.listdir(os.path.join("model_result_bf16", "her2st")))
+        dtypes = {checkpoint.saved_dtype(os.path.join("model_result_bf16", "her2st", nm,
+                                                      "best_0"))
+                  for nm in names if os.path.isdir(os.path.join("model_result_bf16", "her2st",
+                                                                nm, "best_0"))}
+        if dtypes != {"bfloat16"}:
+            raise AssertionError(f"cli train --dtype bfloat16 saved {dtypes}")
+        _, _, eval_s = _cli(["eval", "--fold", "0", "--json", "eval_bf16.json"] + flags, repo)
+        avg = _json_file("eval_bf16.json")["avg"]
+        if not all(math.isfinite(v) for v in avg.values()):
+            raise AssertionError(f"cli eval of the bf16 checkpoint: {avg}")
+    finally:
+        os.chdir(cwd)
+    log(f"[bf16] cli train --dtype bfloat16 {train_s:.2f} s (row_shift {trained['row_shift']}), "
+        f"eval of its checkpoint {eval_s:.2f} s: {avg}")
+
+
+def phase_bf16_baselines() -> tuple:
+    """[bf16] HisToGene and THItoGene in bf16 at [baselines]' widths with
+    "flash": a HisToGene fold (one epoch, 3 slide steps: 8 bf16 segment
+    launches of each kernel per step, none in fp32), ms per slide step and
+    peak memory bf16 against fp32 at 768 rows and at the whole 3,969-spot
+    slide (4,096 rows); a THItoGene fold. Returns the bf16 segment launches
+    of the two folds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.section import Section
+
+    sections = _baseline_sections(785)
+    cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
+                                 max_epochs=1, dtype="bfloat16")
+    state, seconds, counts, losses = _baseline_fold(cfg, sections, 8, prefix="bf16_")
+    log(f"[bf16] HisToGene bf16 train_baseline_fold: {state.step} slide steps in {seconds:.1f} "
+        f"s incl. set-up, loss {losses}; bf16 segment launches {counts} (8 per step)")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def timed(batch, bf16_state, n):
+        fp32_state = trainer.init_baseline(cfg32, "cuda", "flash")
+        times, peaks = {"bf16": [], "fp32": []}, {}
+        for name in ("bf16", "fp32", "fp32", "bf16"):
+            torch.cuda.reset_peak_memory_stats()
+            times[name].append(_slide_step_ms(bf16_state if name == "bf16" else fp32_state,
+                                              cfg if name == "bf16" else cfg32, batch, n=n))
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        return times, peaks
+
+    batch = trainer.slide_tensors(trainer.pad_slide(sections[2], cfg.bucket, False, cfg), "cuda")
+    times, peaks = timed(batch, state, 3)
+    log(f"[bf16] HisToGene ms per slide step at {len(batch['mask'])} rows, flash (bf16, fp32, "
+        f"fp32, bf16; 3 steps each): bf16 {times['bf16']}, fp32 {times['fp32']}; peak memory "
+        f"bf16 {peaks['bf16']:.1f} GiB, fp32 {peaks['fp32']:.1f} GiB")
+    n = WHOLE_SLIDE * WHOLE_SLIDE
+    rng = np.random.default_rng(31)
+    grid = np.stack(np.meshgrid(np.arange(WHOLE_SLIDE), np.arange(WHOLE_SLIDE)), -1)
+    whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32),
+                    grid.reshape(-1, 2).astype(np.int32), grid.reshape(-1, 2).astype(np.int32),
+                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
+    _reset_counts()
+    times, peaks = timed(batch, trainer.init_baseline(cfg, "cuda", "flash"), 2)
+    if _bf16_counts(segments=True)[0] == 0:
+        raise AssertionError("the bf16 whole-slide steps launched no bf16 segment kernel")
+    log(f"[bf16] HisToGene whole-slide step, {n} spots padded to {len(batch['mask'])} "
+        f"(attention (1, 16, 4096, 64) with ids per layer), ms per slide step (bf16, fp32, fp32, "
+        f"bf16; 2 steps each): bf16 {times['bf16']}, fp32 {times['fp32']}; peak memory bf16 "
+        f"{peaks['bf16']:.1f} GiB, fp32 {peaks['fp32']:.1f} GiB, on {card_line()}")
+    del state, batch
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, model="thitogene", n_layers=4)
+    tstate, seconds, tcounts, tlosses = _baseline_fold(tcfg, sections, 4, prefix="bf16_")
+    tpred = trainer.predict_slide(tstate.model, sections[0], tcfg)
+    if tpred.shape != (sections[0].num_spots, 785) or not np.isfinite(tpred).all():
+        raise AssertionError(f"THItoGene bf16 predict_slide: {tpred.shape}")
+    log(f"[bf16] THItoGene bf16 train_baseline_fold: {tstate.step} slide steps in {seconds:.1f} "
+        f"s incl. set-up, loss {tlosses}; bf16 segment launches {tcounts} (4 per step); "
+        f"predict_slide finite")
+    del tstate
+    torch.cuda.empty_cache()
+    return counts, tcounts
+
+
 def main() -> int:
     import torch
 
@@ -1986,6 +2368,14 @@ def main() -> int:
     cli_launches = phase_cli()
     seg_entries = phase_segment_kernels()
     seg_counts, thitogene_counts = phase_baselines()
+    bf16_entries = phase_bf16_kernels()
+    bf16_counts = phase_bf16_train(cfg, sections)
+    phase_bf16_cli()
+    bf16_seg, bf16_tseg = phase_bf16_baselines()
+    for entry, count, seg, tseg in zip(bf16_entries, bf16_counts, bf16_seg, bf16_tseg):
+        entry["launches"] = count  # the bf16 flagship fold, this slice's main path
+        entry["launches_by_path"] = {"bf16_train_flash": count, "histogene_fold": seg,
+                                     "thitogene_fold": tseg}
     for entry, count, other in zip(seg_entries, seg_counts, thitogene_counts):
         entry["launches"] = count  # the HisToGene fold, this slice's main path
         entry["launches_by_path"] = {"histogene_fold": count, "thitogene_fold": other}
@@ -2002,7 +2392,7 @@ def main() -> int:
                                      "cli": cli_launches["row_shift"][entry["kernel"]]}
     patch_entry["launches_by_path"] = {"data": patch_entry["launches"],
                                        "cli": cli_launches["extract_patches"]}
-    entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries]
+    entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries, *bf16_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, widen
 from mclstexp_tpu_torch.models.image.common import MaskedBatchNormT
 
 
@@ -76,7 +77,12 @@ class GraphAttention(nn.Module):
     Wh_j]); non-neighbours filled with -9e15 and, with a mask, padded
     columns with -1e30 (below every non-neighbour, so an isolated real spot
     averages over real spots only); softmax over j, dropout, then (attn @
-    Wh), ELU when ``concat``. Keys ``W`` (in, out), ``a`` (2 out, 1)."""
+    Wh), ELU when ``concat``. Keys ``W`` (in, out), ``a`` (2 out, 1). Wh is
+    taken in ``compute_dtype`` (flax's ``nn.Dense(dtype=...)``); the
+    logits, softmax and the product with Wh are fp32, as JAX promotes Wh
+    against the fp32 ``a`` and attention."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_features: int, out_features: int, dropout: float = 0.2,
                  alpha: float = 0.01, concat: bool = True, device=None):
@@ -88,7 +94,8 @@ class GraphAttention(nn.Module):
 
     def forward(self, h: torch.Tensor, adj: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        wh = h @ self.W
+        dt = self.compute_dtype
+        wh = widen(as_compute(h, dt) @ as_compute(self.W, dt))
         e1 = wh @ self.a[: self.out_features]
         e2 = wh @ self.a[self.out_features:]
         e = F.leaky_relu(e1 + e2.T, negative_slope=self.alpha)
@@ -125,13 +132,15 @@ class MultiHeadGAT(nn.Module):
 class _ODAttention(nn.Module):
     """ODConv's four attentions from the pooled input: 1x1 convs ``fc`` (no
     bias) -> masked BN -> ReLU, then ``channel_fc``, ``filter_fc``,
-    ``spatial_fc`` (sigmoids) and ``kernel_fc`` (softmax over kernels)."""
+    ``spatial_fc`` (sigmoids) and ``kernel_fc`` (softmax over kernels). The
+    four heads stay fp32 in a bf16 model (the JAX module's ``nn.Dense``
+    without a dtype promotes to its fp32 parameters)."""
 
     def __init__(self, in_planes: int, out_planes: int, kernel_size: int, kernel_num: int,
                  attn_ch: int, device=None):
         super().__init__()
         self.kernel_size, self.kernel_num = kernel_size, kernel_num
-        self.fc = nn.Conv2d(in_planes, attn_ch, 1, bias=False, device=device)
+        self.fc = Conv2dT(in_planes, attn_ch, 1, bias=False, device=device)
         self.bn = MaskedBatchNormT(attn_ch, device=device)
         self.channel_fc = nn.Conv2d(attn_ch, in_planes, 1, device=device)
         self.filter_fc = nn.Conv2d(attn_ch, out_planes, 1, device=device)
@@ -140,7 +149,7 @@ class _ODAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         b, k = x.shape[0], self.kernel_size
-        f = F.relu(self.bn(self.fc(x.mean(dim=(2, 3), keepdim=True)), mask))
+        f = widen(F.relu(self.bn(self.fc(x.mean(dim=(2, 3), keepdim=True)), mask)))
         return (torch.sigmoid(self.channel_fc(f)).view(b, -1),
                 torch.sigmoid(self.filter_fc(f)).view(b, -1),
                 torch.sigmoid(self.spatial_fc(f)).view(b, k, k),
@@ -152,7 +161,11 @@ class ODConv(nn.Module):
     patchify): (B, Cin, H, W) -> (B, Cout, H / k, W / k). Per sample the
     kernel is sum_n kernel_attn[n] * weight[n] * spatial_attn, the input is
     scaled by channel_attn, and the output by filter_attn. ``weight`` keeps
-    the reference layout (Kn, Cout, Cin, k, k)."""
+    the reference layout (Kn, Cout, Cin, k, k). In bf16, the JAX module's
+    types: the aggregate kernel from bf16 operands, scaled in fp32; the
+    patch product rounds the patches and its result to bf16."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_planes: int, out_planes: int, kernel_size: int, stride: int,
                  kernel_num: int = 4, reduction: float = 0.0625, min_channel: int = 16,
@@ -171,11 +184,13 @@ class ODConv(nn.Module):
         b, cin, h, w = x.shape
         k = self.kernel_size
         channel, filt, spatial, kernel = self.attention(x, mask)
-        agg = torch.einsum("bn,nocij->bocij", kernel, self.weight) * spatial[:, None, None]
+        dt = self.compute_dtype
+        agg = torch.einsum("bn,nocij->bocij", as_compute(kernel, dt), as_compute(self.weight, dt))
+        agg = agg * spatial[:, None, None]  # fp32
         x = x * channel[:, :, None, None]
         patches = x.reshape(b, cin, h // k, k, w // k, k).permute(0, 2, 4, 1, 3, 5)
-        out = torch.bmm(patches.reshape(b, (h // k) * (w // k), cin * k * k),
-                        agg.reshape(b, -1, cin * k * k).transpose(1, 2))
+        patches = widen(as_compute(patches.reshape(b, (h // k) * (w // k), cin * k * k), dt))
+        out = as_compute(torch.bmm(patches, agg.reshape(b, -1, cin * k * k).transpose(1, 2)), dt)
         out = out * filt[:, None, :]
         return out.transpose(1, 2).reshape(b, -1, h // k, w // k)
 
@@ -201,7 +216,8 @@ class RoutingLayer(nn.Module):
         self.b = nn.Parameter(torch.zeros((num_capsules, in_caps, 1), device=device))
 
     def forward(self, u_in: torch.Tensor) -> torch.Tensor:
-        u = torch.einsum("...ji,kjiz->...kjz", u_in, self.W)  # (B, caps, in_caps, dim)
+        # fp32, as JAX promotes u_in against the fp32 W
+        u = torch.einsum("...ji,kjiz->...kjz", widen(u_in), self.W)  # (B, caps, in_caps, dim)
         c = torch.einsum("...ij,...kj->...i", u, u)[..., None]
         c = c / math.sqrt(self.dim_capsules)
         c = torch.softmax(c, dim=1) + self.b
@@ -211,7 +227,7 @@ class RoutingLayer(nn.Module):
 class _PrimaryCaps(nn.Module):
     def __init__(self, device=None):
         super().__init__()
-        self.depthwise_conv = nn.Conv2d(128, 128, 9, groups=128, device=device)
+        self.depthwise_conv = Conv2dT(128, 128, 9, groups=128, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return squash(self.depthwise_conv(x).reshape(x.shape[0], 16, 8))
@@ -228,7 +244,7 @@ class EfficientCapsNet(nn.Module):
     def __init__(self, rout_capsules: int, route_dim: int, device=None):
         super().__init__()
         for i, (cin, cout, k, stride) in enumerate(self._TRUNK, start=1):
-            self.add_module(f"conv{i}", nn.Conv2d(cin, cout, k, stride=stride, device=device))
+            self.add_module(f"conv{i}", Conv2dT(cin, cout, k, stride=stride, device=device))
             self.add_module(f"batch_norm{i}", MaskedBatchNormT(cout, device=device))
         self.primary_caps = _PrimaryCaps(device)
         self.digit_caps = RoutingLayer(rout_capsules, route_dim, device=device)

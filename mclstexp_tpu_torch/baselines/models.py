@@ -14,6 +14,14 @@ keys only: what the JAX model runs on a TPU); on a CPU tensor "flash" keeps
 the key mask, as the JAX model falls back off a TPU. The two agree on real
 rows, which are all that reach the loss and the predictions.
 
+``dtype`` "bfloat16" follows the JAX modules' casts: parameters fp32, the
+dense layers, convolutions, layer norms and attention in bf16
+(``core.layers.set_compute_dtype``), ODConv's four attention heads, the
+capsule routing and the GAT's logits in fp32 (where the JAX module's
+``nn.Dense`` has no dtype or meets an fp32 parameter), the residual stream
+fp32 where the JAX module adds fp32 position tables, and the predictions
+returned in fp32.
+
 Attribute names are the reference torch ones (the keys ``mclstexp_tpu/
 baselines/torch_import.py:111-131,183-234`` reads): ``patch_embedding``,
 ``x_embed``/``y_embed``, ``vit.transformer.layers.{i}.{0,1}``,
@@ -41,20 +49,19 @@ from mclstexp_tpu_torch.baselines.layers import (
 )
 from mclstexp_tpu_torch.core.layers import (
     _TRUNC_STD,
+    DenseT,
     FeedForward,
     LayerNormT,
     MultiHeadSelfAttention,
     PositionTables,
     PreNorm,
     _trunc_normal_,
+    as_compute,
+    compute_dtype_of,
     init_parameters,
+    set_compute_dtype,
+    widen,
 )
-
-
-def _check_dtype(dtype: str) -> None:
-    if dtype != "float32":
-        raise NotImplementedError(f"the port runs dtype 'float32' only, got {dtype!r} "
-                                  "(bf16 towers: ROADMAP.md Queue 1)")
 
 
 class SpotViT(nn.Module):
@@ -92,21 +99,21 @@ class HisToGene(PositionTables):
     def __init__(self, n_genes: int, patch_size: int = 112, dim: int = 1024,
                  n_layers: int = 4, heads: int = 16, n_pos: int = 64, dropout: float = 0.1,
                  dtype: str = "float32", attn_backend: str = "xla", device="cuda"):
-        _check_dtype(dtype)
         super().__init__(n_pos, dim, device=device)
         self.n_layers = n_layers
-        self.patch_embedding = nn.Linear(3 * patch_size * patch_size, dim, device=device)
+        self.patch_embedding = DenseT(3 * patch_size * patch_size, dim, device=device)
         self.vit = SpotViT(dim, n_layers, heads, 2 * dim, dropout, attn_backend, device=device)
         self.gene_head = nn.Sequential(LayerNormT(dim, device=device),
-                                       nn.Linear(dim, n_genes, device=device))
+                                       DenseT(dim, n_genes, device=device))
         use_seeded_dropout(self)
+        set_compute_dtype(self, compute_dtype_of(dtype))
 
     def forward(self, patches: torch.Tensor, positions: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         n = patches.shape[0]
         x = self.patch_embedding(patches.reshape(n, -1)) + self.position_embed(positions)
         x = self.vit(x[None], mask)[0]
-        return self.gene_head(x)
+        return widen(self.gene_head(x))
 
 
 class THItoGene(PositionTables):
@@ -115,11 +122,12 @@ class THItoGene(PositionTables):
     LayerNorm, Linear) (reference ``THItoGene/vis_model.py:153-207``). The
     trunk expects 112-px patches (28 x 28 after the 4 x 4 patchify)."""
 
+    compute_dtype = torch.float32  # the patches are cast to it (JAX models.py:242-243)
+
     def __init__(self, n_genes: int, patch_size: int = 112, dim: int = 1024,
                  n_layers: int = 4, caps: int = 20, route_dim: int = 64,
                  heads: Tuple[int, int] = (16, 8), n_pos: int = 64, dropout: float = 0.2,
                  dtype: str = "float32", attn_backend: str = "xla", device="cuda"):
-        _check_dtype(dtype)
         super().__init__(n_pos, route_dim, device=device)
         self.n_layers, self.heads, self.patch_size = n_layers, tuple(heads), patch_size
         vit_dim = (caps + 2) * route_dim
@@ -129,20 +137,22 @@ class THItoGene(PositionTables):
                            device=device)
         self.gat = MultiHeadGAT(vit_dim, 1024, 512, heads[1], dropout, 0.01, device=device)
         self.gene_head = nn.Sequential(
-            nn.Linear(512, 1024, device=device), nn.ReLU(), LayerNormT(1024, device=device),
-            nn.Linear(1024, n_genes, device=device))
+            DenseT(512, 1024, device=device), nn.ReLU(), LayerNormT(1024, device=device),
+            DenseT(1024, n_genes, device=device))
         use_seeded_dropout(self)
+        set_compute_dtype(self, compute_dtype_of(dtype))
 
     def forward(self, patches: torch.Tensor, positions: torch.Tensor, adj: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         n = patches.shape[0]
-        x = F.relu(self.odconv2d(patches.permute(0, 3, 1, 2), mask))
+        x = F.relu(self.odconv2d(as_compute(patches.permute(0, 3, 1, 2), self.compute_dtype),
+                                 mask))
         caps = self.caps_layer(x, mask)  # (N, caps, route_dim)
         pos = positions.long()
         tokens = torch.cat([caps, self.x_embed(pos[:, 0])[:, None],
                             self.y_embed(pos[:, 1])[:, None]], dim=1)
         seq = self.vit(tokens.reshape(1, n, -1), mask)[0]
-        return self.gene_head(self.gat(seq, adj, mask))
+        return widen(self.gene_head(self.gat(seq, adj, mask)))
 
 
 @torch.no_grad()

@@ -16,8 +16,10 @@ reach it fail with torch's CUDA error; pass ``--device cpu`` to run on the
 CPU. Checkpoints are the port's ``state.pt`` fold directories
 (``train/checkpoint.py``); ``export-torch`` and ``eval --torch-checkpoint``
 convert to and from the reference's ``.pt`` layout. ``--debug-nans`` is
-accepted and ignored (a JAX sanitizer); ``--dtype bfloat16`` raises, as the
-model does.
+accepted and ignored (a JAX sanitizer). ``--dtype bfloat16`` trains the
+model in bf16 (fp32 parameters, bf16 compute, the JAX rule); a checkpoint
+keeps its dtype, so ``eval``, ``predict`` and ``serve`` rebuild the model
+in the dtype it was trained in, whatever ``--dtype`` says.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ def _add_model_flags(p: argparse.ArgumentParser):
                    help="torch .pt with ImageNet-pretrained tower weights "
                         "(torchvision/timm state_dict); training starts from them")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
-                   help="the port runs float32 only; bfloat16 raises")
+                   help="compute dtype of the towers (parameters stay float32); a "
+                        "checkpoint read by eval/predict/serve keeps its own")
     p.add_argument("--debug-nans", action="store_true",
                    help="accepted for the JAX CLI's sake and ignored")
     p.add_argument("--lr", type=float, default=1e-4)
@@ -354,9 +357,12 @@ def cmd_eval(args) -> int:
     # keys and ground truth in the eval normalization (per gene); the model
     # embeds the train-normalized expression
     expressions = [s.eval_expression for s in sections]
+    folds = [args.fold] if args.fold is not None else list(range(len(sections)))
+    if not args.torch_checkpoint:
+        cfg = _as_trained(cfg, ckpt.fold_checkpoint_dir(
+            cfg.train.checkpoint_dir, cfg.data.dataset, sections[folds[0]].name, folds[0]))
     state = create_train_state(cfg.model, cfg.train, args.device)
 
-    folds = [args.fold] if args.fold is not None else list(range(len(sections)))
     prepared = embed.prepare_eval_arrays(sections, device=args.device)  # one upload
     bounds = evaluate.section_bounds(sizes)
     per_fold = []
@@ -403,13 +409,22 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _as_trained(cfg, checkpoint: str):
+    """``cfg`` with the compute dtype of the checkpoint directory
+    ``checkpoint`` (a checkpoint keeps its dtype)."""
+    from mclstexp_tpu_torch.train import checkpoint as ckpt
+
+    dtype = ckpt.saved_dtype(checkpoint)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+
+
 def _restored_model(cfg, checkpoint: str, device):
-    """A model of ``cfg`` on ``device`` holding the weights of the
-    checkpoint directory ``checkpoint``."""
+    """A model of ``cfg``, in the checkpoint's dtype, on ``device`` holding
+    the weights of the checkpoint directory ``checkpoint``."""
     from mclstexp_tpu_torch.train import checkpoint as ckpt
     from mclstexp_tpu_torch.train.state import create_train_state
 
-    model = create_train_state(cfg.model, cfg.train, device).model
+    model = create_train_state(_as_trained(cfg, checkpoint).model, cfg.train, device).model
     ckpt.load_checkpoint(checkpoint, model)
     return model
 

@@ -33,8 +33,9 @@ class ModelConfig:
     temperature: float = 1.0
     pos_vocab: int = 65536  # learnable (x, y) table size
     variant: str = "attention"  # "attention" | "mlp" (ablation)
-    # Compute dtype for the towers. The port runs "float32" only; the bf16
-    # tower path is queued (ROADMAP.md) and "bfloat16" raises.
+    # Compute dtype for the towers and heads ("float32" or "bfloat16").
+    # Parameters are always fp32; bf16 runs the products (and the flash
+    # kernels) in bf16; embeddings and the loss are fp32.
     dtype: str = "float32"
     # Spot-attention backend: "xla" runs the plain fp32-softmax path,
     # "flash" the CUDA flash-attention kernels on the card (forward, and the

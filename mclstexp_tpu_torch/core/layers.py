@@ -20,6 +20,21 @@ device mesh yet.
 Initialization reproduces torch defaults as the JAX build does (Linear
 U(+-1/sqrt(fan_in)), Embedding N(0, 1)), drawn from an explicit
 ``torch.Generator`` by ``init_parameters``.
+
+Compute dtype (the JAX modules' ``dtype``): parameters stay fp32; each
+module that computes (``DenseT``, ``LayerNormT``, ``Conv2dT``, the towers)
+has a ``compute_dtype``, fp32 by default, which ``set_compute_dtype`` sets
+for a whole model. In bf16 they cast as the flax modules do, explicitly
+(no ``torch.autocast``, whose per-op policy rounds at other places):
+``DenseT`` and ``Conv2dT`` take a bf16 product of their bf16-cast input
+and weight, then add the bias cast to bf16; ``LayerNormT`` takes fp32
+statistics and returns bf16; the attention's "xla" path takes fp32 logits
+and an fp32 softmax, cast to bf16 before the product with v; "flash" runs
+the bf16 kernels. Where a JAX module adds a bf16 and an fp32 array the
+result is fp32, and torch promotes the same way. In fp32 every module runs
+what it ran before this option existed, on fp32 or (the tests' reference
+evaluations) float64 inputs alike: ``as_compute`` and ``widen`` cast only
+to and from bf16.
 """
 
 from __future__ import annotations
@@ -31,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention, widen
 
 # variance_scaling(2.0, "fan_out", "truncated_normal") of the JAX build:
 # the std of a unit normal truncated to [-2, 2].
@@ -82,18 +97,79 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def DenseT(in_features: int, out_features: int, bias: bool = True, device=None) -> nn.Linear:
-    """Dense layer, fp32 parameters (``nn.Linear``; torch-default init)."""
-    return nn.Linear(in_features, out_features, bias=bias, device=device)
+def as_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in the compute dtype ``dtype``: cast to bf16 in a bf16 model, as it
+    is in an fp32 one (which may be a float64 evaluation)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set ``compute_dtype`` on every submodule of ``module`` that has one;
+    the parameters keep their fp32 values and type."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute dtype float32 or bfloat16, got {dtype}")
+    for m in module.modules():
+        if hasattr(type(m), "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string ("float32" or "bfloat16")."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {name!r}")
+    return dtypes[name]
+
+
+class DenseT(nn.Linear):
+    """Dense layer: fp32 parameters (torch-default init), the product in
+    ``compute_dtype``. In bf16: bf16(x) @ bf16(W)^T, a bf16 result, plus the
+    bias cast to bf16 (the JAX ``DenseT``)."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv2dT(nn.Conv2d):
+    """``nn.Conv2d`` with fp32 parameters and a ``compute_dtype``, as flax's
+    ``nn.Conv(dtype=...)``: in bf16 the bf16-cast input and kernel give a
+    bf16 result, then the bias cast to bf16 is added."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def LayerNormT(dim: int, device=None, eps: float = 1e-5) -> nn.LayerNorm:
-    """LayerNorm with torch semantics (eps 1e-5 by default, fp32 statistics)."""
-    return nn.LayerNorm(dim, eps=eps, device=device)
+class LayerNormT(nn.LayerNorm):
+    """LayerNorm with torch semantics (eps 1e-5 by default): fp32 statistics
+    of any input, the result in ``compute_dtype``."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, dim: int, device=None, eps: float = 1e-5):
+        super().__init__(dim, eps=eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return as_compute(super().forward(widen(x)), self.compute_dtype)
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -98,14 +98,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using flash::kLn2;
+using flash::kLog2e;
 using flash::kRows;
 using flash::kThreads;
 using flash::Strides;
 using flash::tile_at;
+using flash::weight;
 
 constexpr int kGroups = kThreads / 32 / 2;  // key groups of 8 keys: 4 warps per 16 rows
-constexpr float kLog2e = 1.4426950408889634f;  // scores in log2 units: exp(x) = exp2(x log2 e)
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -138,12 +139,6 @@ struct FragV {
     return flash::split_pair(tile[a0], tile[a1]);
   }
 };
-
-// exp(m_i - m) for maxima in log2 units: the weight of a partial (m_i, l_i,
-// acc_i) in a merge to max m; 0 for a part that saw no valid key.
-__device__ __forceinline__ float weight(float m_i, float m) {
-  return m_i == -INFINITY ? 0.f : exp2f(m_i - m);
-}
 
 template <int D, bool kVec, bool kSeg>
 __global__ void __launch_bounds__(kThreads)

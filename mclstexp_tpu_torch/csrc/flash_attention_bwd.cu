@@ -78,24 +78,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using flash::cp_async4;
+using flash::invert_l;
 using flash::kRows;
 using flash::kThreads;
+using flash::owned_ids;
+using flash::stage_row_stats;
 using flash::store_acc;
 using flash::Strides;
 using flash::tile_at;
-
-// m, l and di of rows [r0, r0 + 32) of one head into dst[0..32), [32..64),
-// [64..96); zero past n.
-__device__ __forceinline__ void stage_row_stats(float* dst, const float* m, const float* l,
-                                                const float* di, int r0, int n) {
-  const int i = threadIdx.x;
-  if (i < 3 * kRows) {
-    const float* src = i < kRows ? m : (i < 2 * kRows ? l : di);
-    const int r = r0 + i % kRows;
-    cp_async4(dst + i, r < n ? src + r : src, r < n);
-  }
-}
 
 template <int D, bool kVec>
 __device__ __forceinline__ void stage_tile(float* hi, const float* src, long long stride, int r0,
@@ -106,19 +96,6 @@ __device__ __forceinline__ void stage_tile(float* hi, const float* src, long lon
 template <int D, bool kVec>
 __device__ __forceinline__ void split_tile(float* hi, float* lo) {
   flash::split_staged<kRows, D, kThreads, kVec>(hi, lo);
-}
-
-// The ids of owned rows i and i + 8 (0 past n: such rows are masked and
-// not written).
-__device__ __forceinline__ int2 owned_ids(const int* ids, int i, int n) {
-  return int2{i < n ? ids[i] : 0, i + 8 < n ? ids[i + 8] : 0};
-}
-
-// l -> 1/l in staged row stats, by the threads that staged l (after their
-// cp_async_wait): p is then one multiply. Rows past n give inf, masked.
-__device__ __forceinline__ void invert_l(float* stats) {
-  if (threadIdx.x >= kRows && threadIdx.x < 2 * kRows)
-    stats[threadIdx.x] = 1.f / stats[threadIdx.x];
 }
 
 // Rows [r0, r1) of this rank's share of a 32 x D block: sum the ranks'

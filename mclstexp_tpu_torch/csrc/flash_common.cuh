@@ -35,6 +35,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -59,14 +60,16 @@ inline bool plan_ok(int batch, int heads, int n, int d, int rows, int split) {
          static_cast<long long>(batch) * heads * split <= 0x7fffffffLL;
 }
 
-// 16-byte staging: d % 4 == 0 and every input 16-byte aligned with strides
-// (3 per input) that are multiples of 4 elements.
-inline bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d) {
-  if (d % 4 != 0) return false;
+// 16-byte staging: d and the strides (3 per input) multiples of `per16`,
+// the elements of 16 bytes (4 fp32, 8 bf16), and every input 16-byte
+// aligned.
+inline bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d,
+                   int per16 = 4) {
+  if (d % per16 != 0) return false;
   for (int i = 0; i < count; ++i) {
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
     for (int j = 0; j < 3; ++j)
-      if (strides[3 * i + j] % 4 != 0) return false;
+      if (strides[3 * i + j] % per16 != 0) return false;
   }
   return true;
 }
@@ -155,6 +158,42 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// Scores in log2 units: exp(x) = exp2(x log2 e); m back in natural units
+// by ln 2.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// exp(m_i - m) for maxima in log2 units: the weight of a partial (m_i, l_i,
+// acc_i) in a merge to max m; 0 for a part that saw no valid key.
+__device__ __forceinline__ float weight(float m_i, float m) {
+  return m_i == -INFINITY ? 0.f : exp2f(m_i - m);
+}
+
+// The backward kernels' row stats: m, l and di of rows [r0, r0 + 32) of
+// one head into dst[0..32), [32..64), [64..96); zero past n.
+__device__ __forceinline__ void stage_row_stats(float* dst, const float* m, const float* l,
+                                                const float* di, int r0, int n) {
+  const int i = threadIdx.x;
+  if (i < 3 * kRows) {
+    const float* src = i < kRows ? m : (i < 2 * kRows ? l : di);
+    const int r = r0 + i % kRows;
+    cp_async4(dst + i, r < n ? src + r : src, r < n);
+  }
+}
+
+// l -> 1/l in staged row stats, by the threads that staged l (after their
+// cp_async_wait): p is then one multiply. Rows past n give inf, masked.
+__device__ __forceinline__ void invert_l(float* stats) {
+  if (threadIdx.x >= kRows && threadIdx.x < 2 * kRows)
+    stats[threadIdx.x] = 1.f / stats[threadIdx.x];
+}
+
+// The ids of owned rows i and i + 8 (0 past n: such rows are masked and
+// not written).
+__device__ __forceinline__ int2 owned_ids(const int* ids, int i, int n) {
+  return int2{i < n ? ids[i] : 0, i + 8 < n ? ids[i + 8] : 0};
 }
 
 // The segment ids of rows [r0, r0 + 32) (`ids`: one batch row's n ids) into

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mclstexp_tpu_torch.core.layers import as_compute, widen
+
 
 def BatchNormT(channels: int, device=None) -> nn.BatchNorm2d:
     """BatchNorm with torch running-stat semantics (eps 1e-5, momentum 0.1)."""
@@ -31,7 +33,11 @@ class MaskedBatchNormT(nn.Module):
     out makes a padded slide's train-mode forward equal the unpadded one on
     every real row. At eval the running stats serve and the mask is a no-op.
     eps 1e-5. Keys as ``BatchNorm2d``'s (``weight``, ``bias``,
-    ``running_mean``, ``running_var``, ``num_batches_tracked``)."""
+    ``running_mean``, ``running_var``, ``num_batches_tracked``). Statistics
+    and the running update are fp32 for any input; the result is in
+    ``compute_dtype``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -44,6 +50,7 @@ class MaskedBatchNormT(nn.Module):
                              torch.tensor(0, dtype=torch.long, device=device))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = widen(x)
         shape = (1, -1) + (1,) * (x.ndim - 2)  # per channel, broadcast over (B, C, ...)
         if not self.training:
             mean, var = self.running_mean, self.running_var
@@ -65,7 +72,8 @@ class MaskedBatchNormT(nn.Module):
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * unbiased)
                 self.num_batches_tracked += 1
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        return as_compute(y, self.compute_dtype)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

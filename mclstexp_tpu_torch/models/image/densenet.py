@@ -9,7 +9,19 @@ bypasses it). Module names follow torchvision, and the trunk sits at
 as ``model.0.denseblock1.denselayer1.conv1.weight`` load verbatim.
 
 Dense connectivity is the plain concat form. The JAX build's piecewise
-forms have the same parameters and change only TPU memory traffic.
+forms have the same parameters and change only TPU memory traffic in fp32.
+In bf16 they also round differently: the JAX default ``piecewise8`` sums
+each layer's conv1 contraction piece by piece in bf16 (``preferred_element_
+type=self.dtype``, one rounding per piece), where the concat form here
+takes one product over the whole prefix and rounds once. The port keeps
+the concat form: it rounds less, and the bf16 tests hold it to the JAX
+module within the anchored bf16 tolerance in train and eval mode.
+
+``compute_dtype`` bf16: the input is cast at the tower's entry (JAX
+``densenet.py:323``), convolutions run in bf16, batch norms take fp32
+statistics and return bf16 (torch's mixed-type batch norm: bf16 input,
+fp32 weights and running statistics), and the pooled features return in
+fp32.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, widen
 from mclstexp_tpu_torch.models.image.common import (
     BatchNormT,
     global_avg_pool,
@@ -34,10 +47,10 @@ class DenseLayer(nn.Module):
         super().__init__()
         self.norm1 = BatchNormT(in_features, device)
         self.relu1 = nn.ReLU()
-        self.conv1 = nn.Conv2d(in_features, bn_size * growth_rate, 1, bias=False, device=device)
+        self.conv1 = Conv2dT(in_features, bn_size * growth_rate, 1, bias=False, device=device)
         self.norm2 = BatchNormT(bn_size * growth_rate, device)
         self.relu2 = nn.ReLU()
-        self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3, padding=1,
+        self.conv2 = Conv2dT(bn_size * growth_rate, growth_rate, 3, padding=1,
                                bias=False, device=device)
 
     def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
@@ -67,7 +80,7 @@ class Transition(nn.Sequential):
         super().__init__(OrderedDict(
             norm=BatchNormT(in_features, device),
             relu=nn.ReLU(),
-            conv=nn.Conv2d(in_features, out_features, 1, bias=False, device=device),
+            conv=Conv2dT(in_features, out_features, 1, bias=False, device=device),
             pool=nn.AvgPool2d(2, stride=2),
         ))
 
@@ -78,7 +91,7 @@ def densenet_features(
 ) -> nn.Sequential:
     """The torchvision ``features`` trunk, conv0 through norm5."""
     layers = OrderedDict(
-        conv0=nn.Conv2d(3, init_features, 7, stride=2, padding=3, bias=False, device=device),
+        conv0=Conv2dT(3, init_features, 7, stride=2, padding=3, bias=False, device=device),
         norm0=BatchNormT(init_features, device),
         relu0=nn.ReLU(),
         pool0=max_pool_3x3_s2(),
@@ -97,7 +110,9 @@ def densenet_features(
 
 
 class DenseNetEncoder(nn.Module):
-    """DenseNet feature tower: (B, H, W, 3) NHWC -> (B, num_features)."""
+    """DenseNet feature tower: (B, H, W, 3) NHWC -> (B, num_features) fp32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, block_config: Sequence[int] = (6, 12, 24, 16), growth_rate: int = 32,
                  bn_size: int = 4, init_features: int = 64, device=None):
@@ -109,9 +124,9 @@ class DenseNetEncoder(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         # NHWC at the API, NCHW shape for the convs. The permute is a view, so a
         # contiguous batch reaches cuDNN in channels_last memory format.
-        x = images.permute(0, 3, 1, 2)
+        x = as_compute(images.permute(0, 3, 1, 2), self.compute_dtype)
         # no ReLU after norm5: pool straight off it
-        return global_avg_pool(self.model(x))
+        return widen(global_avg_pool(self.model(x)))
 
 
 def densenet121(device=None) -> DenseNetEncoder:

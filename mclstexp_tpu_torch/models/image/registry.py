@@ -9,7 +9,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
 from torch import nn
+
+from mclstexp_tpu_torch.core.layers import set_compute_dtype
 
 from mclstexp_tpu_torch.models.image.densenet import densenet121, tiny_densenet
 from mclstexp_tpu_torch.models.image.resnet import resnet18, resnet50, resnet101, resnet152
@@ -29,8 +32,11 @@ ENCODERS = {
 }
 
 
-def build_encoder(name: str, device=None) -> Tuple[nn.Module, int]:
+def build_encoder(name: str, device=None,
+                  dtype: torch.dtype = torch.float32) -> Tuple[nn.Module, int]:
+    """(tower, feature dim): fp32 parameters, computing in ``dtype``, fp32
+    features out (JAX ``registry.build_encoder(name, dtype=...)``)."""
     if name not in ENCODERS:
         raise KeyError(f"unknown image encoder {name!r}; have {sorted(ENCODERS)}")
     factory, dim = ENCODERS[name]
-    return factory(device=device), dim
+    return set_compute_dtype(factory(device=device), dtype), dim

@@ -17,6 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, widen
 from mclstexp_tpu_torch.models.image.common import (
     BatchNormT,
     global_avg_pool,
@@ -24,8 +25,8 @@ from mclstexp_tpu_torch.models.image.common import (
 )
 
 
-def _conv(c_in: int, c_out: int, kernel: int, stride: int = 1, device=None) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, kernel, stride=stride, padding=kernel // 2, bias=False,
+def _conv(c_in: int, c_out: int, kernel: int, stride: int = 1, device=None) -> Conv2dT:
+    return Conv2dT(c_in, c_out, kernel, stride=stride, padding=kernel // 2, bias=False,
                      device=device)
 
 
@@ -78,7 +79,10 @@ class Bottleneck(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """ResNet feature tower: (B, H, W, 3) NHWC -> (B, 512 * expansion)."""
+    """ResNet feature tower: (B, H, W, 3) NHWC -> (B, 512 * expansion) fp32,
+    computing in ``compute_dtype`` (the input cast at the entry)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, stage_sizes: Sequence[int], block: str = "bottleneck", device=None):
         super().__init__()
@@ -97,7 +101,8 @@ class ResNetEncoder(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return global_avg_pool(self.model(images.permute(0, 3, 1, 2)))
+        x = as_compute(images.permute(0, 3, 1, 2), self.compute_dtype)
+        return widen(global_avg_pool(self.model(x)))
 
 
 def resnet18(device=None) -> ResNetEncoder:

@@ -29,7 +29,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mclstexp_tpu_torch.core.layers import AttnBlock, LayerNormT, lecun_normal_
+from mclstexp_tpu_torch.core.layers import (
+    AttnBlock,
+    Conv2dT,
+    DenseT,
+    LayerNormT,
+    as_compute,
+    lecun_normal_,
+    widen,
+)
 
 
 class VisionTransformer(nn.Module):
@@ -41,7 +49,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.patch_size, self.dim = patch_size, dim
         n = (image_size // patch_size) ** 2
-        self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size, device=device)
+        self.patch_embed = Conv2dT(3, dim, patch_size, stride=patch_size, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, dim, device=device))
         self.norm_pre = LayerNormT(dim, device=device, eps=1e-6) if pre_norm else None
@@ -63,7 +71,8 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         x = self.patch_embed(x).flatten(2).transpose(1, 2)  # (B, N, D), row-major patches
-        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1) + self.pos_embed
+        cls, pos = self.cls_token.to(x.dtype), self.pos_embed.to(x.dtype)  # as JAX casts them
+        x = torch.cat([cls.expand(b, -1, -1), x], dim=1) + pos
         if self.norm_pre is not None:
             x = self.norm_pre(x)
         for block in self.blocks:
@@ -72,14 +81,17 @@ class VisionTransformer(nn.Module):
 
 
 class ViTEncoder(nn.Module):
-    """ViT feature tower: (B, H, W, 3) NHWC -> (B, dim)."""
+    """ViT feature tower: (B, H, W, 3) NHWC -> (B, dim) fp32, computing in
+    ``compute_dtype``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, device=None, **kw):
         super().__init__()
         self.model = VisionTransformer(device=device, **kw)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return self.model(images.permute(0, 3, 1, 2))
+        return widen(self.model(as_compute(images.permute(0, 3, 1, 2), self.compute_dtype)))
 
 
 def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -94,18 +106,20 @@ def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 class TinyCNN(nn.Module):
     """Small conv tower for the synthetic preset and CPU tests: (B, H, W, 3)
-    NHWC -> (B, features)."""
+    NHWC -> (B, features) fp32. In bf16 the group norms take fp32 statistics
+    and return bf16, as flax's ``GroupNorm(dtype=...)``."""
 
     widths = (16, 32, 64)
+    compute_dtype = torch.float32
 
     def __init__(self, features: int = 128, device=None):
         super().__init__()
         c_in = 3
         for i, c in enumerate(self.widths):
-            setattr(self, f"conv{i}", nn.Conv2d(c_in, c, 3, stride=2, device=device))
+            setattr(self, f"conv{i}", Conv2dT(c_in, c, 3, stride=2, device=device))
             setattr(self, f"gn{i}", nn.GroupNorm(8, c, eps=1e-6, device=device))
             c_in = c
-        self.head = nn.Linear(c_in, features, device=device)
+        self.head = DenseT(c_in, features, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -117,11 +131,12 @@ class TinyCNN(nn.Module):
         self.head.bias.zero_()
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = images.permute(0, 3, 1, 2)
+        dt = self.compute_dtype
+        x = as_compute(images.permute(0, 3, 1, 2), dt)
         for i in range(len(self.widths)):
             x = getattr(self, f"conv{i}")(_same_pad(x, 3, 2))
-            x = F.relu(getattr(self, f"gn{i}")(x))
-        return self.head(x.mean(dim=(2, 3)))
+            x = F.relu(as_compute(getattr(self, f"gn{i}")(widen(x)), dt))
+        return widen(self.head(x.mean(dim=(2, 3))))
 
 
 def vit_b32(device=None) -> ViTEncoder:

@@ -10,6 +10,10 @@ the ViT towers' blocks are the port's ``AttnBlock``, whose keys
 
 ``forward`` returns the pair of (B, P) projected embeddings; the loss lives
 in ``core.losses``. ``config.dropout`` is live, as in the JAX build.
+
+``config.dtype`` "bfloat16" is the JAX rule: parameters fp32, the towers
+and heads computing in bf16 (``core.layers.set_compute_dtype``), the
+embeddings returned in fp32, so InfoNCE and the optimizer are unchanged.
 """
 
 from __future__ import annotations
@@ -20,7 +24,13 @@ import torch
 from torch import nn
 
 from mclstexp_tpu_torch.config import ModelConfig
-from mclstexp_tpu_torch.core.layers import PositionTables, ProjectionHead
+from mclstexp_tpu_torch.core.layers import (
+    PositionTables,
+    ProjectionHead,
+    compute_dtype_of,
+    set_compute_dtype,
+    widen,
+)
 from mclstexp_tpu_torch.models.image.registry import build_encoder
 from mclstexp_tpu_torch.models.spot import SpotEncoder
 
@@ -37,8 +47,7 @@ class MclSTExp(PositionTables):
     def __init__(self, config: ModelConfig, device="cuda"):
         super().__init__(config.pos_vocab, config.spot_dim, device=device)
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"the port runs dtype 'float32' only, got {cfg.dtype!r}")
+        dtype = compute_dtype_of(cfg.dtype)
         encoder, feat_dim = build_encoder(cfg.encoder_name, device=device)
         if feat_dim != cfg.image_dim:
             raise ValueError(
@@ -59,19 +68,20 @@ class MclSTExp(PositionTables):
                                                cfg.dropout, device=device)
         self.spot_projection = ProjectionHead(cfg.spot_dim, cfg.projection_dim,
                                               cfg.dropout, device=device)
+        set_compute_dtype(self, dtype)
 
     @property
     def tower(self) -> nn.Module:
         return self.image_encoder if self.config.variant == "attention" else self.image_ecode
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        return self.image_projection(self.tower(images))
+        return widen(self.image_projection(self.tower(images)))
 
     def encode_spots(self, expression: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         feats = expression + self.position_embed(positions)
         if self.config.variant == "attention":
             feats = self.spot_encoder(feats)
-        return self.spot_projection(feats)
+        return widen(self.spot_projection(feats))
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         image_emb = self.encode_image(batch["image"])

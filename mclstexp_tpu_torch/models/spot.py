@@ -13,10 +13,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mclstexp_tpu_torch.core.layers import AttnBlock
+from mclstexp_tpu_torch.core.layers import AttnBlock, as_compute
 
 
 class SpotEncoder(nn.Sequential):
+    compute_dtype = torch.float32  # the blocks' input is cast to it (JAX spot.py:52)
+
     def __init__(self, spot_dim: int, heads_num: int = 8, heads_dim: int = 64,
                  head_layers: int = 2, dropout: float = 0.0, device=None,
                  backend: str = "xla"):
@@ -28,7 +30,7 @@ class SpotEncoder(nn.Sequential):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """(B, G) spot features -> (B, G), the batch as one sequence."""
-        x = feats[None]
+        x = as_compute(feats[None], self.compute_dtype)
         for block in self:
             x = block(x)
         return x[0]

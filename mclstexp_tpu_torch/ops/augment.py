@@ -71,9 +71,15 @@ def _blend(img1: torch.Tensor, img2: torch.Tensor, ratio: torch.Tensor) -> torch
     return torch.clamp(ratio * img1 + (1.0 - ratio) * img2, 0.0, 1.0)
 
 
-def _luma_cm(x: torch.Tensor) -> torch.Tensor:
-    """Grayscale, channel-major: (B, 3, H, W) -> (B, H, W)."""
-    return x[:, 0] * _LUMA[0] + x[:, 1] * _LUMA[1] + x[:, 2] * _LUMA[2]
+def _luma_cm(x: torch.Tensor, round_last: bool = True) -> torch.Tensor:
+    """Grayscale, channel-major: (B, 3, H, W) -> (B, H, W), the weights
+    rounded to x's type first, as the JAX function casts them.
+    ``round_last=False`` leaves the last add in fp32 (a bf16 x): what XLA
+    computes where the gray image feeds the contrast's fp32 mean (it drops
+    the bf16 round trip between the add and the mean's upcast)."""
+    w = [float(torch.tensor(c, dtype=x.dtype)) for c in _LUMA]
+    partial, last = x[:, 0] * w[0] + x[:, 1] * w[1], x[:, 2] * w[2]
+    return partial + last if round_last else partial.float() + last.float()
 
 
 def color_jitter(imgs: torch.Tensor, factors: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -90,7 +96,9 @@ def color_jitter(imgs: torch.Tensor, factors: torch.Tensor, order: torch.Tensor)
         if op == 0:
             return _blend(x, torch.zeros_like(x), fb)
         if op == 1:
-            gm = _luma_cm(x).mean(dim=(-2, -1))[:, None, None, None]
+            # the gray level's mean sums in fp32 and rounds once (jnp.mean of bf16)
+            gm = _luma_cm(x, round_last=False).mean(dim=(-2, -1)).to(x.dtype)
+            gm = gm[:, None, None, None]
             return _blend(x, gm, fc)
         return _blend(x, _luma_cm(x)[:, None], fs)
 
@@ -180,12 +188,15 @@ def train_augment_inline(patches_u8: torch.Tensor, draws: StDraws,
                          rot_impl: str = "paeth") -> torch.Tensor:
     """uint8 (B, H, W, 3) patches -> jittered, flipped, rotated float [0, 1].
 
-    In float32 the patches are scaled by ``to_float``, bit-equal to the JAX
-    step's jitted ``/ 255``. Any other ``dtype`` keeps the division: the
-    towers raise for bf16 today (``models/mclstexp.py``), so the bf16 scale
-    is matched when bf16 towers are ported.
+    The patches are scaled by ``to_float`` and rounded to ``dtype``: bit-equal,
+    for every uint8 value, to the JAX step's jitted ``(u.astype(dtype) /
+    dtype(255)).astype(dtype)``, which XLA compiles into a float32 multiply
+    by float32(1 / 255) and one rounding to ``dtype``. In bf16 (the model's
+    compute dtype, as the JAX step passes it) the jitter runs in bf16,
+    rounding after every operation as XLA does, and the Paeth shears move
+    bf16 pixels.
     """
-    imgs = to_float(patches_u8) if dtype == torch.float32 else patches_u8.to(dtype) / 255.0
+    imgs = to_float(patches_u8).to(dtype)
     imgs = color_jitter(imgs, draws.jitter, draws.order)
     h, w = imgs.shape[1], imgs.shape[2]
     if rot_impl == "paeth" and h == w and h % 8 == 0:

@@ -26,6 +26,18 @@ All three are deterministic (no atomics) and share one plan,
 cores in the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the
 plain versions; one plain TF32 product would not be).
 
+bfloat16 (``ModelConfig.dtype="bfloat16"``: the JAX modules hand the
+library kernels q, k, v in the compute dtype): each kernel has a bf16
+counterpart of the same design (``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_bwd_bf16.cu``; mma m16n8k16 on bf16 operands with
+fp32 accumulators) that does the library's casts at the library's places:
+p to bf16 before ``p @ v``, p^T before ``p^T @ dout``, ds before ``ds @ k``
+and ``ds^T @ q``; l, m and ``di`` stay fp32, the outputs are bf16. The
+plain versions do the same casts (exact bf16 products, fp32 sums, one
+rounding of each output) and are the bf16 kernels' oracle. A bf16 CUDA
+tensor launches the bf16 kernel (``bf16_launches``, ``bf16_segment_launches``
+on each wrapper) or raises; nothing is cast to fp32 to reach the fp32 one.
+
 Segment ids (the TPU kernels' ``SegmentIds(q=m, kv=m)``, which
 ``core/layers.py:207-212`` builds from a slide's padding mask): an int32
 (b, n) tensor, one for both sides; query i and key j interact only where
@@ -51,9 +63,9 @@ as three tensors, so autograd adds the three view gradients into the qkv
 projection's buffer itself.
 
 The kernels' shape rule (the TPU kernel's ``n % 128 == 0 and d >= 64`` is a
-TPU tiling limit and does not apply): float32 q, k, v of one shape (b, h, n,
-d) on one card, any n >= 1 with ceil(n / 32) <= 65535 and b * h * split <
-2**31, and 1 <= d <= 128;
+TPU tiling limit and does not apply): float32 or bfloat16 q, k, v of one
+type and one shape (b, h, n, d) on one card, any n >= 1 with ceil(n / 32) <=
+65535 and b * h * split < 2**31, and 1 <= d <= 128;
 each tensor's last dimension contiguous, any strides otherwise, so the (b,
 n, 3, h, d) qkv buffer's views are read in place. Outputs are (b, n, h, d)
 buffers returned as their (b, h, n, d) views; segment ids a contiguous
@@ -73,6 +85,9 @@ from mclstexp_tpu_torch.ops.build import load_library
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
+BF16_SOURCE = "flash_attention_bf16.cu"
+BF16_BWD_SOURCE = "flash_attention_bwd_bf16.cu"
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 MAX_HEAD_DIM = 128
 ROWS = 32  # rows of every tile, owned or walked: the grid's second dimension is ceil(n / 32)
 MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
@@ -86,23 +101,30 @@ _TAIL = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
+def _fwd_entry(dtype: torch.dtype):
+    """The forward's C entry point for ``dtype`` (its library built at first use)."""
+    bf16 = dtype == torch.bfloat16
+    fn = getattr(load_library(BF16_SOURCE if bf16 else SOURCE),
+                 "flash_attention_fwd_bf16_launch" if bf16 else "flash_attention_fwd_launch")
     # q, k, v, out, l, m (l and m null without residuals)
-    lib.flash_attention_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + _TAIL
-    lib.flash_attention_fwd_launch.restype = ctypes.c_int
-    return lib
+    fn.argtypes = [ctypes.c_void_p] * 6 + _TAIL
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
-def _bwd_library() -> ctypes.CDLL:
-    lib = load_library(BWD_SOURCE)
+def _bwd_entries(dtype: torch.dtype):
+    """(dK/dV, dQ) C entry points for ``dtype``."""
+    bf16 = dtype == torch.bfloat16
+    lib = load_library(BF16_BWD_SOURCE if bf16 else BWD_SOURCE)
+    suffix = "_bf16_launch" if bf16 else "_launch"
+    dkv = getattr(lib, "flash_attention_bwd_dkv" + suffix)
+    dq = getattr(lib, "flash_attention_bwd_dq" + suffix)
     head = [ctypes.c_void_p] * 7  # q, k, v, dout, l, m, di
-    lib.flash_attention_bwd_dkv_launch.argtypes = head + [ctypes.c_void_p] * 2 + _TAIL
-    lib.flash_attention_bwd_dq_launch.argtypes = head + [ctypes.c_void_p] + _TAIL
-    lib.flash_attention_bwd_dkv_launch.restype = ctypes.c_int
-    lib.flash_attention_bwd_dq_launch.restype = ctypes.c_int
-    return lib
+    dkv.argtypes = head + [ctypes.c_void_p] * 2 + _TAIL
+    dq.argtypes = head + [ctypes.c_void_p] + _TAIL
+    dkv.restype = dq.restype = ctypes.c_int
+    return dkv, dq
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -124,11 +146,24 @@ def same_segment(segment_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _scores(q, k, scale, segment_ids):
-    """s = q @ k^T * scale, -inf where the segment ids differ."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    """s = q @ k^T * scale in fp32 (exact bf16 products, fp32 sums), -inf
+    where the segment ids differ."""
+    s = torch.matmul(widen(q), widen(k).transpose(-1, -2)) * scale
     if segment_ids is None:
         return s
     return s.masked_fill(~same_segment(segment_ids), -torch.inf)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 x in fp32 (exactly); fp32 and float64 as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to bf16 before a product of bf16 inputs, as the library
+    casts p, p^T and ds (``p.astype(v.dtype)``); the product then sums in
+    fp32. The identity for wider inputs."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -136,36 +171,47 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward with its residuals: (out, l, m), l and m (b, h, n) fp32,
     ``out = (exp(s - m) / l) @ v`` for ``s = q @ k^T * scale`` over the keys
-    of each query's segment."""
+    of each query's segment. In bf16, the library's casts: p = exp(s - m)
+    rounded to bf16 before ``p @ v`` (fp32 sums), divided by l and rounded
+    to bf16 once."""
     s = _scores(q, k, scale, segment_ids)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    return torch.matmul(p * (1.0 / l)[..., None], v), l, m
+    if q.dtype != torch.bfloat16:
+        return torch.matmul(p * (1.0 / l)[..., None], v), l, m
+    out = torch.matmul(_operand(p, q.dtype), v.float()) / l[..., None]
+    return out.to(q.dtype), l, m
 
 
 def _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids):
-    """The backward kernels' common part: p = exp(s - m) / l (0 across
-    segments) and ds = p * (do @ v^T - di) * scale, both (b, h, n, n)."""
+    """The backward kernels' common part, in fp32: p = exp(s - m) / l (0
+    across segments) and ds = p * (do @ v^T - di) * scale, both (b, h, n,
+    n)."""
     s = _scores(q, k, scale, segment_ids)
     p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
-    dp = torch.matmul(do, v.transpose(-1, -2))
+    dp = torch.matmul(widen(do), widen(v).transpose(-1, -2))
     return p, (dp - di[..., None]) * p * scale
 
 
 def flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float,
                         segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) = (ds^T @ q, p^T @ do): what the dK/dV kernel computes."""
+    """(dk, dv) = (ds^T @ q, p^T @ do): what the dK/dV kernel computes; in
+    bf16 ds^T and p^T rounded to bf16 before their products (fp32 sums), dk
+    and dv rounded once."""
     p, ds = _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids)
-    return torch.matmul(ds.transpose(-1, -2), q), torch.matmul(p.transpose(-1, -2), do)
+    dt = q.dtype
+    return (torch.matmul(_operand(ds, dt).transpose(-1, -2), widen(q)).to(dt),
+            torch.matmul(_operand(p, dt).transpose(-1, -2), widen(do)).to(dt))
 
 
 def flash_bwd_dq_plain(q, k, v, do, l, m, di, scale: float,
                        segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dq = ds @ k: what the dQ kernel computes."""
+    """dq = ds @ k: what the dQ kernel computes (in bf16, ds rounded to bf16
+    first, dq once)."""
     _, ds = _probs_and_ds(q, k, v, do, l, m, di, scale, segment_ids)
-    return torch.matmul(ds, k)
+    return torch.matmul(_operand(ds, q.dtype), widen(k)).to(q.dtype)
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -175,9 +221,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"flash_attention kernel takes float32, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes float32 or bfloat16 (one type), got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, h, n, d = q.shape
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes 1 <= d <= {MAX_HEAD_DIM}, got d={d}")
@@ -203,10 +249,14 @@ def _check_segments(q: torch.Tensor, segment_ids: Optional[torch.Tensor]) -> Non
                          f"{segment_ids.device}")
 
 
-def _count(wrapper, segment_ids: Optional[torch.Tensor]) -> None:
-    wrapper.launches += 1
+def _count(wrapper, q: torch.Tensor, segment_ids: Optional[torch.Tensor]) -> None:
+    """One launch of the fp32 kernel (``launches``, ``segment_launches``) or
+    of the bf16 one (``bf16_launches``, ``bf16_segment_launches``)."""
+    prefix = "bf16_" if q.dtype == torch.bfloat16 else ""
+    setattr(wrapper, prefix + "launches", getattr(wrapper, prefix + "launches") + 1)
     if segment_ids is not None:
-        wrapper.segment_launches += 1
+        name = prefix + "segment_launches"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _on_cuda(q: torch.Tensor, what: str) -> bool:
@@ -217,9 +267,10 @@ def _on_cuda(q: torch.Tensor, what: str) -> bool:
 
 
 def _bhnd_like(q: torch.Tensor) -> torch.Tensor:
-    """An output for q's shape: the (b, h, n, d) view of a (b, n, h, d) buffer."""
+    """An output for q's shape and type: the (b, h, n, d) view of a (b, n, h,
+    d) buffer."""
     b, h, n, d = q.shape
-    return torch.empty((b, n, h, d), dtype=torch.float32, device=q.device).transpose(1, 2)
+    return torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -234,9 +285,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     l = m = None
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
-    _launch(_library().flash_attention_fwd_launch, "flash_attention",
+    _launch(_fwd_entry(q.dtype), "flash_attention",
             (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
-    _count(flash_attention, segment_ids)
+    _count(flash_attention, q, segment_ids)
     return (out, l, m) if residuals else out
 
 
@@ -282,8 +333,8 @@ def _launch(fn, what: str, pointers, segment_ids, strided, scale: float) -> None
 
 def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
     check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or do.dtype != torch.float32 or do.stride(-1) != 1:
-        raise ValueError(f"dout must be float32 {tuple(q.shape)} with the last dimension "
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"dout must be {q.dtype} {tuple(q.shape)} with the last dimension "
                          f"contiguous, got {do.dtype} {tuple(do.shape)} {do.stride()}")
     for name, t in (("l", l), ("m", m), ("di", di)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
@@ -304,9 +355,9 @@ def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float,
     _check_bwd_inputs(q, k, v, do, l, m, di)
     _check_segments(q, segment_ids)
     dk, dv = _bhnd_like(q), _bhnd_like(q)
-    _launch(_bwd_library().flash_attention_bwd_dkv_launch, "flash_attention backward",
+    _launch(_bwd_entries(q.dtype)[0], "flash_attention backward",
             (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale)
-    _count(flash_bwd_dkv, segment_ids)
+    _count(flash_bwd_dkv, q, segment_ids)
     return dk, dv
 
 
@@ -319,9 +370,9 @@ def flash_bwd_dq(q, k, v, do, l, m, di, scale: float,
     _check_bwd_inputs(q, k, v, do, l, m, di)
     _check_segments(q, segment_ids)
     dq = _bhnd_like(q)
-    _launch(_bwd_library().flash_attention_bwd_dq_launch, "flash_attention backward",
+    _launch(_bwd_entries(q.dtype)[1], "flash_attention backward",
             (q, k, v, do, l, m, di, dq), segment_ids, (q, k, v, do, dq), scale)
-    _count(flash_bwd_dq, segment_ids)
+    _count(flash_bwd_dq, q, segment_ids)
     return dq
 
 
@@ -347,7 +398,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, l, m = ctx.saved_tensors
         if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
             do = do.contiguous()
-        di = (out * do).sum(dim=-1).contiguous()
+        di = (widen(out) * widen(do)).sum(dim=-1).contiguous()  # fp32 for bf16, as the library
         dk, dv = flash_bwd_dkv(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
         dq = flash_bwd_dq(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
         return dq, dk, dv, None, None
@@ -381,6 +432,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return flash_forward(q, k, v, scale, segment_ids=seg)
 
 
-flash_attention.launches = flash_attention.segment_launches = 0
-flash_bwd_dkv.launches = flash_bwd_dkv.segment_launches = 0
-flash_bwd_dq.launches = flash_bwd_dq.segment_launches = 0
+for _wrapper in (flash_attention, flash_bwd_dkv, flash_bwd_dq):
+    _wrapper.launches = _wrapper.segment_launches = 0
+    _wrapper.bf16_launches = _wrapper.bf16_segment_launches = 0
+del _wrapper

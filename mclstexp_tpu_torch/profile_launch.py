@@ -64,7 +64,7 @@ def main() -> None:
     di = (out * do).sum(-1).contiguous()
     dk, dv, dq = (torch.empty_like(out) for _ in range(3))
 
-    lib = fa._bwd_library()
+    dkv_entry, dq_entry = fa._bwd_entries(torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
     inputs = [t.data_ptr() for t in (q, k, v, do, l, m, di)]
 
@@ -86,8 +86,8 @@ def main() -> None:
         fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
 
     result = {
-        "bwd_dkv_entry": _host_us(entry(lib.flash_attention_bwd_dkv_launch, (dk, dv))),
-        "bwd_dq_entry": _host_us(entry(lib.flash_attention_bwd_dq_launch, (dq,))),
+        "bwd_dkv_entry": _host_us(entry(dkv_entry, (dk, dv))),
+        "bwd_dq_entry": _host_us(entry(dq_entry, (dq,))),
         "flash_bwd_dkv": _host_us(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale)),
         "flash_bwd_dq": _host_us(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale)),
         "flash_forward": _host_us(lambda: fa.flash_forward(q, k, v, scale, residuals=True)),

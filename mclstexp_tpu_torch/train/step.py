@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
+from mclstexp_tpu_torch.core.layers import compute_dtype_of
 from mclstexp_tpu_torch.core.losses import symmetric_infonce
 from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.train.state import TrainState
@@ -39,16 +40,18 @@ def make_train_step(augment_mode: str = "st", rot_impl: str = "paeth",
              draws: Optional[augment.StDraws | augment.TenxDraws] = None) -> torch.Tensor:
         # The named ranges label the step's phases in a torch.profiler
         # trace (profile_step.py).
+        model = state.model
+        # the "st" augmentation computes in the model's dtype (JAX step.py:42-48)
+        aug_dtype = compute_dtype_of(model.config.dtype)
         with record_function("augment"):
             if augment_mode == "st":
                 images = augment.train_augment_inline(batch["image_u8"], draws,
-                                                      rot_impl=rot_impl)
+                                                      dtype=aug_dtype, rot_impl=rot_impl)
             elif augment_mode == "tenx":
                 images = augment.tenx_augment(batch["image_u8"], draws,
                                               raw_scale=tenx_raw_scale)
             else:
                 images = augment.to_float(batch["image_u8"])
-        model = state.model
         model.train()
         with record_function("forward"):
             image_emb, spot_emb = model(

@@ -126,7 +126,7 @@ def test_flash_kernel_shape_rule():
     with pytest.raises(ValueError, match="d <= 128"):
         fa.check_kernel_inputs(*(torch.zeros((1, 1, 4, 129)),) * 3)
     with pytest.raises(TypeError, match="float32"):
-        fa.check_kernel_inputs(*(torch.zeros((1, 1, 4, 8), dtype=torch.bfloat16),) * 3)
+        fa.check_kernel_inputs(*(torch.zeros((1, 1, 4, 8), dtype=torch.float16),) * 3)
     with pytest.raises(ValueError, match="one \\(b, h, n, d\\) shape"):
         fa.check_kernel_inputs(ok, ok, ok[:, :, :299])
     with pytest.raises(ValueError, match="non-empty"):
@@ -134,6 +134,16 @@ def test_flash_kernel_shape_rule():
     strided = torch.zeros((1, 1, 4, 16))[..., ::2]
     with pytest.raises(ValueError, match="last dimension contiguous"):
         fa.check_kernel_inputs(strided, strided, strided)
+
+
+def test_kernel_inputs_take_bf16_of_one_type():
+    """bf16 q, k, v pass the kernels' shape rule; mixed or half types raise."""
+    x = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    fa.check_kernel_inputs(x, x, x)
+    with pytest.raises(TypeError, match="one type"):
+        fa.check_kernel_inputs(x, x, x.float())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.check_kernel_inputs(*(x.half(),) * 3)
 
 
 BWD_PLAN_SHAPES = [(1, 8, 128, 64), (1, 8, 66, 64), (1, 8, 300, 64), (1, 16, 4096, 64),

@@ -537,8 +537,8 @@ def test_unported_families_and_modes_raise():
             trainer.build_baseline(trainer.BaselineConfig(model=family), device="cpu")
     with pytest.raises(KeyError):
         trainer.build_baseline(trainer.BaselineConfig(model="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16|float32"):
-        trainer.build_baseline(trainer.BaselineConfig(dtype="bfloat16"), device="cpu")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trainer.build_baseline(trainer.BaselineConfig(dtype="float16"), device="cpu")
     cfg = trainer.BaselineConfig(**_cfg("histogene", 16, max_epochs=1))
     _, tsecs = _sections([10, 12], 16)
     for kw in (dict(mesh=object()), dict(slides_per_step=2)):  # the slide-DP mode
@@ -548,3 +548,16 @@ def test_unported_families_and_modes_raise():
         trainer.BaselineConfig(bake=2)
     assert trainer.resolve_lr(cfg) == 1e-5 and trainer.resolve_n_layers(cfg) == 8
     assert trainer.resolve_epochs(trainer.BaselineConfig(model="thitogene")) == 300
+
+
+@pytest.mark.parametrize("family", ["histogene", "thitogene"])
+def test_baselines_build_in_bfloat16(family):
+    """BaselineConfig(dtype="bfloat16"): fp32 parameters, the computing
+    modules in bf16; the fp32 model's state loads into it as it is."""
+    kw = dict(model=family, n_genes=8, n_layers=1, patch_size=112 if family == "thitogene" else 16)
+    model32 = trainer.build_baseline(trainer.BaselineConfig(**kw), device="cpu")
+    model = trainer.build_baseline(trainer.BaselineConfig(dtype="bfloat16", **kw), device="cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    computing = [m for m in model.modules() if hasattr(type(m), "compute_dtype")]
+    assert computing and all(m.compute_dtype == torch.bfloat16 for m in computing)
+    model.load_state_dict(model32.state_dict(), strict=True)

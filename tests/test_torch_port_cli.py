@@ -242,7 +242,8 @@ def test_help_loads_no_jax_and_lists_the_subcommands():
 
 def test_commands_run_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
     """Without a card the default ``--device cuda`` fails in torch; it never
-    falls back to the CPU. ``--dtype bfloat16`` raises as the model does."""
+    falls back to the CPU. A dtype other than float32 or bfloat16 is refused
+    (argparse's choices)."""
     monkeypatch.chdir(tmp_path)
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the CPU-only failure cannot show")
@@ -250,8 +251,36 @@ def test_commands_run_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(argv)
     assert not (tmp_path / "model_result" / "synthetic").exists()
-    with pytest.raises(NotImplementedError, match="float32"):
-        cli.main(argv + ["--device", "cpu", "--dtype", "bfloat16"])
+    with pytest.raises(SystemExit):
+        cli.main(argv + ["--device", "cpu", "--dtype", "float16"])
+
+
+def test_train_and_eval_in_bfloat16(tmp_path, monkeypatch):
+    """``train --dtype bfloat16`` on the synthetic preset trains a bf16 model
+    and saves its dtype; ``eval`` and ``predict`` without ``--dtype`` rebuild
+    the model in the checkpoint's bf16 and score it."""
+    from mclstexp_tpu_torch.train import checkpoint as ckpt
+    from mclstexp_tpu_torch.train import state as state_mod
+
+    monkeypatch.chdir(tmp_path)
+    base = ["--dataset", "synthetic", "--fold", "0", "--device", "cpu"]
+    assert cli.main(["train", *base, "--max_epochs", "1", "--dtype", "bfloat16"]) == 0
+    fold_dir = next((tmp_path / "model_result" / "synthetic").glob("*/best_0"))
+    assert ckpt.saved_dtype(str(fold_dir)) == "bfloat16"
+    built = []
+    create = state_mod.create_train_state
+
+    def spy(model_cfg, *args, **kw):
+        built.append(model_cfg.dtype)
+        return create(model_cfg, *args, **kw)
+
+    monkeypatch.setattr(state_mod, "create_train_state", spy)
+    assert cli.main(["eval", *base, "--json", "out.json"]) == 0
+    assert built == ["bfloat16"]
+    avg = json.loads((tmp_path / "out.json").read_text())["avg"]
+    assert all(np.isfinite(v) for v in avg.values())
+    assert cli.main(["predict", *base, "--checkpoint", str(fold_dir)]) == 0
+    assert built == ["bfloat16", "bfloat16"]
 
 
 def test_reference_data_root_falls_back_as_in_jax(tmp_path, monkeypatch):

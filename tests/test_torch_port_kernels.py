@@ -252,6 +252,22 @@ def test_flash_attention_raises_for_mask_grad_and_shape(cuda):
         flash_attention(q.half(), q.half(), q.half(), 0.25)
 
 
+@pytest.mark.gpu
+def test_bf16_kernels_raise_rather_than_cast(cuda):
+    """A bf16 CUDA tensor reaches the bf16 kernel (through the Function,
+    forward and backward) and nothing else; half precision raises."""
+    q = torch.randn((1, 2, 40, 64), generator=cuda, device="cuda").bfloat16()
+    qg = q.clone().requires_grad_()
+    counts = lambda: [(w.launches, w.bf16_launches)  # noqa: E731
+                      for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    before = counts()
+    (g,) = torch.autograd.grad(flash_attention(qg, qg, qg, 0.125).float().sum(), qg)
+    assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+    assert counts() == [(c, b + 1) for c, b in before]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half(), 0.125)
+
+
 def _segment_ids(cuda, b, n, kind):
     """(b, n) int32 ids: "tail", a padded tail of min(127, n - 1) rows in
     row 0 and of 1 row in the others (the baselines' mask as int32: real

@@ -150,7 +150,25 @@ def test_presets_match_jax():
 
 
 def test_model_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="float32"):
-        MclSTExp(config.ModelConfig(**{**TINY, "dtype": "bfloat16"}), device="cpu")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        MclSTExp(config.ModelConfig(**{**TINY, "dtype": "float16"}), device="cpu")
     with pytest.raises(KeyError, match="unknown image encoder"):
         MclSTExp(config.ModelConfig(**{**TINY, "encoder_name": "nope"}), device="cpu")
+
+
+
+def test_model_builds_in_bfloat16():
+    """dtype "bfloat16": fp32 parameters and running statistics, every
+    computing module of both towers and heads in bf16, fp32 embeddings."""
+    model = MclSTExp(config.ModelConfig(**{**TINY, "dtype": "bfloat16"}), device="cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(b.dtype in (torch.float32, torch.int64) for b in model.buffers())
+    computing = [m for m in model.modules() if hasattr(type(m), "compute_dtype")]
+    assert computing and all(m.compute_dtype == torch.bfloat16 for m in computing)
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.rand((4, 32, 32, 3), generator=g),
+             "expression": torch.rand((4, 24), generator=g),
+             "position": torch.randint(0, 64, (4, 2), generator=g)}
+    image_emb, spot_emb = model.eval()(batch)
+    assert image_emb.dtype == spot_emb.dtype == torch.float32
+    assert image_emb.shape == spot_emb.shape == (4, 32)
