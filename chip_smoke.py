@@ -120,7 +120,7 @@ order; any failure exits non-zero and prints no result line:
      at 3.35 TB/s, operations at the 989 TFLOP/s bf16 rate). Then the
      her2st flagship in bf16 with "flash" through ``train_fold`` (every
      spot-tower attention in the bf16 kernels and none in the fp32 ones,
-     row_shift's shears on bf16 images, the checkpoint's saved dtype), its
+     row_shift's shears on bf16 images, the checkpoint saved), its
      embeddings and LOO fold 0, and ms/step and peak memory bf16 against
      fp32; ``cli train --dtype bfloat16`` and ``eval`` of its checkpoint on
      [cli]'s tree, each a process of its own; HisToGene in bf16 (a fold of
@@ -2009,6 +2009,77 @@ def _bf16_bound(name, shape, segments: bool):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def _bf16_kernel_plan(name, q, k, v, do) -> dict:
+    """The plan a bf16 kernel launches under at q's shape: the forward's and
+    dK/dV's ``bf16_plan`` (64-row warpgroup tiles, split 1, CTAs, ring
+    stages) with the staging their launchers pick for these inputs (TMA, or
+    the plain-load variant); dQ's ``cluster_plan``."""
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    if name == "bwd_dq":
+        return dict(zip(("rows", "split", "ctas"), fa.cluster_plan(*q.shape)))
+    plan = dict(zip(("rows", "split", "ctas", "stages"), fa.bf16_plan(*q.shape)))
+    inputs = (q, k, v) if name == "fwd" else (q, k, v, do)
+    plan["staging"] = "tma" if fa.tma_ok(*inputs) else "plain-load variant"
+    return plan
+
+
+def _plan_text(plan: dict) -> str:
+    return ", ".join(f"{key} {value}" for key, value in plan.items())
+
+
+BF16_EDGES = [(1, 2, n, d) for d in (32, 64, 128) for n in (1, 63, 64, 65, 127, 129)]
+
+
+def _bf16_edges(g) -> int:
+    """The redesigned bf16 forward and dK/dV at the edges of their 64-row
+    tiles (``BF16_EDGES``, without and with interleaved segment ids), at d %
+    8 != 0 and on views 2 bytes past a 16-byte boundary (the plain-load
+    variant): each against its plain bf16 version (bf16 outputs within
+    2**-7 of their largest magnitude + 1e-5, l within 1e-5 relative, m
+    1e-5) and the same bits on a second run. Returns the cases checked."""
+    import torch
+
+    from mclstexp_tpu_torch.ops import flash_attention as fa
+
+    cases = [(shape, ids, 0) for shape in BF16_EDGES for ids in (False, True)]
+    cases += [((1, 3, 65, 36), False, 0), ((1, 2, 300, 20), True, 0),
+              ((2, 2, 129, 64), True, 1), ((1, 2, 70, 100), False, 1)]
+    for (b, h, n, d), ids, shift in cases:
+        buf = torch.randn((b, n, 3, h, d + shift), generator=g, device="cuda").bfloat16()
+        q, k, v = (buf[:, :, i, :, shift:shift + d].transpose(1, 2) for i in range(3))
+        do = torch.randn((b, h, n, d), generator=g, device="cuda").bfloat16()
+        seg = (torch.randint(0, 3, (b, n), generator=g, device="cuda", dtype=torch.int32)
+               if ids else None)
+        scale = d**-0.5
+        ro, rl, rm = fa.flash_forward_plain(q, k, v, scale, seg)
+        di = (ro.float() * do.float()).sum(-1).contiguous()
+        want = (ro, rl, rm, *fa.flash_bwd_dkv_plain(q, k, v, do, rl, rm, di, scale, seg))
+
+        def run():
+            return (*fa.flash_forward(q, k, v, scale, True, seg),
+                    *fa.flash_bwd_dkv(q, k, v, do, rl, rm, di, scale, seg))
+
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"bf16 edges {(b, h, n, d)} ids {ids}: two runs differ")
+        if fa.tma_ok(q, k, v, do) != (shift == 0 and d % 8 == 0):
+            raise AssertionError(f"bf16 edges {(b, h, n, d)}: staging not as expected")
+        for i, (x, w) in enumerate(zip(got, want)):
+            if i == 1:
+                off, tol = float(((x - w) / w).abs().max()), 1e-5
+            elif i == 2:
+                off, tol = float((x - w).abs().max()), 1e-5
+            else:
+                off = float((x.float() - w.float()).abs().max())
+                tol = BF16_REL * float(w.float().abs().max()) + 1e-5
+            if not off <= tol:
+                raise AssertionError(f"bf16 edges {(b, h, n, d)} ids {ids} output {i}: off "
+                                     f"{off:.3e} > {tol:.3e}")
+    return len(cases)
+
+
 def _bf16_case(g, shape, seg=None, events=False, kind=""):
     """The three bf16 kernels at ``shape`` on the views of a (b, n, 3, h, d)
     bf16 qkv buffer (with segment ids ``seg`` or none): each against its
@@ -2090,8 +2161,7 @@ def _bf16_case(g, shape, seg=None, events=False, kind=""):
         bound_ms, bound_by = _bf16_bound(name, shape, seg is not None)
         rec = {"ms": timer(kernel), "fp32_ms": timer(fp32), "plain_ms": plain_timer(plain),
                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-               "tolerance_share": worst, "plan": dict(zip(("rows", "split", "ctas"),
-                                                          fa.cluster_plan(*shape)))}
+               "tolerance_share": worst, "plan": _bf16_kernel_plan(name, q, k, v, do)}
         if name == "fwd":
             rec["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=scale))
@@ -2105,7 +2175,7 @@ def _bf16_case(g, shape, seg=None, events=False, kind=""):
                 f"{rec['library_ms']:.5f} ms, kernel / SDPA "
                 f"{rec['ms'] / rec['library_ms']:.3f}" if name == "fwd" else "")
         log(f"[bf16] {BF16_NAMES[name]} {shape}{' ids ' + kind if seg is not None else ''} plan "
-            f"{tuple(rec['plan'].values())}: max abs err {err:.3e} ({worst:.2f} of the "
+            f"{_plan_text(rec['plan'])}: max abs err {err:.3e} ({worst:.2f} of the "
             f"tolerance), deterministic; kernel {rec['ms']:.5f} ms, fp32 kernel "
             f"{rec['fp32_ms']:.5f} ms (bf16 / fp32 {rec['ms'] / rec['fp32_ms']:.3f}), plain "
             f"{rec['plain_ms']:.5f} ms{sdpa}, bound {bound_ms:.6f} ms by {bound_by}, "
@@ -2115,13 +2185,18 @@ def _bf16_case(g, shape, seg=None, events=False, kind=""):
 
 def phase_bf16_kernels() -> list:
     """[bf16] the bf16 flash kernels against their plain bf16 versions at
-    ``BF16_SHAPES``, the segment shapes of [baselines] and (1, 16, 4,096,
-    64) (events), each beside the fp32 kernel, bf16 SDPA and its bound.
+    their tile edges (``_bf16_edges``), ``BF16_SHAPES``, the segment shapes
+    of [baselines] and (1, 16, 4,096, 64) (events), each beside the fp32
+    kernel, bf16 SDPA and its bound, each with its plan.
     Returns one kernels-line entry per kernel with the training shape's
     numbers, every case under ``cases`` and the long one under ``long``."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(10)
+    edges = _bf16_edges(g)
+    log(f"[bf16] the warpgroup forward and dK/dV at {edges} tile-edge cases (n = 1, 63, 64, 65, "
+        f"127, 129 at d = 32 / 64 / 128, with and without ids; d % 8 != 0 and misaligned views "
+        f"on the plain-load variant): within tolerance of the plain versions, deterministic")
     cases = [(str(shape), _bf16_case(g, shape)) for shape in BF16_SHAPES]
     for n, real, kind in BF16_SEG_CASES:
         cases.append((f"(1, 16, {n}, 64) {kind}", _bf16_case(g, (1, 16, n, 64),
@@ -2196,12 +2271,12 @@ def phase_bf16_train(cfg, sections) -> tuple:
         raise AssertionError("bf16 fold: a parameter left fp32")
     saved = checkpoint.fold_checkpoint_dir(bcfg.train.checkpoint_dir, bcfg.data.dataset,
                                            sections[0].name, 0)
-    if checkpoint.saved_dtype(saved) != "bfloat16":
-        raise AssertionError(f"bf16 fold: the checkpoint says {checkpoint.saved_dtype(saved)}")
+    if not os.path.isfile(os.path.join(saved, checkpoint.STATE_FILE)):
+        raise AssertionError(f"bf16 fold: no checkpoint in {saved}")
     log(f"[bf16] train_fold dtype='bfloat16' attn_backend='flash': {steps} steps in "
         f"{seconds:.1f} s incl. set-up; running losses {losses}; bf16 flash launches "
         f"forward/dK-dV/dQ {counts}, fp32 {fp32_counts}; row_shift {shifts}; checkpoint "
-        f"dtype bfloat16")
+        f"saved")
 
     _reset_counts()
     prepared = embed.prepare_eval_arrays(sections, device="cuda")
@@ -2239,8 +2314,9 @@ def phase_bf16_train(cfg, sections) -> tuple:
 
 def phase_bf16_cli() -> None:
     """[bf16] the command line in bf16 on [cli]'s tree, each a process of its
-    own: ``train --dtype bfloat16`` (fold 0, one epoch) and ``eval`` of its
-    checkpoint without ``--dtype`` (the checkpoint keeps its dtype)."""
+    own: ``train --dtype bfloat16`` (fold 0, one epoch) and ``eval --dtype
+    bfloat16`` of its checkpoint (as in JAX, every subcommand computes in
+    ``--dtype``'s type; a checkpoint keeps no dtype)."""
     from mclstexp_tpu_torch.train import checkpoint
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2254,13 +2330,11 @@ def phase_bf16_cli() -> None:
         _, trained, train_s = _cli(["train", "--fold", "0", "--max_epochs", "1",
                                     "--dtype", "bfloat16"] + flags, repo)
         names = sorted(os.listdir(os.path.join("model_result_bf16", "her2st")))
-        dtypes = {checkpoint.saved_dtype(os.path.join("model_result_bf16", "her2st", nm,
-                                                      "best_0"))
-                  for nm in names if os.path.isdir(os.path.join("model_result_bf16", "her2st",
-                                                                nm, "best_0"))}
-        if dtypes != {"bfloat16"}:
-            raise AssertionError(f"cli train --dtype bfloat16 saved {dtypes}")
-        _, _, eval_s = _cli(["eval", "--fold", "0", "--json", "eval_bf16.json"] + flags, repo)
+        if not any(os.path.isfile(os.path.join("model_result_bf16", "her2st", nm, "best_0",
+                                               checkpoint.STATE_FILE)) for nm in names):
+            raise AssertionError(f"cli train --dtype bfloat16 saved no fold 0 checkpoint: {names}")
+        _, _, eval_s = _cli(["eval", "--fold", "0", "--dtype", "bfloat16", "--json",
+                             "eval_bf16.json"] + flags, repo)
         avg = _json_file("eval_bf16.json")["avg"]
         if not all(math.isfinite(v) for v in avg.values()):
             raise AssertionError(f"cli eval of the bf16 checkpoint: {avg}")

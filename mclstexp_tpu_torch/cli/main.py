@@ -16,10 +16,12 @@ reach it fail with torch's CUDA error; pass ``--device cpu`` to run on the
 CPU. Checkpoints are the port's ``state.pt`` fold directories
 (``train/checkpoint.py``); ``export-torch`` and ``eval --torch-checkpoint``
 convert to and from the reference's ``.pt`` layout. ``--debug-nans`` is
-accepted and ignored (a JAX sanitizer). ``--dtype bfloat16`` trains the
-model in bf16 (fp32 parameters, bf16 compute, the JAX rule); a checkpoint
-keeps its dtype, so ``eval``, ``predict`` and ``serve`` rebuild the model
-in the dtype it was trained in, whatever ``--dtype`` says.
+accepted and ignored (a JAX sanitizer). ``--dtype`` (default ``float32``)
+is the compute dtype of every subcommand's model, as in the JAX CLI:
+``bfloat16`` trains, evaluates, predicts and serves in bf16 (fp32
+parameters, bf16 compute, the JAX rule). A checkpoint keeps no dtype, as
+JAX's keep none: ``eval`` of a bf16-trained fold without ``--dtype`` scores
+in fp32, as JAX's does.
 """
 
 from __future__ import annotations
@@ -358,9 +360,6 @@ def cmd_eval(args) -> int:
     # embeds the train-normalized expression
     expressions = [s.eval_expression for s in sections]
     folds = [args.fold] if args.fold is not None else list(range(len(sections)))
-    if not args.torch_checkpoint:
-        cfg = _as_trained(cfg, ckpt.fold_checkpoint_dir(
-            cfg.train.checkpoint_dir, cfg.data.dataset, sections[folds[0]].name, folds[0]))
     state = create_train_state(cfg.model, cfg.train, args.device)
 
     prepared = embed.prepare_eval_arrays(sections, device=args.device)  # one upload
@@ -409,22 +408,13 @@ def cmd_eval(args) -> int:
     return 0
 
 
-def _as_trained(cfg, checkpoint: str):
-    """``cfg`` with the compute dtype of the checkpoint directory
-    ``checkpoint`` (a checkpoint keeps its dtype)."""
-    from mclstexp_tpu_torch.train import checkpoint as ckpt
-
-    dtype = ckpt.saved_dtype(checkpoint)
-    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
-
-
 def _restored_model(cfg, checkpoint: str, device):
-    """A model of ``cfg``, in the checkpoint's dtype, on ``device`` holding
-    the weights of the checkpoint directory ``checkpoint``."""
+    """A model of ``cfg`` (in ``--dtype``'s compute dtype) on ``device``
+    holding the weights of the checkpoint directory ``checkpoint``."""
     from mclstexp_tpu_torch.train import checkpoint as ckpt
     from mclstexp_tpu_torch.train.state import create_train_state
 
-    model = create_train_state(_as_trained(cfg, checkpoint).model, cfg.train, device).model
+    model = create_train_state(cfg.model, cfg.train, device).model
     ckpt.load_checkpoint(checkpoint, model)
     return model
 

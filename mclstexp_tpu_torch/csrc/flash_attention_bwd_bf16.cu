@@ -13,17 +13,38 @@
 // before ds k (:1258); the sums stay fp32 over the whole walk (:1445) and
 // dk, dv, dq are stored in bf16 once (:1094-1099, :1436).
 //
-// Design: csrc/flash_attention_bwd.cu's, with bf16 operands. One cluster of
-// `split` CTAs per (batch*head, block of 32 keys) for dK/dV or of 32
-// queries for dQ, sharing the walk over the other side's tiles; per walked
-// tile each warp computes a 16 x 8 block of the two score products on the
-// tensor cores (mma m16n8k16 over d), forms p and ds in fp32 registers and
-// writes them to shared memory in bf16 (the library's casts); then each
-// computes a 16 x D/4 block of the tile's share of its outputs (m16n8k16
-// over the tile's 32 rows) and adds it to fp32 running sums. At the end the
+// Design of dK/dV (csrc/flash_wgmma.cuh's tiles and products). One
+// warpgroup of 128 threads owns 64 keys, whose k and v tiles stay in shared
+// memory for the whole walk over the query tiles of 64; warp w owns keys
+// 16w..16w+15. Per query tile four wgmma products:
+//   S^T = K Q^T and dP^T = V dout^T (m64n64k16, both operands K-major from
+//   shared memory); then p^T = exp2(s^T scale log2(e) - m log2(e)) / l and
+//   ds^T = p^T (dp^T - di) scale in fp32 registers, rounded to bf16 and
+//   packed into register A operands;
+//   dV += P^T dout and dK += dS^T Q (m64nDPk16), with q and dout read as
+//   the MN-major B operands of the same swizzled tiles that fed the first
+//   two products: p and ds never go to shared memory.
+// Q, dout (TMA, as the forward's k and v) and each tile's m, l, di and ids
+// (cp.async) arrive through a ring of two stages; one barrier per tile. The
+// threads that staged a tile's m and l turn them into m log2(e) and 1 / l
+// (+inf and 0 past n, so p = 0 there without a mask) before that barrier,
+// once per tile rather than once per thread and column. The sums stay in
+// fp32 registers over the whole walk and dk, dv are stored in bf16 once.
+// The plan (ops/flash_attention.bf16_plan): one CTA per block of 64 keys,
+// which walks every query tile in order: no split of the walk and no merge,
+// the same bits on every run. Inputs TMA cannot take run the kTma = false
+// variant (2-byte loads into the same tiles).
+//
+// Design of dQ (not yet redesigned; ops/flash_attention.cluster_plan):
+// csrc/flash_attention_bwd.cu's, with bf16 operands. One cluster of `split`
+// CTAs per (batch*head, block of 32 queries), sharing the walk over the key
+// tiles; per walked tile each warp computes a 16 x 8 block of the two score
+// products on the tensor cores (mma m16n8k16 over d), forms ds in fp32
+// registers and writes it to shared memory in bf16 (the library's cast);
+// then each computes a 16 x D/4 block of the tile's share of dq (m16n8k16
+// over the tile's 32 keys) and adds it to fp32 running sums. At the end the
 // ranks' partial sums are added in rank order over distributed shared
-// memory, in fp32, and written once in bf16: no atomics, the same bits on
-// every run.
+// memory, in fp32, and written once in bf16.
 //
 // Bound: at the training shape (1, 8, 128, 64) dK/dV moves 6*b*h*n*d bf16
 // values and does 8*b*h*n^2*d operations, dQ 5*b*h*n*d values and
@@ -31,9 +52,10 @@
 // 989 TFLOP/s, so a launch is bound by latency; at n = 4,096 the products.
 //
 // Any n >= 1, d <= 128, segment ids as in the fp32 kernels (kSeg). Inputs
-// are read through strides (16-byte cp.async where d % 8 == 0 and the
-// pointers and strides allow it, else 2-byte loads); l, m and di are
-// contiguous fp32 (b, h, n); outputs are written through their strides.
+// are read through strides; l, m and di are contiguous fp32 (b, h, n);
+// outputs are written through their strides. dK/dV's dynamic shared memory:
+// k, v, two stages of q and dout, the stats and ids: 51 / 99 KB at d <= 64 /
+// 128.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,6 +64,7 @@
 
 #include "flash_bf16.cuh"
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -93,142 +116,226 @@ template <int D>
 struct Smem {
   static constexpr int kTile = bf::Tile<D>::kElems;  // bf16 values of a 32 x (D + 8) tile
   static constexpr int kScores = kRows * kSP;        // bf16 values of a 32 x 40 score tile
-  // dK/dV: k, v (owned), 2 stages of q and dout, p and ds (bf16); 2 stages
-  // of m, l, di, the dk and dv partial sums (32 x D each; fp32); segment ids
-  // of 2 stages of queries. In floats:
-  static constexpr int kDkv =
-      (6 * kTile + 2 * kScores) / 2 + 2 * 3 * kRows + 2 * kRows * D + 2 * kRows;
   // dQ: q, dout (owned), 2 stages of k and v, ds (bf16); m, l, di of the
   // owned rows, the dq partial sums (fp32); segment ids of 2 stages of keys
   static constexpr int kDq = (6 * kTile + kScores) / 2 + 3 * kRows + kRows * D + 2 * kRows;
 };
 
-template <int D, bool kVec, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                       const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                       const float* __restrict__ l, const float* __restrict__ m,
-                       const float* __restrict__ di, uint16_t* __restrict__ dk,
-                       uint16_t* __restrict__ dv, const int* __restrict__ seg, Strides sq,
-                       Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int heads,
-                       int n, int d, int split, float scale) {
-  constexpr int S = bf::Tile<D>::kStride;
-  constexpr int T = Smem<D>::kTile, P = Smem<D>::kScores;
-  constexpr int kCols = D / 4;   // output columns per warp
-  constexpr int kN = kCols / 8;  // their 16 x 8 fragments
-  extern __shared__ __align__(16) float smem[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* vs = ks + T;
-  uint16_t* stage = vs + T;  // stage s: q at stage + 2sT, dout at + T
-  uint16_t* ps = stage + 4 * T;  // 32 keys x 32 queries
-  uint16_t* dss = ps + P;
-  float* stats = reinterpret_cast<float*>(dss + P);  // stage s: m, 1/l, di at stats + 96s
-  float* red = stats + 2 * 3 * kRows;                // dk partials, then dv partials
-  int* walk_seg = reinterpret_cast<int*>(red + 2 * kRows * D);  // stage s: at walk_seg + 32s
+namespace wg = flash::wg;
+using flash::kLog2e;
+using wg::kR;
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int bh = blockIdx.x / split;
-  const long long b = bh / heads;
-  const long long h = bh - b * heads;
-  const int k0 = blockIdx.y * kRows;
-  const int tiles = (n + kRows - 1) / kRows;
-  const int first = rank * tiles / split, last = (rank + 1) * tiles / split;
+static_assert(wg::kStages == 2, "the ring below alternates two stages");
+
+template <int DP>
+struct DkvLayout {  // byte offsets in dynamic shared memory (after 1024-byte alignment)
+  static constexpr int kTile = kR * DP * 2;
+  static constexpr int kV = kTile;                                // k at 0
+  static constexpr int kRing = 2 * kTile;                         // stage s: q, dout at + 2sT
+  static constexpr int kStats = kRing + 2 * wg::kStages * kTile;  // stage s: m, l, di (64 each)
+  static constexpr int kIds = kStats + wg::kStages * 3 * kR * 4;  // stage s: 64 query ids
+  static constexpr int kBars = kIds + wg::kStages * kR * 4;        // k and v, then one per stage
+  static constexpr int kBytes = kBars + (1 + wg::kStages) * 8 + 1024;
+};
+
+template <int DP, bool kTma, bool kSeg>
+__global__ void __launch_bounds__(wg::kThreads)
+    flash_bwd_dkv_bf16(const __grid_constant__ wg::View qview,
+                       const __grid_constant__ wg::View kview,
+                       const __grid_constant__ wg::View vview,
+                       const __grid_constant__ wg::View doview, const uint16_t* __restrict__ q,
+                       const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                       const uint16_t* __restrict__ dout, const float* __restrict__ l,
+                       const float* __restrict__ m, const float* __restrict__ di,
+                       uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                       const int* __restrict__ seg, Strides sq, Strides sk, Strides sv,
+                       Strides sdo, Strides sdk, Strides sdv, int heads, int n, int d,
+                       float scale) {
+  using L = DkvLayout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (flash::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = flash::smem_addr(smem);
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);
+  int* ids = reinterpret_cast<int*>(smem + L::kIds);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh - (bh / heads) * heads;
+  const int k0 = blockIdx.y * kR;
+  const int tiles = (n + kR - 1) / kR;
   const long long rb = static_cast<long long>(bh) * n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   const uint16_t* qb = q + b * sq.b + h * sq.h;
   const uint16_t* dob = dout + b * sdo.b + h * sdo.h;
-  const int* sb = kSeg ? seg + b * n : nullptr;
-  bf::stage_rows<D, kVec>(ks, k + b * sk.b + h * sk.h, sk.n, k0, n, d);
-  bf::stage_rows<D, kVec>(vs, v + b * sv.b + h * sv.h, sv.n, k0, n, d);
-  auto stage_walk = [&](int tile, int s) {
-    bf::stage_rows<D, kVec>(stage + 2 * s * T, qb, sq.n, tile * kRows, n, d);
-    bf::stage_rows<D, kVec>(stage + 2 * s * T + T, dob, sdo.n, tile * kRows, n, d);
-    stage_row_stats(stats + 3 * kRows * s, m + rb, l + rb, di + rb, tile * kRows, n);
-    if constexpr (kSeg) flash::stage_ids(walk_seg + kRows * s, sb, tile * kRows, n, 3 * kRows);
-  };
-  if (first < last) stage_walk(first, 0);
-  flash::cp_async_commit();
+  const int* sb = kSeg ? seg + static_cast<long long>(b) * n : nullptr;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 16;      // the warp's 16 keys of the block
-  const int n0 = (warp >> 1) * 8;      // its 8 queries of the score tile
-  const int c0 = (warp >> 1) * kCols;  // its columns of dk and dv
-  const int2 key_seg = kSeg ? owned_ids(sb, k0 + m0 + g, n) : int2{0, 0};
-  float acc_dk[kN][4] = {}, acc_dv[kN][4] = {};
-
-  for (int it = first; it < last; ++it) {
-    const int s = (it - first) & 1;
-    if (it + 1 < last) stage_walk(it + 1, s ^ 1);
+  // the q and dout tiles of query tile `tile`, its m, l, di and ids into stage s
+  auto issue = [&](int tile, int s) {
+    const int at = L::kRing + 2 * s * L::kTile;
+    if constexpr (kTma) {
+      if (tid == 0) {
+        wg::mbar_expect_tx(bars + 1 + s, 2 * L::kTile);
+#pragma unroll
+        for (int p = 0; p < DP / 64; ++p) {
+          const int off = at + p * wg::kPanelBytes;
+          wg::tma_load(base + off, qview, 64 * p, tile * kR, h, b, bars + 1 + s);
+          wg::tma_load(base + off + L::kTile, doview, 64 * p, tile * kR, h, b, bars + 1 + s);
+        }
+      }
+    } else {
+      wg::stage_tile<DP>(smem + at, qb, sq.n, tile * kR, n, d);
+      wg::stage_tile<DP>(smem + at + L::kTile, dob, sdo.n, tile * kR, n, d);
+    }
+    float* st = stats + 3 * kR * s;
+    wg::stage_row64(st, m + rb, tile * kR, n, 0);
+    wg::stage_row64(st + kR, l + rb, tile * kR, n, kR);
+    wg::stage_row64(st + 2 * kR, di + rb, tile * kR, n, 0);
+    if constexpr (kSeg)
+      wg::stage_row64(reinterpret_cast<float*>(ids + kR * s), reinterpret_cast<const float*>(sb),
+                      tile * kR, n, kR);
     flash::cp_async_commit();
-    flash::cp_async_wait<1>();  // this tile's copies (the next tile's may fly)
-    const uint16_t* qs = stage + 2 * s * T;
-    const uint16_t* dos = qs + T;
-    float* st = stats + 3 * kRows * s;
-    const int* qseg = walk_seg + kRows * s;
-    invert_l(st);
-    __syncthreads();
-    const int q0 = it * kRows;
+  };
 
-    // s^T = k q^T and dp^T = v dout^T: the warp's 16 keys x 8 queries
-    float sc[4] = {}, dp[4] = {};
+  // k, v and the walk's first two tiles (thread 0 issues the TMA copies on
+  // the barriers it has just initialized; the __syncthreads publishes them)
+  if (kTma && tid == 0) {
+    wg::prefetch_view(qview);
+    wg::prefetch_view(kview);
+    wg::prefetch_view(vview);
+    wg::prefetch_view(doview);
+    for (int i = 0; i < 1 + wg::kStages; ++i) wg::mbar_init(bars + i, 1);
+    wg::mbar_init_fence();
+  }
+  if constexpr (kTma) {
+    if (tid == 0) {
+      wg::mbar_expect_tx(bars, 2 * L::kTile);
 #pragma unroll
-    for (int e = 0; e < D; e += 16) {
-      uint32_t a[4], bq[2];
-      bf::load_a(a, ks, S, m0, e);
-      bf::load_b_t(bq, qs, S, n0, e);
-      bf::mma16(sc, a, bq);
-      bf::load_a(a, vs, S, m0, e);
-      bf::load_b_t(bq, dos, S, n0, e);
-      bf::mma16(dp, a, bq);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + g + 8 * (i >> 1);  // key in the block
-      const int c = n0 + 2 * t + (i & 1);   // query in the tile
-      const float e = expf(sc[i] * scale - st[c]) * st[kRows + c];
-      const bool ok = q0 + c < n && k0 + r < n &&
-                      (!kSeg || (i < 2 ? key_seg.x : key_seg.y) == qseg[c]);
-      const float p = ok ? e : 0.f;
-      ps[r * kSP + c] = bf::from_float(p);
-      dss[r * kSP + c] = bf::from_float(p * (dp[i] - st[2 * kRows + c]) * scale);
-    }
-    __syncthreads();
-
-    // dv += p^T dout, dk += ds^T q over the tile's 32 queries
-    float tv[kN][4] = {}, tk[kN][4] = {};
-#pragma unroll
-    for (int e = 0; e < kRows; e += 16) {
-      uint32_t pa[4], da[4];
-      bf::load_a(pa, ps, kSP, m0, e);
-      bf::load_a(da, dss, kSP, m0, e);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        uint32_t bo[2];
-        bf::load_b(bo, dos, S, e, c0 + 8 * j);
-        bf::mma16(tv[j], pa, bo);
-        bf::load_b(bo, qs, S, e, c0 + 8 * j);
-        bf::mma16(tk[j], da, bo);
+      for (int p = 0; p < DP / 64; ++p) {
+        wg::tma_load(base + p * wg::kPanelBytes, kview, 64 * p, k0, h, b, bars);
+        wg::tma_load(base + L::kV + p * wg::kPanelBytes, vview, 64 * p, k0, h, b, bars);
       }
     }
+  } else {
+    wg::stage_tile<DP>(smem, k + b * sk.b + h * sk.h, sk.n, k0, n, d);
+    wg::stage_tile<DP>(smem + L::kV, v + b * sv.b + h * sv.h, sv.n, k0, n, d);
+  }
+  issue(0, 0);
+  if (tiles > 1) issue(1, 1);  // both stages start free
+  __syncthreads();
+
+  // keys 16w + g and 16w + g + 8: an exponent bias of -inf past n (p = 0
+  // there), and their ids
+  float key_bias[2];
+  int key_seg[2] = {0, 0};
 #pragma unroll
-    for (int j = 0; j < kN; ++j)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ki = k0 + 16 * warp + g + 8 * hr;
+    key_bias[hr] = ki < n ? 0.f : -INFINITY;
+    if constexpr (kSeg) key_seg[hr] = ki < n ? sb[ki] : 0;
+  }
+
+  const float scale2 = scale * kLog2e;
+  float acc_dk[DP / 2], acc_dv[DP / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc_dv[j][i] += tv[j][i];
-        acc_dk[j][i] += tk[j][i];
+  for (int i = 0; i < DP / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  if constexpr (kTma) wg::mbar_wait(bars, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < tiles; ++it) {
+    if constexpr (kTma) wg::mbar_wait(bars + 1 + s, phase);
+    flash::cp_async_wait<0>();
+    float* st = stats + 3 * kR * s;
+    const int q0 = it * kR;
+    {  // the stats this thread staged, in the forms the tile uses: m log2(e)
+       // (+inf past n, so p = 0 there) by threads 0..63, 1 / l (0 past n) by 64..127
+      const int c = tid & (kR - 1);
+      float& x = st[tid < kR ? c : kR + c];
+      x = q0 + c < n ? (tid < kR ? x * kLog2e : 1.f / x) : (tid < kR ? INFINITY : 0.f);
+    }
+    if constexpr (!kTma) wg::fence_proxy_async();
+    __syncthreads();  // the tile and its stats landed; every warp is done with the other stage
+    if (it > 0 && it + 1 < tiles) issue(it + 1, s ^ 1);  // into the stage of tile it - 1
+    const uint32_t qt = base + L::kRing + 2 * s * L::kTile, dot = qt + L::kTile;
+
+    // S^T = K Q^T and dP^T = V dout^T: 64 keys x 64 queries
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wg::wgmma_ss_n64(sc, wg::desc_k(base, kk), wg::desc_k(qt, kk), kk > 0);
+      wg::wgmma_ss_n64(dp, wg::desc_k(base + L::kV, kk), wg::desc_k(dot, kk), kk > 0);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait();
+    wg::fence_regs(sc);
+    wg::fence_regs(dp);
+
+    // p^T and ds^T in fp32, in place: query c of the tile is column 8j + 2t
+    // + e. Masked entries get an exponent of -inf, so p = 0 without a
+    // branch: keys past n by key_bias, queries past n by their stats, other
+    // segments' queries by the same bias.
+    const int* tile_ids = ids + kR * s;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float m2 = st[c], inv_l = st[kR + c], dc = st[2 * kR + c];
+        const int qid = kSeg ? tile_ids[c] : 0;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 4 * j + 2 * hr + e;
+          const float bias = kSeg && key_seg[hr] != qid ? -INFINITY : key_bias[hr];
+          const float p = wg::ex2(fmaf(sc[i], scale2, bias - m2)) * inv_l;
+          sc[i] = p;
+          dp[i] = p * (dp[i] - dc) * scale;
+        }
       }
-    __syncthreads();  // stage s and ps/dss are free
+    uint32_t pa[4][4], da[4][4];  // p^T and ds^T in bf16, by k16 slice of queries
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::pack_a(pa[kk], sc, kk);
+      wg::pack_a(da[kk], dp, kk);
+    }
+
+    // dV += P^T dout, dK += dS^T Q over the tile's 64 queries
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // slices of queries past n hold p = ds = 0: skipped
+      if (q0 + 16 * kk < n) {
+        wg::wgmma_rs<DP>(acc_dv, pa[kk], wg::desc_mn(dot, kk), 1);
+        wg::wgmma_rs<DP>(acc_dk, da[kk], wg::desc_mn(qt, kk), 1);
+      }
+    wg::wgmma_commit();
+    wg::wgmma_wait();
+    wg::fence_regs(acc_dv);
+    wg::fence_regs(acc_dk);
+    if (++s == wg::kStages) {
+      s = 0;
+      phase ^= 1;
+    }
   }
   flash::cp_async_wait<0>();
 
-  bf::store_acc<D, kN>(red, acc_dk, m0, c0);
-  bf::store_acc<D, kN>(red + kRows * D, acc_dv, m0, c0);
-  cluster.sync();
-  reduce_rows<D>(cluster, red, split, dk + b * sdk.b + h * sdk.h, sdk.n, k0, n, d);
-  reduce_rows<D>(cluster, red + kRows * D, split, dv + b * sdv.b + h * sdv.h, sdv.n, k0, n, d);
-  cluster.sync();  // every rank's shared memory stays until all have read it
+  uint16_t* dkb = dk + b * sdk.b + h * sdk.h;
+  uint16_t* dvb = dv + b * sdv.b + h * sdv.h;
+  const bool pairs = wg::pairs_ok(dkb, sdk.n, d) && wg::pairs_ok(dvb, sdv.n, d);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ki = k0 + 16 * warp + g + 8 * hr;
+    if (ki >= n) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t, i = 4 * j + 2 * hr;
+      wg::store_pair(dkb + ki * sdk.n, c, d, acc_dk[i], acc_dk[i + 1], pairs);
+      wg::store_pair(dvb + ki * sdv.n, c, d, acc_dv[i], acc_dv[i + 1], pairs);
+    }
+  }
 }
 
 template <int D, bool kVec, bool kSeg>
@@ -348,15 +455,17 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 }
 
-template <int D, bool kVec>
-cudaError_t launch_dkv(const uint16_t* q, const uint16_t* k, const uint16_t* v,
-                       const uint16_t* dout, const float* l, const float* m, const float* di,
-                       uint16_t* dk, uint16_t* dv, const int* seg, const Strides* s, int batch,
-                       int heads, int n, int d, int split, float scale, cudaStream_t stream) {
+template <int DP, bool kTma>
+cudaError_t launch_dkv(const wg::View* views, const uint16_t* q, const uint16_t* k,
+                       const uint16_t* v, const uint16_t* dout, const float* l, const float* m,
+                       const float* di, uint16_t* dk, uint16_t* dv, const int* seg,
+                       const Strides* s, int batch, int heads, int n, int d, float scale,
+                       cudaStream_t stream) {
   return flash::with_segments(seg, [&](auto segments) {
-    return flash::launch_cluster<&flash_bwd_dkv_bf16<D, kVec, decltype(segments)::value>>(
-        Smem<D>::kDkv, batch, heads, n, split, stream, q, k, v, dout, l, m, di, dk, dv, seg,
-        s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d, split, scale);
+    return wg::launch<&flash_bwd_dkv_bf16<DP, kTma, decltype(segments)::value>>(
+        DkvLayout<DP>::kBytes, batch, heads, n, stream, views[0], views[1], views[2], views[3],
+        q, k, v, dout, l, m, di, dk, dv, seg, s[0], s[1], s[2], s[3], s[4], s[5], heads, n, d,
+        scale);
   });
 }
 
@@ -374,26 +483,51 @@ cudaError_t launch_dq(const uint16_t* q, const uint16_t* k, const uint16_t* v,
 
 }  // namespace
 
-// As flash_attention_bwd_dkv_launch (csrc/flash_attention_bwd.cu), for
-// bf16 q, k, v, dout, dk and dv; l, m and di stay fp32.
+// As flash_attention_bwd_dkv_launch (csrc/flash_attention_bwd.cu), for bf16
+// q, k, v, dout, dk and dv (l, m and di stay fp32), under
+// ops/flash_attention.bf16_plan: rows must be 64 and split 1. The TMA
+// variant runs where q, k, v and dout pass wg::tma_ok, the plain-load
+// variant elsewhere.
 extern "C" int flash_attention_bwd_dkv_bf16_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* l,
     const void* m, const void* di, void* dk, void* dv, const void* seg,
     const long long* strides, int batch, int heads, int n, int d, int rows, int split,
     float scale, void* stream) {
-  if (!flash::plan_ok(batch, heads, n, d, rows, split))
+  if (!wg::plan_ok(batch, heads, n, d, rows, split))
     return static_cast<int>(cudaErrorInvalidValue);
   Strides s[6];
   for (int i = 0; i < 6; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  wg::View views[4] = {};
   const void* inputs[4] = {q, k, v, dout};
-  const bool vec = flash::vec_ok(inputs, strides, 4, d, 8);
-  return static_cast<int>(FLASH_DISPATCH(
-      launch_dkv, vec, d, static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(l), static_cast<const float*>(m),
-      static_cast<const float*>(di), static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
-      static_cast<const int*>(seg), s, batch, heads, n, d, split, scale,
-      static_cast<cudaStream_t>(stream)));
+  bool tma = true;
+  for (int i = 0; i < 4; ++i) tma = tma && wg::tma_ok(inputs[i], s[i], batch, heads, n, d);
+  for (int i = 0; tma && i < 4; ++i)
+    if (!wg::encode_view(&views[i], inputs[i], s[i], batch, heads, n, d))
+      return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qp = static_cast<const uint16_t*>(q);
+  const auto* kp = static_cast<const uint16_t*>(k);
+  const auto* vp = static_cast<const uint16_t*>(v);
+  const auto* dop = static_cast<const uint16_t*>(dout);
+  const auto* lp = static_cast<const float*>(l);
+  const auto* mp = static_cast<const float*>(m);
+  const auto* dip = static_cast<const float*>(di);
+  auto* dkp = static_cast<uint16_t*>(dk);
+  auto* dvp = static_cast<uint16_t*>(dv);
+  const auto* sp = static_cast<const int*>(seg);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d <= 64) {
+    err = tma ? launch_dkv<64, true>(views, qp, kp, vp, dop, lp, mp, dip, dkp, dvp, sp, s, batch,
+                                     heads, n, d, scale, st)
+              : launch_dkv<64, false>(views, qp, kp, vp, dop, lp, mp, dip, dkp, dvp, sp, s,
+                                      batch, heads, n, d, scale, st);
+  } else {
+    err = tma ? launch_dkv<128, true>(views, qp, kp, vp, dop, lp, mp, dip, dkp, dvp, sp, s,
+                                      batch, heads, n, d, scale, st)
+              : launch_dkv<128, false>(views, qp, kp, vp, dop, lp, mp, dip, dkp, dvp, sp, s,
+                                       batch, heads, n, d, scale, st);
+  }
+  return static_cast<int>(err);
 }
 
 // As flash_attention_bwd_dq_launch, for bf16 q, k, v, dout and dq.

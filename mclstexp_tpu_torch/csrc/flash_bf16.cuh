@@ -1,8 +1,8 @@
-// Building blocks of the bfloat16 flash-attention kernels for Hopper
-// (sm_90a): bf16 tiles in shared memory, multiplied on the tensor cores with
-// mma.sync m16n8k16 (and m16n8k8 where a product's depth is 8) on bf16
-// operands with fp32 accumulators, one pass per product where the fp32
-// kernels' 3xTF32 takes three.
+// Building blocks of the bfloat16 flash-attention dQ kernel for Hopper
+// (sm_90a; the bf16 forward and dK/dV are warpgroup kernels built from
+// flash_wgmma.cuh): bf16 tiles in shared memory, multiplied on the tensor
+// cores with mma.sync m16n8k16 on bf16 operands with fp32 accumulators, one
+// pass per product where the fp32 kernels' 3xTF32 takes three.
 //
 // Tiles. A tile is kRows x D bf16 values (D = 32, 64 or 128), row r at
 // r * (D + 8): each row is padded by one 16-byte chunk, so the row stride is
@@ -10,16 +10,13 @@
 // (8 rows of 4 words: 4g + t; 4 rows of 8 words: 8t + g / 2) without a
 // swizzle. Values are kept as their raw 16 bits (uint16_t).
 //
-// Fragments (PTX ISA, mma.m16n8k16 / m16n8k8 with .bf16; lane = 4 g + t):
+// Fragments (PTX ISA, mma.m16n8k16 with .bf16; lane = 4 g + t):
 //   A 16 x 16, row major: a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g,
-//     2t + 8..), a3 = (g + 8, 2t + 8..); m16n8k8 takes a0, a1 only;
+//     2t + 8..), a3 = (g + 8, 2t + 8..);
 //   B 16 x 8: b0 = (rows 2t, 2t + 1; column g), b1 = (rows 2t + 8, 2t + 9);
-//     m16n8k8 takes b0 only;
 //   C 16 x 8 fp32: c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..).
 // Each 32-bit register holds two bf16 values, the lower index in the lower
-// half. A C fragment of 16 x 8 is thus, packed in pairs, the A fragment of
-// m16n8k8 (a0 = c0|c1, a1 = c2|c3): a score block becomes the A operand of
-// the next product in registers.
+// half.
 //
 // The C entry points, plan and launch are flash_common.cuh's; the kernels
 // are their own (not a type parameter of the fp32 ones), so the fp32
@@ -47,11 +44,6 @@ struct Tile {
 // round to nearest even, what XLA's convert (and the library's astype) does
 __device__ __forceinline__ uint16_t from_float(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// two floats as one register of two bf16: lo in the lower half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return static_cast<uint32_t>(from_float(lo)) | (static_cast<uint32_t>(from_float(hi)) << 16);
 }
 
 // 16 bytes global -> shared, asynchronously; zeros when !valid
@@ -132,14 +124,6 @@ __device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b, m16n8k8, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // A warp's kN accumulator fragments of 16 x 8 into a row-major fp32 block

@@ -28,15 +28,21 @@ plain versions; one plain TF32 product would not be).
 
 bfloat16 (``ModelConfig.dtype="bfloat16"``: the JAX modules hand the
 library kernels q, k, v in the compute dtype): each kernel has a bf16
-counterpart of the same design (``csrc/flash_attention_bf16.cu``,
-``csrc/flash_attention_bwd_bf16.cu``; mma m16n8k16 on bf16 operands with
-fp32 accumulators) that does the library's casts at the library's places:
+counterpart (``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_bwd_bf16.cu``) that does the library's casts at the
+library's places:
 p to bf16 before ``p @ v``, p^T before ``p^T @ dout``, ds before ``ds @ k``
 and ``ds^T @ q``; l, m and ``di`` stay fp32, the outputs are bf16. The
 plain versions do the same casts (exact bf16 products, fp32 sums, one
 rounding of each output) and are the bf16 kernels' oracle. A bf16 CUDA
 tensor launches the bf16 kernel (``bf16_launches``, ``bf16_segment_launches``
 on each wrapper) or raises; nothing is cast to fp32 to reach the fp32 one.
+The bf16 forward and dK/dV are Hopper warpgroup kernels (``wgmma`` on 64-row
+tiles, one CTA per block, K/V or Q/dout through a two-stage TMA ring;
+``bf16_plan``); their C launchers take the TMA variant where every input
+view allows it and the one that stages by plain loads elsewhere
+(``tma_ok`` says which, for reports). The bf16 dQ keeps the fp32 kernels'
+32-row ``cluster_plan`` and mma.sync m16n8k16.
 
 Segment ids (the TPU kernels' ``SegmentIds(q=m, kv=m)``, which
 ``core/layers.py:207-212`` builds from a slide's padding mask): an int32
@@ -90,6 +96,8 @@ BF16_BWD_SOURCE = "flash_attention_bwd_bf16.cu"
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 MAX_HEAD_DIM = 128
 ROWS = 32  # rows of every tile, owned or walked: the grid's second dimension is ceil(n / 32)
+BF16_ROWS = 64  # the bf16 forward's and dK/dV's tiles: one warpgroup's wgmma rows
+BF16_STAGES = 2  # depth of their ring of walked tiles (csrc/flash_wgmma.cuh kStages)
 MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
@@ -286,7 +294,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     _launch(_fwd_entry(q.dtype), "flash_attention",
-            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
+            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale, warpgroup=True)
     _count(flash_attention, q, segment_ids)
     return (out, l, m) if residuals else out
 
@@ -315,14 +323,53 @@ def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
     return ROWS, split, blocks * split
 
 
-def _launch(fn, what: str, pointers, segment_ids, strided, scale: float) -> None:
+def bf16_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int, int]:
+    """(rows, split, ctas, stages) of the bf16 forward and dK/dV kernels at
+    (b, h, n, d).
+
+    Each owns blocks of ``rows`` = 64 queries (forward) or keys (dK/dV), one
+    warpgroup's ``wgmma`` tile, b * h * ceil(n / 64) of them, one CTA each
+    (``split`` = 1, ``ctas`` = the blocks): a CTA walks all of the other
+    side's ceil(n / 64) tiles, which come through a ring of ``stages`` = 2.
+    (A cluster split of the walk lost to split 1 on the card at every shape
+    the port launches; PERF.md PR 11.) Raises ValueError outside the
+    kernels' limits."""
+    if min(b, h, n) < 1 or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the bf16 flash kernels take b, h, n >= 1 and 1 <= d <= "
+                         f"{MAX_HEAD_DIM}, got {(b, h, n, d)}")
+    tiles = -(-n // BF16_ROWS)
+    if tiles > 65535:
+        raise ValueError(f"the bf16 flash kernels take n <= {65535 * BF16_ROWS}, got {n}")
+    if b * h >= 2**31:
+        raise ValueError(f"the bf16 flash kernels take b * h < 2**31, got {b} * {h}")
+    return BF16_ROWS, 1, b * h * tiles, BF16_STAGES
+
+
+def tma_ok(*tensors: torch.Tensor) -> bool:
+    """Whether the warpgroup kernels' launchers copy these (b, h, n, d) bf16
+    inputs by TMA, as their ``wg::tma_ok`` decides (``csrc/flash_wgmma.cuh``):
+    d % 8 == 0, every base 16-byte aligned and the stride of every dimension
+    longer than 1 a multiple of 8 elements (16 bytes). Otherwise they take
+    the variant that stages the same tiles by 2-byte loads. For reports and
+    tests; nothing passes it to a kernel."""
+    b, h, n, d = tensors[0].shape
+    return d % 8 == 0 and all(
+        t.data_ptr() % 16 == 0
+        and all(s % 8 == 0 for s, e in zip(t.stride()[:3], (b, h, n)) if e > 1)
+        for t in tensors)
+
+
+def _launch(fn, what: str, pointers, segment_ids, strided, scale: float,
+            warpgroup: bool = False) -> None:
     """``fn(*pointers, segment_ids, strides, b, h, n, d, rows, split, scale,
-    stream)`` for q = ``strided[0]`` under ``cluster_plan``; raises on a
-    CUDA error."""
+    stream)`` for q = ``strided[0]`` under ``cluster_plan``, or under
+    ``bf16_plan`` for a bf16 launch of a ``warpgroup`` kernel (the forward,
+    dK/dV). Raises on a CUDA error."""
     q = strided[0]
     strides = (ctypes.c_longlong * (3 * len(strided)))(
         *(s for t in strided for s in t.stride()[:3]))
-    rows, split, _ = cluster_plan(*q.shape)
+    plan = bf16_plan if warpgroup and q.dtype == torch.bfloat16 else cluster_plan
+    rows, split = plan(*q.shape)[:2]
     with torch.cuda.device(q.device):
         err = fn(*(None if t is None else t.data_ptr() for t in (*pointers, segment_ids)),
                  strides, *q.shape,
@@ -356,7 +403,8 @@ def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float,
     _check_segments(q, segment_ids)
     dk, dv = _bhnd_like(q), _bhnd_like(q)
     _launch(_bwd_entries(q.dtype)[0], "flash_attention backward",
-            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale)
+            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale,
+            warpgroup=True)
     _count(flash_bwd_dkv, q, segment_ids)
     return dk, dv
 

@@ -1,6 +1,6 @@
 """Device times of the port's kernels at the inputs the main path gives them.
 
-    python -m mclstexp_tpu_torch.profile_kernels
+    python -m mclstexp_tpu_torch.profile_kernels [--only flash]
 
 * ``row_shift`` at the flagship (128, 224, 224, 3), float32 and bfloat16,
   in its row layout (a contiguous image: the Paeth row shears) and its
@@ -12,12 +12,13 @@
 * ``extract_patches`` on a 20,000 x 20,000 x 3 uint8 slide (a Visium
   full-resolution image) with 4,992 grid centers and 64 at and past its
   border (``patch_centers``), P = 224;
-* the three flash kernels (the forward without residuals, dK/dV, dQ) on
-  the views of one qkv buffer at ``FLASH_SHAPES`` (the flagship's eval
-  sweep, training and ragged lengths, the slide baselines' 768 and 4,096
-  rows), without segment ids and, where the package's kernels take them,
-  with them (the last 63 rows padded), by graph replays below n = 4,096
-  and by events over eager launches at it (``time_flash``).
+* the three flash kernels (the forward without and with residuals, dK/dV,
+  dQ) in float32 and in bfloat16 on the views of one qkv buffer at
+  ``FLASH_SHAPES`` (the flagship's eval sweep, training, remainder and
+  ragged lengths, the slide baselines' 768 and 4,096 rows), without segment
+  ids and, where the package's kernels take them, with them (the last 63
+  rows padded), by graph replays below n = 4,096 and by events over eager
+  launches at it (``time_flash``). ``--only flash`` times these alone.
 
 Each data-movement case is checked bit-equal to the plain version (the
 flash kernels are checked by ``chip_smoke.py`` and the card tests) and
@@ -48,8 +49,8 @@ FLAGSHIP = (128, 224, 224, 3)  # the Paeth shears' images at the her2st widths
 I32_MIN = -2**31
 VISIUM_SIDE = 20_000  # a Visium full-resolution image.tif is about 20,000-25,000 px a side
 PATCH = 224
-FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 16, 768, 64),
-                (1, 16, 4096, 64))
+FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 66, 64), (1, 8, 128, 64), (1, 8, 300, 64),
+                (1, 16, 768, 64), (1, 16, 4096, 64))
 FLASH_PADDED = 63  # rows of the padded tail in the segment-id case
 
 
@@ -191,29 +192,46 @@ def time_patches(slide, centers) -> dict:
                                  iters=5)}
 
 
-def time_flash(shape, g, segments: bool) -> dict:
-    """ms per call of the flash forward (no residuals), dK/dV and dQ at
-    ``shape`` on the views of one qkv buffer, with segment ids (the last
-    ``FLASH_PADDED`` rows padded) or without."""
+def time_flash(shape, g, segments: bool, dtype=torch.float32) -> dict:
+    """ms per call of the flash forward (without and with residuals), dK/dV
+    and dQ at ``shape`` in ``dtype`` on the views of one qkv buffer, with
+    segment ids (the last ``FLASH_PADDED`` rows padded) or without."""
     b, h, n, d = shape
-    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda").to(dtype)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    do = torch.randn((b, h, n, d), generator=g, device="cuda")
+    do = torch.randn((b, h, n, d), generator=g, device="cuda").to(dtype)
     scale = d**-0.5
     ids = ((torch.arange(n, device="cuda") < n - FLASH_PADDED).to(torch.int32)[None]
            .expand(b, n).contiguous(),) if segments else ()
     out, l, m = fa.flash_forward(q, k, v, scale, True, *ids)
-    di = (out * do).sum(-1).contiguous()
+    di = (out.float() * do.float()).sum(-1).contiguous()
     timed = (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if n >= 4096 else graph_ms
     return {"fwd": timed(lambda: fa.flash_forward(q, k, v, scale, False, *ids)),
+            "fwd_res": timed(lambda: fa.flash_forward(q, k, v, scale, True, *ids)),
             "bwd_dkv": timed(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale, *ids)),
             "bwd_dq": timed(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale, *ids))}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="profile_kernels")
+    parser.add_argument("--only", choices=["all", "flash"], default="all")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
+    has_ids = "segment_ids" in inspect.signature(fa.flash_forward).parameters
+    flash = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_SHAPES:
+            key = f"{str(dtype)[6:]} {shape}"
+            flash[key] = {"no_ids": time_flash(shape, g, False, dtype)}
+            if has_ids:
+                flash[key]["ids"] = time_flash(shape, g, True, dtype)
+    if only == "flash":
+        print(json.dumps({"card": card_line(), "flash": flash}), flush=True)
+        return
     shifts = {}
     for dtype in (torch.float32, torch.bfloat16):
         for (layout, kind), (view, k) in shift_inputs(g, dtype).items():
@@ -221,12 +239,6 @@ def main() -> None:
     slide, _, centers = patch_input(g)
     patches = time_patches(slide, centers)
     del slide, centers
-    has_ids = "segment_ids" in inspect.signature(fa.flash_forward).parameters
-    flash = {}
-    for shape in FLASH_SHAPES:
-        flash[str(shape)] = {"no_ids": time_flash(shape, g, False)}
-        if has_ids:
-            flash[str(shape)]["ids"] = time_flash(shape, g, True)
     print(json.dumps({"card": card_line(), "row_shift": shifts, "extract_patches": patches,
                       "flash": flash}), flush=True)
 

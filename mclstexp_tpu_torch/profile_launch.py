@@ -14,7 +14,11 @@ queue stays short and the window measures the host), median of 5 windows:
   * ``flash_bwd_dkv``, ``flash_bwd_dq``, ``flash_forward`` (with residuals):
     the Python wrappers (checks, output allocation, plan, launch, count);
   * ``pair``: forward with residuals + di + dK/dV + dQ, as the autograd
-    Function runs them.
+    Function runs them;
+  * the same in bfloat16 (``*_bf16``), the forward's C entry point too: the
+    bf16 forward and dK/dV entry points encode a TMA tensor map per input
+    view (under ``bf16_plan``; a checkout without it, under
+    ``cluster_plan``).
 Prints one JSON object of microseconds per call, with the card's name and
 power limit. Needs a CUDA card.
 """
@@ -51,6 +55,60 @@ def _host_us(fn) -> float:
     return statistics.median(windows)
 
 
+def _plan(dtype, warpgroup: bool) -> tuple:
+    """(rows, split) of a C entry point at SHAPE: ``cluster_plan``'s, or
+    ``bf16_plan``'s for the bf16 forward and dK/dV (``warpgroup``) of a
+    checkout that has it."""
+    if warpgroup and dtype == torch.bfloat16 and hasattr(fa, "bf16_plan"):
+        return fa.bf16_plan(*SHAPE)[:2]
+    return PLAN
+
+
+def _time_dtype(dtype, qkv, do, l, m, di, scale) -> dict:
+    """Host microseconds per call of the entry points and wrappers in
+    ``dtype`` (keys suffixed ``_bf16`` for bf16)."""
+    b, h, n, d = SHAPE
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    dk, dv, dq, out = (torch.empty_like(do) for _ in range(4))
+    dkv_entry, dq_entry = fa._bwd_entries(dtype)
+    fwd_entry = fa._fwd_entry(dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(fn, ptrs, tensors, warpgroup=False):
+        strides = (ctypes.c_longlong * (3 * len(tensors)))(
+            *(s for t in tensors for s in t.stride()[:3]))
+        args = (*ptrs, None, strides, b, h, n, d, *_plan(dtype, warpgroup), scale, stream)
+
+        def call():
+            if fn(*args) != 0:
+                raise RuntimeError("flash launch failed")
+        return call
+
+    inputs = [t.data_ptr() for t in (q, k, v, do, l, m, di)]
+    fwd_ptrs = [t.data_ptr() for t in (q, k, v, out, l, m)]
+    bwd = (q, k, v, do)
+
+    def pair():
+        o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
+        dd = (o.float() * do.float()).sum(-1).contiguous()
+        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
+        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
+
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    result = {
+        "bwd_dkv_entry": _host_us(entry(dkv_entry, inputs + [dk.data_ptr(), dv.data_ptr()],
+                                        (*bwd, dk, dv), True)),
+        "bwd_dq_entry": _host_us(entry(dq_entry, inputs + [dq.data_ptr()], (*bwd, dq))),
+        "flash_bwd_dkv": _host_us(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale)),
+        "flash_bwd_dq": _host_us(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale)),
+        "flash_forward": _host_us(lambda: fa.flash_forward(q, k, v, scale, residuals=True)),
+        "pair": _host_us(pair),
+    }
+    if dtype == torch.bfloat16:
+        result["fwd_entry"] = _host_us(entry(fwd_entry, fwd_ptrs, (q, k, v, out), True))
+    return {key + sfx: us for key, us in result.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_launch: needs a CUDA device")
@@ -62,37 +120,10 @@ def main() -> None:
     scale = d**-0.5
     out, l, m = fa.flash_forward(q, k, v, scale, residuals=True)
     di = (out * do).sum(-1).contiguous()
-    dk, dv, dq = (torch.empty_like(out) for _ in range(3))
 
-    dkv_entry, dq_entry = fa._bwd_entries(torch.float32)
-    stream = torch.cuda.current_stream().cuda_stream
-    inputs = [t.data_ptr() for t in (q, k, v, do, l, m, di)]
-
-    def entry(fn, outs):
-        tensors = (q, k, v, do, *outs)
-        strides = (ctypes.c_longlong * (3 * len(tensors)))(
-            *(s for t in tensors for s in t.stride()[:3]))
-        args = (*inputs, *(t.data_ptr() for t in outs), strides, b, h, n, d, *PLAN, scale, stream)
-
-        def call():
-            if fn(*args) != 0:
-                raise RuntimeError("flash backward launch failed")
-        return call
-
-    def pair():
-        o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
-        dd = (o * do).sum(-1).contiguous()
-        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
-        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
-
-    result = {
-        "bwd_dkv_entry": _host_us(entry(dkv_entry, (dk, dv))),
-        "bwd_dq_entry": _host_us(entry(dq_entry, (dq,))),
-        "flash_bwd_dkv": _host_us(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale)),
-        "flash_bwd_dq": _host_us(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale)),
-        "flash_forward": _host_us(lambda: fa.flash_forward(q, k, v, scale, residuals=True)),
-        "pair": _host_us(pair),
-    }
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        result.update(_time_dtype(dtype, qkv.to(dtype), do.to(dtype), l, m, di, scale))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
     print(json.dumps({"card": card.strip().splitlines()[0], "shape": list(SHAPE),

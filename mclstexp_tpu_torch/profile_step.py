@@ -1,12 +1,17 @@
 """Where the time of one train step goes, at the her2st widths, on the card.
 
-    python -m mclstexp_tpu_torch.profile_step
+    python -m mclstexp_tpu_torch.profile_step [--slide] [--dtype float32|bfloat16]
 
 Builds the her2st-width model (densenet121, 224 px, spot_dim 785,
 pos_vocab 1024, 2 blocks of 8x64 heads, projection 256, batch 128) from a
 seed on synthetic sections, warms up, times 10 steps on the host clock
 (ending in a synchronize), then records 3 steps with ``torch.profiler``.
-Prints one JSON object:
+With ``--slide``, the step is instead one whole-slide HisToGene step with
+``attn_backend="flash"`` at the her2st flow's widths (dim 1024, 8 layers of
+16 x 64 heads, 112 px, 785 genes) on a 63 x 63 grid of random spots
+(3,969, padded to 4,096 rows: attention (1, 16, 4,096, 64) with segment
+ids), from a seed. ``--dtype`` is the model's compute dtype (default
+float32). Prints one JSON object:
   * ``ms_per_step``: host wall time per step, unprofiled;
   * ``device_busy_ms_per_step`` and ``idle_share``: the union of kernel
     intervals against the profiled window;
@@ -14,12 +19,16 @@ Prints one JSON object:
     step's named ranges (augment, forward, backward, optimizer);
   * ``categories`` and ``top_kernels``: device time by kernel family/name.
 Needs a CUDA card; the Chrome trace goes to
-``<checkout>/build/profile_step_trace.json``.
+``<checkout>/build/profile_step_trace.json``. To compare a parent commit
+in one chip call, unpack it into ``build/parent``, copy this file into its
+package and run parent, change, change, parent.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import json
 import re
 import time
@@ -37,10 +46,12 @@ from mclstexp_tpu_torch.train.step import make_train_step
 
 PHASES = ("augment", "forward", "backward", "optimizer")
 TIMED_STEPS, PROFILED_STEPS = 10, 3
+SLIDE_SIDE = 63  # the whole slide: a 63 x 63 grid, 3,969 spots
 TRACE = BUILD_DIR.parent / "profile_step_trace.json"  # <checkout>/build/
 # First match wins: cuDNN's batch-norm and convolution kernels share the
 # "cudnn" prefix, and its convolutions also carry "gemm" in their names.
 CATEGORIES = (
+    ("flash", r"flash_"),
     ("row_shift", r"shift_rows|shift_cols"),
     ("batch_norm", r"batch_norm|batchnorm|bn_fw|bn_bw|welford"),
     ("layout_transpose", r"nchwToNhwc|nhwcToNchw"),
@@ -103,11 +114,10 @@ def summarize(trace: dict, steps: int, phases=PHASES) -> dict:
     }
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA device")
-
+def flagship_step(dtype: str):
+    """run(i) of one her2st-width train step, and its phases."""
     cfg = her2st_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
     sections = synthetic.make_dataset(num_sections=2, num_spots=128,
                                       num_genes=cfg.model.spot_dim,
                                       patch_size=cfg.data.patch_size, seed=0)
@@ -120,7 +130,39 @@ def main() -> None:
     def run(i):
         idx = np.arange(i * b, (i + 1) * b) % len(data.expression)
         return step(state, data.take(idx), augment.sample_st_draws(g, b, "cuda"))
+    return run, PHASES
 
+
+def slide_step(dtype: str):
+    """run(i) of one whole-slide HisToGene step with "flash", and its
+    phases (none: the slide step names no ranges)."""
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.section import Section
+
+    cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
+                                 max_epochs=1, dtype=dtype)
+    n = SLIDE_SIDE * SLIDE_SIDE
+    rng = np.random.default_rng(31)
+    grid = np.stack(np.meshgrid(np.arange(SLIDE_SIDE), np.arange(SLIDE_SIDE)), -1)
+    grid = grid.reshape(-1, 2).astype(np.int32)
+    whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32), grid, grid,
+                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
+    state = trainer.init_baseline(cfg, "cuda", "flash")
+    step = trainer.make_slide_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return (lambda i: step(state, batch, gen)), ()
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(prog="profile_step")
+    parser.add_argument("--slide", action="store_true")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+
+    run, phases = (slide_step if args.slide else flagship_step)(args.dtype)
     for i in range(3):
         run(i)
     torch.cuda.synchronize()
@@ -138,8 +180,9 @@ def main() -> None:
     TRACE.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(TRACE))
     with open(TRACE) as f:
-        summary = summarize(json.load(f), PROFILED_STEPS)
-    print(json.dumps({"ms_per_step": ms, "timed_steps": TIMED_STEPS,
+        summary = summarize(json.load(f), PROFILED_STEPS, phases)
+    print(json.dumps({"step": "histogene whole slide" if args.slide else "her2st flagship",
+                      "dtype": args.dtype, "ms_per_step": ms, "timed_steps": TIMED_STEPS,
                       "profiled_steps": PROFILED_STEPS, "device": torch.cuda.get_device_name(0),
                       **summary}, indent=1))
 

@@ -2,10 +2,11 @@
 
 The layout mirrors the JAX build and the reference:
 ``<root>/<dataset>/<section>/best_<fold>/``. The port writes one file,
-``state.pt``, holding the step, the model ``state_dict`` (reference keys),
-the optimizer state and the model's compute dtype (``saved_dtype``: the
-parameters are fp32 either way, so the dtype is what a reader must know to
-rebuild the model that was trained). ``load_checkpoint`` restores the model from it
+``state.pt``, holding the step, the model ``state_dict`` (reference keys)
+and the optimizer state. It keeps no compute dtype, as the JAX build's
+checkpoints keep none: the parameters are fp32 either way, and a reader
+builds the model in the dtype it asks for (the command line's ``--dtype``).
+``load_checkpoint`` restores the model from it
 (what eval and serving need); ``restore_checkpoint`` + ``apply_checkpoint``
 restore the whole train state (what resuming a fold needs), as the JAX
 build's functions of the same names do.
@@ -38,10 +39,8 @@ def save_checkpoint(path: str, state: TrainState) -> str:
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, STATE_FILE)
     tmp = out + ".tmp"
-    config = getattr(state.model, "config", None)
     torch.save({"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "dtype": getattr(config, "dtype", "float32")}, tmp)
+                "optimizer": state.optimizer.state_dict()}, tmp)
     os.replace(tmp, out)  # a crash mid-save never leaves a torn checkpoint
     return out
 
@@ -50,15 +49,6 @@ def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
     """Read ``<path>/state.pt`` onto ``device``: {"step", "model",
     "optimizer"}."""
     return torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
-
-
-def saved_dtype(path: str) -> str:
-    """The compute dtype of the model saved in ``<path>/state.pt`` ("float32"
-    for a file written before the dtype was saved). The file is mapped, not
-    read whole."""
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True,
-                       mmap=True)
-    return saved.get("dtype", "float32")
 
 
 def apply_checkpoint(state: TrainState, restored: Dict[str, Any]) -> TrainState:

@@ -255,18 +255,52 @@ def test_commands_run_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
         cli.main(argv + ["--device", "cpu", "--dtype", "float16"])
 
 
-def test_train_and_eval_in_bfloat16(tmp_path, monkeypatch):
-    """``train --dtype bfloat16`` on the synthetic preset trains a bf16 model
-    and saves its dtype; ``eval`` and ``predict`` without ``--dtype`` rebuild
-    the model in the checkpoint's bf16 and score it."""
-    from mclstexp_tpu_torch.train import checkpoint as ckpt
+@pytest.fixture(scope="module")
+def bf16_fold(tmp_path_factory):
+    """A working directory holding the synthetic preset's fold 0 trained by
+    ``train --dtype bfloat16`` (one epoch, on the CPU)."""
+    work = tmp_path_factory.mktemp("bf16_cli")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        assert cli.main(["train", "--dataset", "synthetic", "--fold", "0", "--device", "cpu",
+                         "--max_epochs", "1", "--dtype", "bfloat16"]) == 0
+    finally:
+        os.chdir(cwd)
+    fold_dir = next((work / "model_result" / "synthetic").glob("*/best_0"))
+    assert (fold_dir / checkpoint.STATE_FILE).is_file()
+    return work, fold_dir
+
+
+class _NoServer:
+    """What ``make_server`` returns in place of an HTTP server: it serves
+    nothing and returns at once."""
+    server_address = ("127.0.0.1", 0)
+
+    def serve_forever(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
+@pytest.mark.parametrize("command", ["eval", "predict", "serve"])
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["no-dtype", "bfloat16"])
+def test_train_and_eval_in_bfloat16(bf16_fold, command, dtype, monkeypatch):
+    """After ``train --dtype bfloat16``, ``eval``, ``predict`` and ``serve``
+    build their model in ``--dtype``'s type (float32 without the flag), the
+    dtype JAX's ``_build_config`` gives on the same argv, and run to the end
+    on it."""
     from mclstexp_tpu_torch.train import state as state_mod
 
-    monkeypatch.chdir(tmp_path)
-    base = ["--dataset", "synthetic", "--fold", "0", "--device", "cpu"]
-    assert cli.main(["train", *base, "--max_epochs", "1", "--dtype", "bfloat16"]) == 0
-    fold_dir = next((tmp_path / "model_result" / "synthetic").glob("*/best_0"))
-    assert ckpt.saved_dtype(str(fold_dir)) == "bfloat16"
+    work, fold_dir = bf16_fold
+    monkeypatch.chdir(work)
+    argv = [command, "--dataset", "synthetic", "--fold", "0"]
+    argv += {"eval": ["--json", "out.json"], "predict": ["--checkpoint", str(fold_dir)],
+             "serve": ["--checkpoint", str(fold_dir), "--port", "0"]}[command]
+    if command == "serve":
+        argv.remove("--fold"), argv.remove("0")
+    argv += [] if dtype is None else ["--dtype", dtype]
     built = []
     create = state_mod.create_train_state
 
@@ -275,12 +309,17 @@ def test_train_and_eval_in_bfloat16(tmp_path, monkeypatch):
         return create(model_cfg, *args, **kw)
 
     monkeypatch.setattr(state_mod, "create_train_state", spy)
-    assert cli.main(["eval", *base, "--json", "out.json"]) == 0
-    assert built == ["bfloat16"]
-    avg = json.loads((tmp_path / "out.json").read_text())["avg"]
-    assert all(np.isfinite(v) for v in avg.values())
-    assert cli.main(["predict", *base, "--checkpoint", str(fold_dir)]) == 0
-    assert built == ["bfloat16", "bfloat16"]
+    monkeypatch.setattr(serve, "make_server", lambda *a, **kw: _NoServer())
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    seen = {}
+    monkeypatch.setattr(jax_cli, f"cmd_{command}", lambda args: seen.setdefault("args", args)
+                        and 0)
+    jax_cli.main(argv)
+    want = jax_cli._build_config(seen["args"]).model.dtype
+    assert built == [want] == [dtype or "float32"]
+    if command == "eval":
+        avg = json.loads((work / "out.json").read_text())["avg"]
+        assert all(np.isfinite(v) for v in avg.values())
 
 
 def test_reference_data_root_falls_back_as_in_jax(tmp_path, monkeypatch):
