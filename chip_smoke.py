@@ -110,7 +110,9 @@ order; any failure exits non-zero and prints no result line:
      HisToGene step at 3,969 spots (padded to 4,096), xla against flash;
  16. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
      embeddings and loss). The bf16 flash kernels (built with the others in
-     [build]) against their plain bf16 versions at (1, 8, n, 64), n = 32,
+     [build]; Hopper warpgroup kernels under ``bf16_plan``, checked first
+     at the edges of their 64-row tiles, at d % 8 != 0 and on misaligned
+     views) against their plain bf16 versions at (1, 8, n, 64), n = 32,
      128, 300, at d = 32 and 128, at the segment shapes (n = 384 and 768
      with padded tails, interleaved ids at 768) and at (1, 16, 4,096, 64)
      (events): bf16 outputs within 2**-7 of their largest magnitude +
@@ -2010,14 +2012,11 @@ def _bf16_bound(name, shape, segments: bool):
 
 
 def _bf16_kernel_plan(name, q, k, v, do) -> dict:
-    """The plan a bf16 kernel launches under at q's shape: the forward's and
-    dK/dV's ``bf16_plan`` (64-row warpgroup tiles, split 1, CTAs, ring
-    stages) with the staging their launchers pick for these inputs (TMA, or
-    the plain-load variant); dQ's ``cluster_plan``."""
+    """The plan a bf16 kernel launches under at q's shape: ``bf16_plan``
+    (64-row warpgroup tiles, split 1, CTAs, ring stages) with the staging
+    its launcher picks for these inputs (TMA, or the plain-load variant)."""
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
-    if name == "bwd_dq":
-        return dict(zip(("rows", "split", "ctas"), fa.cluster_plan(*q.shape)))
     plan = dict(zip(("rows", "split", "ctas", "stages"), fa.bf16_plan(*q.shape)))
     inputs = (q, k, v) if name == "fwd" else (q, k, v, do)
     plan["staging"] = "tma" if fa.tma_ok(*inputs) else "plain-load variant"
@@ -2032,8 +2031,8 @@ BF16_EDGES = [(1, 2, n, d) for d in (32, 64, 128) for n in (1, 63, 64, 65, 127, 
 
 
 def _bf16_edges(g) -> int:
-    """The redesigned bf16 forward and dK/dV at the edges of their 64-row
-    tiles (``BF16_EDGES``, without and with interleaved segment ids), at d %
+    """The bf16 warpgroup kernels (forward, dK/dV, dQ) at the edges of their
+    64-row tiles (``BF16_EDGES``, without and with interleaved segment ids), at d %
     8 != 0 and on views 2 bytes past a 16-byte boundary (the plain-load
     variant): each against its plain bf16 version (bf16 outputs within
     2**-7 of their largest magnitude + 1e-5, l within 1e-5 relative, m
@@ -2054,11 +2053,13 @@ def _bf16_edges(g) -> int:
         scale = d**-0.5
         ro, rl, rm = fa.flash_forward_plain(q, k, v, scale, seg)
         di = (ro.float() * do.float()).sum(-1).contiguous()
-        want = (ro, rl, rm, *fa.flash_bwd_dkv_plain(q, k, v, do, rl, rm, di, scale, seg))
+        want = (ro, rl, rm, *fa.flash_bwd_dkv_plain(q, k, v, do, rl, rm, di, scale, seg),
+                fa.flash_bwd_dq_plain(q, k, v, do, rl, rm, di, scale, seg))
 
         def run():
             return (*fa.flash_forward(q, k, v, scale, True, seg),
-                    *fa.flash_bwd_dkv(q, k, v, do, rl, rm, di, scale, seg))
+                    *fa.flash_bwd_dkv(q, k, v, do, rl, rm, di, scale, seg),
+                    fa.flash_bwd_dq(q, k, v, do, rl, rm, di, scale, seg))
 
         got, again = run(), run()
         torch.cuda.synchronize()
@@ -2194,9 +2195,10 @@ def phase_bf16_kernels() -> list:
 
     g = torch.Generator(device="cuda").manual_seed(10)
     edges = _bf16_edges(g)
-    log(f"[bf16] the warpgroup forward and dK/dV at {edges} tile-edge cases (n = 1, 63, 64, 65, "
-        f"127, 129 at d = 32 / 64 / 128, with and without ids; d % 8 != 0 and misaligned views "
-        f"on the plain-load variant): within tolerance of the plain versions, deterministic")
+    log(f"[bf16] the warpgroup forward, dK/dV and dQ at {edges} tile-edge cases (n = 1, 63, 64, "
+        f"65, 127, 129 at d = 32 / 64 / 128, with and without ids; d % 8 != 0 and misaligned "
+        f"views on the plain-load variant): within tolerance of the plain versions, "
+        f"deterministic")
     cases = [(str(shape), _bf16_case(g, shape)) for shape in BF16_SHAPES]
     for n, real, kind in BF16_SEG_CASES:
         cases.append((f"(1, 16, {n}, 64) {kind}", _bf16_case(g, (1, 16, n, 64),

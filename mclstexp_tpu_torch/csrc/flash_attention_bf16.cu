@@ -56,13 +56,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_bf16.cuh"
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
 
-namespace bf = flash::bf16;
 namespace wg = flash::wg;
 using flash::kLn2;
 using flash::kLog2e;
@@ -304,18 +302,6 @@ __global__ void __launch_bounds__(wg::kThreads)
   }
 }
 
-template <int DP, bool kTma>
-cudaError_t launch_fwd(const wg::View* views, const uint16_t* q, const uint16_t* k,
-                       const uint16_t* v, uint16_t* out, float* l_out, float* m_out,
-                       const int* seg, const Strides* s, int batch, int heads, int n, int d,
-                       float scale, cudaStream_t stream) {
-  return flash::with_segments(seg, [&](auto segments) {
-    return wg::launch<&flash_fwd_bf16<DP, kTma, decltype(segments)::value>>(
-        Layout<DP>::kBytes, batch, heads, n, stream, views[0], views[1], views[2], q, k, v, out,
-        l_out, m_out, seg, s[0], s[1], s[2], s[3], heads, n, d, scale);
-  });
-}
-
 }  // namespace
 
 // As flash_attention_fwd_launch (csrc/flash_attention.cu), for bf16 q, k, v
@@ -330,33 +316,23 @@ extern "C" int flash_attention_fwd_bf16_launch(const void* q, const void* k, con
   if (!wg::plan_ok(batch, heads, n, d, rows, split) || (l_out == nullptr) != (m_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Strides s[4];
-  for (int i = 0; i < 4; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  wg::read_strides(s, strides, 4);
   wg::View views[3] = {};
   const void* inputs[3] = {q, k, v};
-  bool tma = true;
-  for (int i = 0; i < 3; ++i) tma = tma && wg::tma_ok(inputs[i], s[i], batch, heads, n, d);
-  for (int i = 0; tma && i < 3; ++i)
-    if (!wg::encode_view(&views[i], inputs[i], s[i], batch, heads, n, d))
-      return static_cast<int>(cudaErrorInvalidValue);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  auto* op = static_cast<uint16_t*>(out);
-  auto* lp = static_cast<float*>(l_out);
-  auto* mp = static_cast<float*>(m_out);
+  bool tma;
+  if (!wg::encode_views(views, &tma, inputs, s, 3, batch, heads, n, d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* sp = static_cast<const int*>(seg);
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d <= 64) {
-    err = tma ? launch_fwd<64, true>(views, qp, kp, vp, op, lp, mp, sp, s, batch, heads, n, d,
-                                     scale, st)
-              : launch_fwd<64, false>(views, qp, kp, vp, op, lp, mp, sp, s, batch, heads, n, d,
-                                      scale, st);
-  } else {
-    err = tma ? launch_fwd<128, true>(views, qp, kp, vp, op, lp, mp, sp, s, batch, heads, n, d,
-                                      scale, st)
-              : launch_fwd<128, false>(views, qp, kp, vp, op, lp, mp, sp, s, batch, heads, n, d,
-                                       scale, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(wg::with_variant(d, tma, [&](auto dp, auto staging) {
+    constexpr int DP = decltype(dp)::value;
+    constexpr bool kTma = decltype(staging)::value;
+    return flash::with_segments(sp, [&](auto segments) {
+      return wg::launch<&flash_fwd_bf16<DP, kTma, decltype(segments)::value>>(
+          Layout<DP>::kBytes, batch, heads, n, static_cast<cudaStream_t>(stream), views[0],
+          views[1], views[2], static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+          static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
+          static_cast<float*>(l_out), static_cast<float*>(m_out), sp, s[0], s[1], s[2], s[3],
+          heads, n, d, scale);
+    });
+  }));
 }

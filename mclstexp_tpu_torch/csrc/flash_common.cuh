@@ -60,16 +60,14 @@ inline bool plan_ok(int batch, int heads, int n, int d, int rows, int split) {
          static_cast<long long>(batch) * heads * split <= 0x7fffffffLL;
 }
 
-// 16-byte staging: d and the strides (3 per input) multiples of `per16`,
-// the elements of 16 bytes (4 fp32, 8 bf16), and every input 16-byte
-// aligned.
-inline bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d,
-                   int per16 = 4) {
-  if (d % per16 != 0) return false;
+// 16-byte staging: d and the strides (3 per input) multiples of 4 floats,
+// and every input 16-byte aligned.
+inline bool vec_ok(const void* const* ptrs, const long long* strides, int count, int d) {
+  if (d % 4 != 0) return false;
   for (int i = 0; i < count; ++i) {
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
     for (int j = 0; j < 3; ++j)
-      if (strides[3 * i + j] % per16 != 0) return false;
+      if (strides[3 * i + j] % 4 != 0) return false;
   }
   return true;
 }

@@ -24,18 +24,20 @@
 //     product without leaving registers;
 //   * K-major operands (a tile's rows are M or N, its columns K) are read
 //     by descriptors whose start moves 32 bytes per k16 slice inside a
-//     panel; MN-major B operands (rows K, columns N: v, dout and q read as
-//     the right factor) by descriptors whose start moves 16 rows (2048
+//     panel; MN-major B operands (rows K, columns N: v, dout, q and k read
+//     as the right factor) by descriptors whose start moves 16 rows (2048
 //     bytes) per k16 slice, with the 64-column panels 8192 bytes apart
 //     (LBO) and 8-row groups 1024 bytes apart (SBO).
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_bf16.cuh"
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace flash {
@@ -97,8 +99,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// round to nearest even, what XLA's convert (and the library's astype) does
+__device__ __forceinline__ uint16_t from_float(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
 // two floats as one register of two bf16 (lo in the lower half), each
-// rounded to nearest even (as bf16::from_float) by one cvt.rn.bf16x2.f32
+// rounded to nearest even (as from_float) by one cvt.rn.bf16x2.f32
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
@@ -207,8 +214,8 @@ __device__ __forceinline__ void store_pair(uint16_t* row, int c, int d, float x0
   if (pairs) {
     if (c < d) *reinterpret_cast<uint32_t*>(row + c) = pack2(x0, x1);
   } else {
-    if (c < d) row[c] = bf16::from_float(x0);
-    if (c + 1 < d) row[c + 1] = bf16::from_float(x1);
+    if (c < d) row[c] = from_float(x0);
+    if (c + 1 < d) row[c + 1] = from_float(x1);
   }
 }
 
@@ -386,6 +393,35 @@ inline bool encode_view(View* view, const void* ptr, Strides s, int batch, int h
                 strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+// The element strides (b, h, n) of `count` views, three per view.
+inline void read_strides(Strides* s, const long long* strides, int count) {
+  for (int i = 0; i < count; ++i)
+    s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// The TMA views of the `count` inputs where every one passes tma_ok (*tma
+// true), else none (*tma false: the launch takes the plain-load variant).
+// Returns false where the driver refuses a view.
+inline bool encode_views(View* views, bool* tma, const void* const* inputs, const Strides* s,
+                         int count, int batch, int heads, int n, int d) {
+  *tma = true;
+  for (int i = 0; i < count; ++i) *tma = *tma && tma_ok(inputs[i], s[i], batch, heads, n, d);
+  for (int i = 0; *tma && i < count; ++i)
+    if (!encode_view(&views[i], inputs[i], s[i], batch, heads, n, d)) return false;
+  return true;
+}
+
+// The variant a launcher runs: go(DP, kTma), DP the tile width of d
+// (std::integral_constant 64 for d <= 64, else 128) and kTma whether the
+// inputs have TMA views (std::true_type or std::false_type).
+template <typename Go>
+cudaError_t with_variant(int d, bool tma, Go go) {
+  using W64 = std::integral_constant<int, 64>;
+  using W128 = std::integral_constant<int, 128>;
+  if (d <= 64) return tma ? go(W64{}, std::true_type{}) : go(W64{}, std::false_type{});
+  return tma ? go(W128{}, std::true_type{}) : go(W128{}, std::false_type{});
 }
 
 // One launch of Kernel(args...) on a grid of (batch * heads, ceil(n / 64))

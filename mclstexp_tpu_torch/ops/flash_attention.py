@@ -37,12 +37,12 @@ plain versions do the same casts (exact bf16 products, fp32 sums, one
 rounding of each output) and are the bf16 kernels' oracle. A bf16 CUDA
 tensor launches the bf16 kernel (``bf16_launches``, ``bf16_segment_launches``
 on each wrapper) or raises; nothing is cast to fp32 to reach the fp32 one.
-The bf16 forward and dK/dV are Hopper warpgroup kernels (``wgmma`` on 64-row
-tiles, one CTA per block, K/V or Q/dout through a two-stage TMA ring;
+The three bf16 kernels are Hopper warpgroup kernels (``wgmma`` on 64-row
+tiles, one CTA per block: the forward and dQ own 64 queries and walk K/V,
+dK/dV owns 64 keys and walks Q/dout, through a two-stage TMA ring;
 ``bf16_plan``); their C launchers take the TMA variant where every input
 view allows it and the one that stages by plain loads elsewhere
-(``tma_ok`` says which, for reports). The bf16 dQ keeps the fp32 kernels'
-32-row ``cluster_plan`` and mma.sync m16n8k16.
+(``tma_ok`` says which, for reports).
 
 Segment ids (the TPU kernels' ``SegmentIds(q=m, kv=m)``, which
 ``core/layers.py:207-212`` builds from a slide's padding mask): an int32
@@ -95,8 +95,8 @@ BF16_SOURCE = "flash_attention_bf16.cu"
 BF16_BWD_SOURCE = "flash_attention_bwd_bf16.cu"
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 MAX_HEAD_DIM = 128
-ROWS = 32  # rows of every tile, owned or walked: the grid's second dimension is ceil(n / 32)
-BF16_ROWS = 64  # the bf16 forward's and dK/dV's tiles: one warpgroup's wgmma rows
+ROWS = 32  # the fp32 kernels' tiles, owned or walked: the grid's second dimension is ceil(n / 32)
+BF16_ROWS = 64  # the bf16 kernels' tiles: one warpgroup's wgmma rows
 BF16_STAGES = 2  # depth of their ring of walked tiles (csrc/flash_wgmma.cuh kStages)
 MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -294,13 +294,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
     _launch(_fwd_entry(q.dtype), "flash_attention",
-            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale, warpgroup=True)
+            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
     _count(flash_attention, q, segment_ids)
     return (out, l, m) if residuals else out
 
 
 def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
-    """(rows, split, ctas) of the flash kernels at (b, h, n, d).
+    """(rows, split, ctas) of the fp32 flash kernels at (b, h, n, d).
 
     Each kernel owns blocks of ``rows`` = 32 queries (forward, dQ) or keys
     (dK/dV), b * h * ceil(n / 32) of them, and splits the walk over the
@@ -324,10 +324,9 @@ def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
 
 
 def bf16_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int, int]:
-    """(rows, split, ctas, stages) of the bf16 forward and dK/dV kernels at
-    (b, h, n, d).
+    """(rows, split, ctas, stages) of the bf16 flash kernels at (b, h, n, d).
 
-    Each owns blocks of ``rows`` = 64 queries (forward) or keys (dK/dV), one
+    Each owns blocks of ``rows`` = 64 queries (forward, dQ) or keys (dK/dV), one
     warpgroup's ``wgmma`` tile, b * h * ceil(n / 64) of them, one CTA each
     (``split`` = 1, ``ctas`` = the blocks): a CTA walks all of the other
     side's ceil(n / 64) tiles, which come through a ring of ``stages`` = 2.
@@ -359,16 +358,14 @@ def tma_ok(*tensors: torch.Tensor) -> bool:
         for t in tensors)
 
 
-def _launch(fn, what: str, pointers, segment_ids, strided, scale: float,
-            warpgroup: bool = False) -> None:
+def _launch(fn, what: str, pointers, segment_ids, strided, scale: float) -> None:
     """``fn(*pointers, segment_ids, strides, b, h, n, d, rows, split, scale,
-    stream)`` for q = ``strided[0]`` under ``cluster_plan``, or under
-    ``bf16_plan`` for a bf16 launch of a ``warpgroup`` kernel (the forward,
-    dK/dV). Raises on a CUDA error."""
+    stream)`` for q = ``strided[0]`` under ``cluster_plan`` (fp32) or
+    ``bf16_plan`` (bf16). Raises on a CUDA error."""
     q = strided[0]
     strides = (ctypes.c_longlong * (3 * len(strided)))(
         *(s for t in strided for s in t.stride()[:3]))
-    plan = bf16_plan if warpgroup and q.dtype == torch.bfloat16 else cluster_plan
+    plan = bf16_plan if q.dtype == torch.bfloat16 else cluster_plan
     rows, split = plan(*q.shape)[:2]
     with torch.cuda.device(q.device):
         err = fn(*(None if t is None else t.data_ptr() for t in (*pointers, segment_ids)),
@@ -403,8 +400,7 @@ def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float,
     _check_segments(q, segment_ids)
     dk, dv = _bhnd_like(q), _bhnd_like(q)
     _launch(_bwd_entries(q.dtype)[0], "flash_attention backward",
-            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale,
-            warpgroup=True)
+            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale)
     _count(flash_bwd_dkv, q, segment_ids)
     return dk, dv
 

@@ -9,16 +9,15 @@ windows of 1,000 calls after a synchronize (the kernels take a few
 microseconds on the card, less than a call takes on the host, so the
 queue stays short and the window measures the host), median of 5 windows:
   * ``bwd_dkv_entry``, ``bwd_dq_entry``: the backward kernels' C entry points
-    called through ctypes with prepared arguments (strides array, plan
-    rows 32 and split 4, the current stream): the launch alone;
+    called through ctypes with prepared arguments (strides array, the
+    plan's rows and split, the current stream): the launch alone;
   * ``flash_bwd_dkv``, ``flash_bwd_dq``, ``flash_forward`` (with residuals):
     the Python wrappers (checks, output allocation, plan, launch, count);
   * ``pair``: forward with residuals + di + dK/dV + dQ, as the autograd
     Function runs them;
   * the same in bfloat16 (``*_bf16``), the forward's C entry point too: the
-    bf16 forward and dK/dV entry points encode a TMA tensor map per input
-    view (under ``bf16_plan``; a checkout without it, under
-    ``cluster_plan``).
+    bf16 entry points run under ``bf16_plan`` and encode a TMA tensor map
+    per input view.
 Prints one JSON object of microseconds per call, with the card's name and
 power limit. Needs a CUDA card.
 """
@@ -36,7 +35,7 @@ import torch
 from mclstexp_tpu_torch.ops import flash_attention as fa
 
 SHAPE = (1, 8, 128, 64)
-PLAN = (32, 4)  # cluster_plan at SHAPE: rows, split
+PLAN = (32, 4)  # cluster_plan at SHAPE (fp32): rows, split
 CALLS, WINDOWS = 1000, 5
 
 
@@ -55,13 +54,10 @@ def _host_us(fn) -> float:
     return statistics.median(windows)
 
 
-def _plan(dtype, warpgroup: bool) -> tuple:
-    """(rows, split) of a C entry point at SHAPE: ``cluster_plan``'s, or
-    ``bf16_plan``'s for the bf16 forward and dK/dV (``warpgroup``) of a
-    checkout that has it."""
-    if warpgroup and dtype == torch.bfloat16 and hasattr(fa, "bf16_plan"):
-        return fa.bf16_plan(*SHAPE)[:2]
-    return PLAN
+def _plan(dtype) -> tuple:
+    """(rows, split) of the C entry points at SHAPE: ``cluster_plan``'s in
+    fp32, ``bf16_plan``'s in bf16."""
+    return fa.bf16_plan(*SHAPE)[:2] if dtype == torch.bfloat16 else PLAN
 
 
 def _time_dtype(dtype, qkv, do, l, m, di, scale) -> dict:
@@ -74,10 +70,10 @@ def _time_dtype(dtype, qkv, do, l, m, di, scale) -> dict:
     fwd_entry = fa._fwd_entry(dtype)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def entry(fn, ptrs, tensors, warpgroup=False):
+    def entry(fn, ptrs, tensors):
         strides = (ctypes.c_longlong * (3 * len(tensors)))(
             *(s for t in tensors for s in t.stride()[:3]))
-        args = (*ptrs, None, strides, b, h, n, d, *_plan(dtype, warpgroup), scale, stream)
+        args = (*ptrs, None, strides, b, h, n, d, *_plan(dtype), scale, stream)
 
         def call():
             if fn(*args) != 0:
@@ -97,7 +93,7 @@ def _time_dtype(dtype, qkv, do, l, m, di, scale) -> dict:
     sfx = "_bf16" if dtype == torch.bfloat16 else ""
     result = {
         "bwd_dkv_entry": _host_us(entry(dkv_entry, inputs + [dk.data_ptr(), dv.data_ptr()],
-                                        (*bwd, dk, dv), True)),
+                                        (*bwd, dk, dv))),
         "bwd_dq_entry": _host_us(entry(dq_entry, inputs + [dq.data_ptr()], (*bwd, dq))),
         "flash_bwd_dkv": _host_us(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale)),
         "flash_bwd_dq": _host_us(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale)),
@@ -105,7 +101,7 @@ def _time_dtype(dtype, qkv, do, l, m, di, scale) -> dict:
         "pair": _host_us(pair),
     }
     if dtype == torch.bfloat16:
-        result["fwd_entry"] = _host_us(entry(fwd_entry, fwd_ptrs, (q, k, v, out), True))
+        result["fwd_entry"] = _host_us(entry(fwd_entry, fwd_ptrs, (q, k, v, out)))
     return {key + sfx: us for key, us in result.items()}
 
 

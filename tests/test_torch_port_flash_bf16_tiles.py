@@ -1,13 +1,14 @@
-"""The bf16 flash forward's and dK/dV's 64-row warpgroup tiles.
+"""The bf16 flash kernels' 64-row warpgroup tiles.
 
-The two kernels (``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_
-bwd_bf16.cu::flash_bwd_dkv_bf16``) own blocks of 64 rows, one warpgroup's
-``wgmma`` tile, one CTA each, and walk the other side in tiles of 64
-through a two-stage ring (``bf16_plan``); inputs that TMA cannot take run a
-variant that stages the same tiles by plain loads (``tma_ok`` says which).
-On the CPU:
+The three kernels (``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_
+bwd_bf16.cu::flash_bwd_dkv_bf16`` and ``::flash_bwd_dq_bf16``) own blocks of
+64 rows, one warpgroup's ``wgmma`` tile, one CTA each, and walk the other
+side in tiles of 64 through a two-stage ring (``bf16_plan``); inputs that
+TMA cannot take run a variant that stages the same tiles by plain loads
+(``tma_ok`` says which). On the CPU:
 
-  (a) ``bf16_plan`` at every shape chip_smoke launches, and its limits;
+  (a) ``bf16_plan`` at every shape chip_smoke launches, and its limits; the
+      plan a bf16 dQ (and every bf16 launch) hands its C entry point;
   (b) ``tma_ok``: which views take TMA;
   (c) the tiles' maps (``csrc/flash_wgmma.cuh``): the 128-byte swizzle, the
       wgmma accumulator and the register A operand, as bijections, and the
@@ -16,15 +17,22 @@ On the CPU:
       to bf16 against the running max after each tile) held to the JAX
       library's Pallas kernel in interpret mode on bf16 inputs, within
       ``2**-7 * max|ref|`` as the plain versions are
-      (``test_torch_port_flash_bf16.py``), l and m within 1e-5.
+      (``test_torch_port_flash_bf16.py``), l and m within 1e-5; and one of
+      dQ's (64-key tiles, p from 2^x with m log2(e) and 1 / l, ds rounded to
+      bf16 per tile, dq summed in fp32 across tiles and rounded once) held
+      to the library's ``_flash_attention_bwd_dq`` within ``2**-7 * max|ref|
+      + 1e-5``.
 
-On the card (``gpu`` marker): both kernels against their plain bf16 versions
+On the card (``gpu`` marker): the three kernels against their plain bf16 versions
 at n = 1, 63, 64, 65, 127, 129, 300, 768, 4,096 and d = 32 / 64 / 128, with
 segment ids (tail-padded and interleaved), at d % 8 != 0 and on a misaligned
 view (the plain-load variant), the same bits on two runs, the launch counts:
 
     python -m pytest --noconftest tests/test_torch_port_flash_bf16_tiles.py -m gpu
 """
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -65,6 +73,47 @@ def test_bf16_plan_at_the_launched_shapes(shape, ctas):
     b, h, n, _ = shape
     assert fa.bf16_plan(*shape) == (64, 1, ctas, 2)
     assert ctas == b * h * -(-n // 64)
+
+
+# every shape chip_smoke.py launches the bf16 dQ at: the tile edges ([bf16]
+# ``BF16_EDGES``, then d % 8 != 0 and misaligned views), ``BF16_SHAPES``, the
+# segment shapes, the whole slide, the flagship fold's remainder batch and
+# the HisToGene folds' padded slides
+DQ_SHAPES = ([(1, 2, n, d) for d in (32, 64, 128) for n in (1, 63, 64, 65, 127, 129)]
+             + [(1, 3, 65, 36), (1, 2, 300, 20), (2, 2, 129, 64), (1, 2, 70, 100)]
+             + [(1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 8, 128, 32),
+                (1, 8, 128, 128), (1, 16, 384, 64), (1, 16, 768, 64), (1, 16, 4096, 64),
+                (1, 8, 66, 64), (1, 16, 640, 64)])
+
+
+def _entry_plan(monkeypatch, dtype, shape):
+    """The (rows, split) that ``_launch`` hands a dQ C entry point for q of
+    ``shape`` in ``dtype`` (a stand-in entry point records them)."""
+    seen = []
+
+    def entry(*args):  # pointers, ids, strides, b, h, n, d, rows, split, scale, stream
+        seen.append(args[-4:-2])
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    q = torch.empty(shape, dtype=dtype)
+    stats = torch.empty(shape[:3])
+    fa._launch(entry, "flash_bwd_dq", (q, q, q, q, stats, stats, stats, q), None,
+               (q, q, q, q, q), 0.125)
+    return seen[0]
+
+
+@pytest.mark.parametrize("shape", DQ_SHAPES, ids=str)
+def test_bf16_dq_launches_under_bf16_plan(monkeypatch, shape):
+    """A bf16 dQ runs under ``bf16_plan`` (64 rows, split 1, one CTA per
+    block of 64 queries) at every shape chip_smoke launches it; fp32 keeps
+    ``cluster_plan``."""
+    b, h, n, _ = shape
+    assert fa.bf16_plan(*shape) == (64, 1, b * h * -(-n // 64), 2)
+    assert _entry_plan(monkeypatch, torch.bfloat16, shape) == (64, 1)
+    assert _entry_plan(monkeypatch, torch.float32, shape) == fa.cluster_plan(*shape)[:2]
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 0), (1, 1, 1, 129), (1, 1, 0, 64), (0, 1, 8, 64),
@@ -244,6 +293,93 @@ def test_forward_model_is_the_plain_version_up_to_rounding_order():
     np.testing.assert_allclose(m, pm.numpy(), rtol=0, atol=1e-5)
 
 
+def dq_model(q, k, v, do, l, m, di, scale, seg):
+    """The redesigned dQ on the values: (b, h, n, d) fp32 arrays holding
+    bf16 values, l, m, di (b, h, n) fp32. Per tile of 64 keys in order: s =
+    q k^T and dp = do v^T in fp32, p = 2^(s scale log2(e) - m log2(e)) (0
+    across segments), ds = p ((dp - di) scale / l) in fp32 and rounded to
+    bf16, dq += ds k summed in fp32; dq rounded to bf16 once."""
+    with np.errstate(over="ignore"):  # 2^x of masked entries before they are zeroed
+        return _dq_model(q, k, v, do, l, m, di, scale, seg)
+
+
+def _dq_model(q, k, v, do, l, m, di, scale, seg):
+    n = q.shape[2]
+    f32 = np.float32
+    s_all = np.matmul(q, np.swapaxes(k, -1, -2), dtype=f32)
+    dp_all = np.matmul(do, np.swapaxes(v, -1, -2), dtype=f32)
+    m2 = (m * f32(LOG2E)).astype(f32)[..., None]
+    sl = (f32(scale) / l).astype(f32)[..., None]
+    same = None if seg is None else seg[:, None, :, None] == seg[:, None, None, :]
+    dq = np.zeros(q.shape, f32)
+    for tile in range(-(-n // 64)):
+        keys = slice(tile * 64, (tile + 1) * 64)
+        arg = (s_all[..., keys] * f32(scale * LOG2E) - m2).astype(f32)
+        if same is not None:
+            arg = np.where(same[..., keys], arg, -np.inf).astype(f32)
+        ds = np.exp2(arg) * ((dp_all[..., keys] - di[..., None]) * sl)
+        dq += np.matmul(_bf16(ds), k[..., keys, :], dtype=f32)
+    return _bf16(dq)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 300])
+@pytest.mark.parametrize("kind", ["none", "tail", "interleaved"])
+def test_dq_model_matches_the_library(n, kind):
+    """The model against ``_flash_attention_bwd_dq`` on bf16 inputs in
+    interpret mode (l, m from the library's forward, di = rowsum(o * do) as
+    the library's backward forms it), within 2**-7 * max|ref| + 1e-5. The
+    library takes blocks of 128 keys only (its l and m come in lanes of
+    128), so queries and keys are padded to a multiple of 128 in a segment
+    of their own that no real row sees; "none" gives every real row one id,
+    which is no mask on the real rows, and the model gets no ids."""
+    import jax.numpy as jnp
+    from test_torch_port_flash_grad import _library
+
+    lib, interpret = _library()
+    r = np.random.default_rng(200 + n)
+    q, k, v, do = (_bf16(r.normal(size=(1, 2, n, 64))) for _ in range(4))
+    seg = None
+    if kind == "tail":
+        seg = (np.arange(n) < max(1, n - 7)).astype(np.int32)[None]
+    elif kind == "interleaved":
+        seg = r.integers(0, 3, size=(1, n)).astype(np.int32)
+    pad = -(-n // 128) * 128
+    real = np.zeros((1, n), np.int32) if seg is None else seg
+    seg_p = jnp.asarray(np.concatenate([real, np.full((1, pad - n), 7, np.int32)], axis=1))
+    ids = lib.SegmentIds(q=seg_p, kv=seg_p)
+    jq, jk, jv, jdo = (jnp.asarray(np.pad(x, ((0, 0), (0, 0), (0, pad - n), (0, 0))))
+                       .astype(jnp.bfloat16) for x in (q, k, v, do))
+    blocks = lib.BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1)
+    with interpret():
+        o, l, m = lib._flash_attention(jq, jk, jv, None, ids, True, False, 0.125, blocks, False)
+        di = jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32), axis=-1)
+        dq, _ = lib._flash_attention_bwd_dq(
+            jq, jk, jv, None, ids, l, m, jdo, di, block_q_major=128, block_k_major=128,
+            block_k=128, sm_scale=0.125, causal=False, mask_value=lib.DEFAULT_MASK_VALUE,
+            debug=False)
+    assert dq.dtype == jnp.bfloat16
+    ref = np.asarray(dq.astype(jnp.float32))[:, :, :n]
+    l, m, di = (np.asarray(x, np.float32)[:, :, :n] for x in (l, m, di))
+    got = dq_model(q, k, v, do, l, m, di, 0.125, seg)
+    err = np.abs(got - ref).max()
+    assert err <= REL * np.abs(ref).max() + 1e-5, err
+
+
+def test_dq_model_is_the_plain_version_up_to_rounding_order():
+    """The model and ``flash_bwd_dq_plain`` share every cast (ds to bf16, dq
+    once); they differ only in how fp32 sums are ordered."""
+    r = np.random.default_rng(6)
+    q, k, v, do = (_bf16(r.normal(size=(1, 2, 200, 64))) for _ in range(4))
+    seg = r.integers(0, 2, size=(1, 200)).astype(np.int32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    o, l, m = fa.flash_forward_plain(tq, tk, tv, 0.125, tseg)
+    di = (o.float() * tdo.float()).sum(-1)
+    want = fa.flash_bwd_dq_plain(tq, tk, tv, tdo, l, m, di, 0.125, tseg).float().numpy()
+    got = dq_model(q, k, v, do, l.numpy(), m.numpy(), di.numpy(), 0.125, seg)
+    assert np.abs(got - want).max() <= REL * np.abs(want).max()
+
+
 # --- on the card ------------------------------------------------------------------------------
 
 
@@ -289,17 +425,22 @@ def _card_check(g, shape, kind="none", layout="qkv"):
     ro, rl, rm = fa.flash_forward_plain(q, k, v, scale, seg)
     di = (ro.float() * do.float()).sum(-1).contiguous()
     counts = lambda: (fa.flash_attention.bf16_launches,  # noqa: E731
-                      fa.flash_bwd_dkv.bf16_launches, fa.flash_attention.bf16_segment_launches)
+                      fa.flash_bwd_dkv.bf16_launches, fa.flash_bwd_dq.bf16_launches,
+                      fa.flash_attention.bf16_segment_launches,
+                      fa.flash_bwd_dq.bf16_segment_launches)
     before = counts()
 
     def run():
         out, l, m = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, rl, rm, di, scale, seg)
-        return out, l, m, dk, dv
+        dq = fa.flash_bwd_dq(q, k, v, do, rl, rm, di, scale, seg)
+        return out, l, m, dk, dv, dq
 
     got = run()
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1] + 1, before[2] + (seg is not None))
+    ids = seg is not None
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + ids,
+                        before[4] + ids)
     assert all(torch.equal(x, y) for x, y in zip(got, run()))
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, rl, rm, di, scale, seg)
     _close(got[0], ro, "out")
@@ -307,6 +448,7 @@ def _card_check(g, shape, kind="none", layout="qkv"):
     torch.testing.assert_close(got[2], rm, rtol=0, atol=1e-5)
     _close(got[3], want_dk, "dk")
     _close(got[4], want_dv, "dv")
+    _close(got[5], fa.flash_bwd_dq_plain(q, k, v, do, rl, rm, di, scale, seg), "dq")
     return fa.tma_ok(q, k, v, do)
 
 
