@@ -108,7 +108,23 @@ order; any failure exits non-zero and prints no result line:
      ``evaluate_baseline_fold``, ms per slide step; THItoGene (4 layers, ViT
      width 1,408, GAT) the same fold with "flash"; and one whole-slide
      HisToGene step at 3,969 spots (padded to 4,096), xla against flash;
- 16. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
+ 16. hist2st: Hist2ST at the reference widths (conv patchify, 2 mixers, dim
+     1,024, 8 layers of 16 x 64 heads, 4 GraphSAGE blocks, the LSTM, 785
+     genes, zinb 0.25, bake 5, lamb 0.5) on [baselines]' sections with
+     "flash": fold 0 for one epoch (48 segment launches of each kernel per
+     slide step: the slide and 5 bakes through 8 layers, gradients through
+     all six), flash against xla gradients on one slide (TF32 off; where
+     they part further than GRAD_RTOL, flash no farther than xla from a
+     float64 evaluation), ``predict_slide``
+     card against CPU (8 forward launches), ms per slide step at 768 rows
+     (xla, flash, flash, xla) and one whole-slide step (4,096 rows) with
+     peak memory;
+ 17. bleep: BLEEP (resnet50, 224 px, batch 128) on [train]'s sections:
+     ``train_bleep_fold`` for fold 0 (the reference's 4 epochs),
+     ``bleep_embeddings`` (the held-out
+     section's card against CPU), ``evaluate_fold`` of fold 0 in the three
+     retrieval modes, ms per step;
+ 18. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
      embeddings and loss). The bf16 flash kernels (built with the others in
      [build]; Hopper warpgroup kernels under ``bf16_plan``, checked first
      at the edges of their 64-row tiles, at d % 8 != 0 and on misaligned
@@ -128,7 +144,9 @@ order; any failure exits non-zero and prints no result line:
      [cli]'s tree, each a process of its own; HisToGene in bf16 (a fold of
      3 slide steps with 8 bf16 segment launches of each kernel per step,
      ms per slide step and peak memory bf16 against fp32 at 768 rows and
-     at the whole slide's 4,096) and a THItoGene fold in bf16.
+     at the whole slide's 4,096), a THItoGene fold and a Hist2ST fold (48
+     bf16 segment launches of each kernel per step, none in fp32) in bf16,
+     and one BLEEP step in bf16.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1853,21 +1871,117 @@ def _baseline_fold(cfg, sections, want_per_step: int, prefix: str = ""):
 
 
 def _slide_grads(model, cfg, batch):
+    """The slide loss's gradients, dropout and Hist2ST's bakes drawn from one
+    fixed key, so two models of one family draw the same."""
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
-    from mclstexp_tpu_torch.baselines.layers import seed_dropout
     from mclstexp_tpu_torch.ops import augment
 
     model.zero_grad(set_to_none=True)
-    seed_dropout(model, augment.reseed(torch.Generator(device="cuda"), 0, 1))
-    trainer.slide_loss(model, cfg, batch).backward()
+    trainer.slide_loss(model, cfg, batch, augment.reseed(torch.Generator(device="cuda"), 0, 1)
+                       ).backward()
     return {name: p.grad.clone() for name, p in model.named_parameters() if p.grad is not None}
+
+
+def _fp64_slide_grads(model, cfg, batch):
+    """The slide loss's gradients from a float64 copy of ``model`` on the same
+    inputs (the patches as the fp32 models see them, then widened) and the
+    same draws."""
+    import copy
+
+    from mclstexp_tpu_torch.ops import augment
+
+    twin = copy.deepcopy(model).double()
+    wide = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    to_float = augment.to_float
+    augment.to_float = lambda u: to_float(u).double()
+    try:
+        return _slide_grads(twin, cfg, wide)
+    finally:
+        augment.to_float = to_float
+
+
+def _flash_vs_xla_grads(phase, label, flash_model, cfg, batch, n_spots, near_zero=()):
+    """One padded slide's gradients through ``flash_model`` against a model
+    with "xla" attention and the same weights, TF32 off: every tensor within
+    GRAD_RTOL of its largest magnitude. Where the two part further (a small
+    sum of large terms, such as a position table's gradient, keeps their
+    rounding), the flash gradient must lie no farther from a float64
+    evaluation of the "xla" model than twice the xla gradient does, or
+    within GRAD_RTOL of it. Those named with a suffix in ``near_zero``, whose
+    gradient is zero up to rounding, must lie below 1e-5 of the largest
+    gradient on both sides."""
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+
+    xla = trainer.init_baseline(cfg, "cuda", "xla")
+    xla.model.load_state_dict(flash_model.state_dict())
+    with _no_tf32():  # TF32 convolutions would round the two models' gradients apart
+        got, want = _slide_grads(flash_model, cfg, batch), _slide_grads(xla.model, cfg, batch)
+    trained = [p for p in flash_model.parameters() if p.requires_grad]
+    if set(got) != set(want) or len(got) != len(trained):
+        raise AssertionError(f"{label}: flash and xla gradients cover other parameters: "
+                             f"{sorted(got)}")
+    worst, worst_name, far = 0.0, None, {}
+    largest = max(float(g.abs().max()) for g in want.values())
+    for name, gr in got.items():
+        if name.endswith(near_zero):
+            small = max(float(gr.abs().max()), float(want[name].abs().max()))
+            if not small < 1e-5 * largest:
+                raise AssertionError(f"{label} {name}: gradient {small:.3e}, not zero up to "
+                                     f"rounding (largest gradient {largest:.3e})")
+            continue
+        scale = float(want[name].abs().max())
+        err = float((gr - want[name]).abs().max()) / max(scale, 1e-30)
+        if not torch.isfinite(gr).all():
+            raise AssertionError(f"{label} {name}: non-finite flash gradient")
+        if err > GRAD_RTOL:
+            far[name] = err
+        elif err >= worst:
+            worst, worst_name = err, name
+    against = {}
+    if far:
+        with _no_tf32():
+            exact = _fp64_slide_grads(xla.model, cfg, batch)
+        for name, err in far.items():
+            e = exact[name]
+            scale = max(float(e.abs().max()), 1e-30)
+            flash_err = float((got[name].double() - e).abs().max()) / scale
+            xla_err = float((want[name].double() - e).abs().max()) / scale
+            against[name] = f"{err:.2e} / {flash_err:.2e} / {xla_err:.2e}"
+            if not flash_err <= max(GRAD_RTOL, 2 * xla_err):
+                raise AssertionError(
+                    f"{label} {name}: flash vs xla gradient off by {err:.3e} of its largest "
+                    f"magnitude {float(want[name].abs().max()):.3e} (allowed {GRAD_RTOL}), and "
+                    f"{flash_err:.3e} from float64 against xla's {xla_err:.3e}")
+    log(f"[{phase}] {label} gradients on a {n_spots}-spot slide padded to "
+        f"{len(batch['mask'])}, flash vs xla, {len(got)} tensors: largest error {worst:.3e} of "
+        f"the tensor's largest magnitude ({worst_name}; allowed {GRAD_RTOL}); farther apart "
+        f"(flash vs xla / flash vs float64 / xla vs float64): {against or 'none'}")
+    return xla
+
+
+def _whole_slide():
+    """One 63 x 63-spot slide (3,969 spots, 4,096 rows) of random patches,
+    expression and counts, from a seed."""
+    import numpy as np
+
+    from mclstexp_tpu_torch.data.section import Section
+
+    n = WHOLE_SLIDE * WHOLE_SLIDE
+    rng = np.random.default_rng(31)
+    grid = np.stack(np.meshgrid(np.arange(WHOLE_SLIDE), np.arange(WHOLE_SLIDE)), -1)
+    grid = grid.reshape(-1, 2).astype(np.int32)
+    return Section("whole", rng.normal(size=(n, 785)).astype(np.float32), grid, grid,
+                   patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8),
+                   counts=rng.poisson(2.0, (n, 785)).astype(np.float32))
 
 
 def phase_baselines():
     """HisToGene and THItoGene at the her2st flow's widths on the card (see
-    the module docstring, phase 14). Returns the segment launches of the
+    the module docstring, phase 15). Returns the segment launches of the
     HisToGene fold (the main path) and of the THItoGene fold."""
     import dataclasses
 
@@ -1875,7 +1989,6 @@ def phase_baselines():
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
-    from mclstexp_tpu_torch.data.section import Section
 
     t0 = time.perf_counter()
     sections = _baseline_sections(785)
@@ -1890,23 +2003,8 @@ def phase_baselines():
 
     # One padded slide's gradients, flash against xla, from the same weights.
     batch = trainer.slide_tensors(trainer.pad_slide(sections[2], cfg.bucket, False, cfg), "cuda")
-    xla = trainer.init_baseline(cfg, "cuda", "xla")
-    xla.model.load_state_dict(state.model.state_dict())
-    got, want = _slide_grads(state.model, cfg, batch), _slide_grads(xla.model, cfg, batch)
-    if set(got) != set(want) or len(got) != len(list(state.model.parameters())):
-        raise AssertionError(f"flash and xla gradients cover other parameters: {sorted(got)}")
-    worst, worst_name = 0.0, None
-    for name, gr in got.items():
-        scale = float(want[name].abs().max())
-        err = float((gr - want[name]).abs().max()) / max(scale, 1e-30)
-        if not (torch.isfinite(gr).all() and err <= GRAD_RTOL):
-            raise AssertionError(f"HisToGene {name}: flash vs xla gradient off by {err:.3e} of "
-                                 f"its largest magnitude {scale:.3e} (allowed {GRAD_RTOL})")
-        if err >= worst:
-            worst, worst_name = err, name
-    log(f"[baselines] HisToGene gradients on a {sections[2].num_spots}-spot slide padded to "
-        f"{len(batch['mask'])}, flash vs xla, {len(got)} tensors: largest error {worst:.3e} of "
-        f"the tensor's largest magnitude ({worst_name}; allowed {GRAD_RTOL})")
+    xla = _flash_vs_xla_grads("baselines", "HisToGene", state.model, cfg, batch,
+                              sections[2].num_spots)
 
     # predict_slide's eager scaling on the card: a true division, as on the CPU.
     u8 = torch.arange(256, dtype=torch.uint8)
@@ -1957,12 +2055,8 @@ def phase_baselines():
     torch.cuda.empty_cache()
 
     # One whole-slide HisToGene step: 3,969 spots padded to 4,096.
-    n = WHOLE_SLIDE * WHOLE_SLIDE
-    rng = np.random.default_rng(31)
-    grid = np.stack(np.meshgrid(np.arange(WHOLE_SLIDE), np.arange(WHOLE_SLIDE)), -1)
-    whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32),
-                    grid.reshape(-1, 2).astype(np.int32), grid.reshape(-1, 2).astype(np.int32),
-                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    whole = _whole_slide()
+    n = whole.num_spots
     batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
     whole_times, peaks = {"xla": [], "flash": []}, {}
     xla = trainer.init_baseline(cfg, "cuda", "xla")
@@ -1980,6 +2074,203 @@ def phase_baselines():
     del xla, flash, batch
     torch.cuda.empty_cache()
     return counts, tcounts
+
+
+HIST2ST_PER_STEP = 48  # 6 train-mode passes (the slide, 5 bakes) x 8 attention layers
+
+
+def _no_tf32():
+    """A context in which cuDNN (convolutions, the LSTM) and cuBLAS take no
+    TF32 products: the card against the CPU at 1e-3."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    return ctx()
+
+
+def phase_hist2st():
+    """[hist2st] Hist2ST at the reference widths (dim 1,024, 16 x 64 heads,
+    depths 2 / 8 / 4, 785 genes, zinb 0.25, bake 5, lamb 0.5) with "flash" on
+    [baselines]' four sections: fold 0 for one epoch (48 segment launches of
+    each kernel per slide step: the slide and 5 bakes through 8 layers,
+    gradients through all six), flash against xla gradients on one slide,
+    ``predict_slide`` card against CPU, ms per slide step at 768 rows (xla,
+    flash, flash, xla) and one whole-slide step (4,096 rows, flash) with peak
+    memory. Returns the fold's segment launches."""
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+
+    sections = _baseline_sections(785)
+    cfg = trainer.BaselineConfig(model="hist2st", n_genes=785, patch_size=112, max_epochs=1)
+    state, seconds, counts, losses = _baseline_fold(cfg, sections, HIST2ST_PER_STEP)
+    model = state.model
+    log(f"[hist2st] Hist2ST (dim {model.dim}, depths {model.depth1}/{model.depth2}/"
+        f"{model.depth3}, zinb {cfg.zinb_coef}, bake {trainer.resolve_bake(cfg)}, lamb "
+        f"{cfg.lamb}) train_baseline_fold attn_backend='flash': {state.step} slide steps in "
+        f"{seconds:.1f} s incl. set-up, loss {losses}; segment launches forward/dK-dV/dQ "
+        f"{counts} ({HIST2ST_PER_STEP} per step)")
+
+    batch = trainer.slide_tensors(trainer.pad_slide(sections[2], cfg.bucket, True, cfg), "cuda")
+    # zero up to rounding: the conv biases before a batch norm, and coef's last
+    # bias, which adds the same to every bake before their softmax
+    xla = _flash_vs_xla_grads("hist2st", "Hist2ST", model, cfg, batch, sections[2].num_spots,
+                              near_zero=(".dw.0.bias", ".dw.3.bias", "coef.2.bias"))
+
+    test = sections[0]
+    cpu = trainer.build_baseline(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    _reset_counts()
+    with _no_tf32():
+        pred = trainer.predict_slide(model, test, cfg)
+    predict_counts = _flash_counts(segments=True)
+    want_pred = trainer.predict_slide(cpu, test, cfg)
+    err = float(np.abs(pred - want_pred).max())
+    if pred.shape != (test.num_spots, 785) or not err <= 1e-3:
+        raise AssertionError(f"Hist2ST predict_slide {pred.shape}: card vs CPU off by {err:.3e}")
+    if predict_counts != (8, 0, 0):
+        raise AssertionError(f"Hist2ST predict_slide launched {predict_counts} segment kernels "
+                             "(want 8 forward, no backward)")
+    metrics = trainer.evaluate_baseline_fold(cfg, sections, 0, model)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"Hist2ST evaluate_baseline_fold: {metrics}")
+    log(f"[hist2st] predict_slide on {test.name} ({test.num_spots} spots; segment launches "
+        f"{predict_counts}): card vs CPU max abs err {err:.3e} (atol 1e-3, TF32 off); "
+        f"evaluate_baseline_fold {metrics}")
+
+    times = {"xla": [], "flash": []}
+    for name in ("xla", "flash", "flash", "xla"):
+        times[name].append(_slide_step_ms(xla if name == "xla" else state, cfg, batch))
+    log(f"[hist2st] Hist2ST ms per slide step at {len(batch['mask'])} rows (xla, flash, flash, "
+        f"xla; 3 steps each): xla {times['xla']}, flash {times['flash']} on {card_line()}")
+    del xla, cpu, batch
+    torch.cuda.empty_cache()
+
+    whole = _whole_slide()
+    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, True, cfg), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ms = [_slide_step_ms(state, cfg, batch, n=2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[hist2st] Hist2ST whole-slide step, {whole.num_spots} spots padded to "
+        f"{len(batch['mask'])} (6 passes of 8 layers of attention (1, 16, 4096, 64) with ids), "
+        f"flash: {ms} ms per slide step (2 steps after one); peak memory {peak:.1f} GiB (the "
+        f"model, its Adam state and the step's six graphs) on {card_line()}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _bleep_cfg(**kw):
+    """BLEEP's reference protocol (resnet50, batch 128, AdamW 1e-3, 4 epochs)."""
+    from mclstexp_tpu_torch.baselines import trainer
+
+    return trainer.BaselineConfig(model="bleep", n_genes=785, patch_size=224,
+                                  encoder_name="resnet50", batch_size=128, **kw)
+
+
+def phase_bleep(sections) -> None:
+    """[bleep] BLEEP (resnet50, 224 px, batch 128, projection 256) on
+    [train]'s three sections: ``train_bleep_fold`` for fold 0 (the
+    reference's 4 epochs of 450 spots, each 3 batches and a remainder),
+    ``bleep_embeddings`` of every
+    spot, the held-out section's against the CPU's from the same weights
+    (TF32 off), ``evaluate_fold`` of fold 0 in the three retrieval modes
+    (finite; the HEG PCC NaN only where a HEG is predicted constant), and
+    ms per step at batch 128."""
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.pipeline import DeviceResidentData, ConcatSections
+    from mclstexp_tpu_torch.infer import embed, evaluate, metrics
+    from mclstexp_tpu_torch.ops import augment, retrieval
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    cfg = _bleep_cfg()
+    logger = MetricLogger(echo=False)
+    t0 = time.perf_counter()
+    state = trainer.train_bleep_fold(cfg, sections, 0, logger=logger, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [r["loss"] for r in logger.records]
+    steps = -(-sum(s.num_spots for s in sections[1:]) // cfg.batch_size) * len(losses)
+    if state.step != steps or not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"BLEEP fold: {state.step} steps of {steps}, losses {losses}")
+    log(f"[bleep] train_bleep_fold resnet50 batch {cfg.batch_size}, {len(losses)} epochs: "
+        f"{state.step} steps in "
+        f"{seconds:.1f} s incl. set-up, epoch loss {losses}")
+
+    img, spot = trainer.bleep_embeddings(state.model, sections)
+    sizes = [s.num_spots for s in sections]
+    if img.shape != (sum(sizes), 256) or not (np.isfinite(img).all() and np.isfinite(spot).all()):
+        raise AssertionError(f"bleep_embeddings: {img.shape}, finite {np.isfinite(img).all()}")
+    cpu = trainer.build_baseline(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    with _no_tf32():
+        card = trainer.bleep_embeddings(state.model, sections[:1])
+    want = trainer.bleep_embeddings(cpu, sections[:1])
+    errs = [float(np.abs(g - w).max()) for g, w in zip(card, want)]
+    if not max(errs) <= 1e-3:
+        raise AssertionError(f"bleep_embeddings card vs CPU off by {errs}")
+    # Each mode's metrics finite, but for the HEG PCC, which the reference
+    # averages raw over the 50 highest genes: NaN exactly when one of them is
+    # predicted constant over the queries (a Pearson r without a spread), as
+    # when the top-1 keys of every query are a handful of spots.
+    results, distinct, flat_hegs = {}, {}, {}
+    truth = sections[0].eval_expression
+    hegs = metrics.heg_indices(truth)
+    for mode, (top_k, weight_ord) in {"simple": (1, 0), "average": (50, 0),
+                                      "weighted": (50, -1)}.items():
+        results[mode] = evaluate.evaluate_fold(
+            0, embed.split_by_section(img, sizes)[0], embed.split_by_section(spot, sizes),
+            [s.eval_expression for s in sections], top_k=top_k, weight_ord=weight_ord,
+            device="cuda")
+        _, pred = retrieval.retrieve_and_aggregate(
+            np.concatenate(embed.split_by_section(spot, sizes)[1:]),
+            np.concatenate([s.eval_expression for s in sections[1:]]),
+            embed.split_by_section(img, sizes)[0], top_k=top_k, weight_ord=weight_ord,
+            device="cuda")
+        distinct[mode] = len(np.unique(pred, axis=0))
+        flat_hegs[mode] = int((pred[:, hegs].std(axis=0) == 0).sum())
+        heg_ok = math.isfinite(results[mode]["heg_pcc"]) or flat_hegs[mode] > 0
+        if not (heg_ok and all(math.isfinite(results[mode][k]) for k in ("hvg_pcc", "mse",
+                                                                          "mae"))):
+            raise AssertionError(f"BLEEP evaluate_fold {mode}: {results[mode]} ({distinct[mode]} "
+                                 f"distinct predictions of {sizes[0]} queries, "
+                                 f"{flat_hegs[mode]} HEGs predicted constant)")
+    log(f"[bleep] bleep_embeddings of {sum(sizes)} spots; {sections[0].name}'s card vs CPU max "
+        f"abs err image {errs[0]:.3e}, spot {errs[1]:.3e} (atol 1e-3, TF32 off); evaluate_fold "
+        f"fold 0: {results}; distinct predictions of {sizes[0]} queries {distinct}, HEGs "
+        f"predicted constant {flat_hegs}")
+
+    data = DeviceResidentData(ConcatSections.from_sections(sections[1:]), "cuda")
+    batch = data.take(np.arange(cfg.batch_size))
+    step = trainer.make_bleep_step(cfg)
+    gen = torch.Generator(device="cuda")
+    step(state, batch, augment.reseed(gen, 0, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5):
+        loss = step(state, batch, augment.reseed(gen, 0, i + 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    if not math.isfinite(float(loss)):
+        raise AssertionError("BLEEP: non-finite loss in the timed steps")
+    log(f"[bleep] BLEEP ms per step at batch {cfg.batch_size}: {ms:.2f} (5 steps after one) "
+        f"on {card_line()}")
+    del state, cpu, data
+    torch.cuda.empty_cache()
 
 
 BF16_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 8, 128, 32),
@@ -2347,19 +2638,18 @@ def phase_bf16_cli() -> None:
 
 
 def phase_bf16_baselines() -> tuple:
-    """[bf16] HisToGene and THItoGene in bf16 at [baselines]' widths with
-    "flash": a HisToGene fold (one epoch, 3 slide steps: 8 bf16 segment
+    """[bf16] HisToGene, THItoGene and Hist2ST in bf16 at [baselines]' widths
+    with "flash": a HisToGene fold (one epoch, 3 slide steps: 8 bf16 segment
     launches of each kernel per step, none in fp32), ms per slide step and
     peak memory bf16 against fp32 at 768 rows and at the whole 3,969-spot
-    slide (4,096 rows); a THItoGene fold. Returns the bf16 segment launches
-    of the two folds."""
+    slide (4,096 rows); a THItoGene fold; a Hist2ST fold (48 per step).
+    Returns the bf16 segment launches of the three folds."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
-    from mclstexp_tpu_torch.data.section import Section
 
     sections = _baseline_sections(785)
     cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
@@ -2384,12 +2674,8 @@ def phase_bf16_baselines() -> tuple:
     log(f"[bf16] HisToGene ms per slide step at {len(batch['mask'])} rows, flash (bf16, fp32, "
         f"fp32, bf16; 3 steps each): bf16 {times['bf16']}, fp32 {times['fp32']}; peak memory "
         f"bf16 {peaks['bf16']:.1f} GiB, fp32 {peaks['fp32']:.1f} GiB")
-    n = WHOLE_SLIDE * WHOLE_SLIDE
-    rng = np.random.default_rng(31)
-    grid = np.stack(np.meshgrid(np.arange(WHOLE_SLIDE), np.arange(WHOLE_SLIDE)), -1)
-    whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32),
-                    grid.reshape(-1, 2).astype(np.int32), grid.reshape(-1, 2).astype(np.int32),
-                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
+    whole = _whole_slide()
+    n = whole.num_spots
     batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
     _reset_counts()
     times, peaks = timed(batch, trainer.init_baseline(cfg, "cuda", "flash"), 2)
@@ -2411,7 +2697,41 @@ def phase_bf16_baselines() -> tuple:
         f"predict_slide finite")
     del tstate
     torch.cuda.empty_cache()
-    return counts, tcounts
+
+    hcfg = trainer.BaselineConfig(model="hist2st", n_genes=785, patch_size=112, max_epochs=1,
+                                  dtype="bfloat16")
+    hstate, seconds, hcounts, hlosses = _baseline_fold(hcfg, sections, HIST2ST_PER_STEP,
+                                                       prefix="bf16_")
+    hpred = trainer.predict_slide(hstate.model, sections[0], hcfg)
+    if hpred.shape != (sections[0].num_spots, 785) or not np.isfinite(hpred).all():
+        raise AssertionError(f"Hist2ST bf16 predict_slide: {hpred.shape}")
+    log(f"[bf16] Hist2ST bf16 train_baseline_fold: {hstate.step} slide steps in {seconds:.1f} s "
+        f"incl. set-up, loss {hlosses}; bf16 segment launches {hcounts} ({HIST2ST_PER_STEP} per "
+        f"step), fp32 none; predict_slide finite")
+    del hstate
+    torch.cuda.empty_cache()
+    return counts, tcounts, hcounts
+
+
+def phase_bf16_bleep(sections) -> None:
+    """[bf16] one BLEEP step in bf16 (resnet50, batch 128) on [train]'s
+    sections: a finite loss, fp32 parameters."""
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData
+
+    cfg = _bleep_cfg(dtype="bfloat16")
+    state = trainer.init_baseline(cfg, "cuda")
+    batch = DeviceResidentData(ConcatSections.from_sections(sections[1:]), "cuda").take(
+        np.arange(cfg.batch_size))
+    loss = float(trainer.make_bleep_step(cfg)(state, batch, torch.Generator(device="cuda")))
+    if not math.isfinite(loss) or any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError(f"BLEEP bf16 step: loss {loss}")
+    log(f"[bf16] BLEEP bf16 step (resnet50, batch {cfg.batch_size}): loss {loss:.4f}")
+    del state
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2444,17 +2764,23 @@ def main() -> int:
     cli_launches = phase_cli()
     seg_entries = phase_segment_kernels()
     seg_counts, thitogene_counts = phase_baselines()
+    hist2st_counts = phase_hist2st()
+    phase_bleep(sections)
     bf16_entries = phase_bf16_kernels()
     bf16_counts = phase_bf16_train(cfg, sections)
     phase_bf16_cli()
-    bf16_seg, bf16_tseg = phase_bf16_baselines()
-    for entry, count, seg, tseg in zip(bf16_entries, bf16_counts, bf16_seg, bf16_tseg):
-        entry["launches"] = count  # the bf16 flagship fold, this slice's main path
+    bf16_seg, bf16_tseg, bf16_hseg = phase_bf16_baselines()
+    phase_bf16_bleep(sections)
+    for entry, count, seg, tseg, hseg in zip(bf16_entries, bf16_counts, bf16_seg, bf16_tseg,
+                                             bf16_hseg):
+        entry["launches"] = count  # the bf16 flagship fold, the bf16 slice's main path
         entry["launches_by_path"] = {"bf16_train_flash": count, "histogene_fold": seg,
-                                     "thitogene_fold": tseg}
-    for entry, count, other in zip(seg_entries, seg_counts, thitogene_counts):
-        entry["launches"] = count  # the HisToGene fold, this slice's main path
-        entry["launches_by_path"] = {"histogene_fold": count, "thitogene_fold": other}
+                                     "thitogene_fold": tseg, "hist2st_fold": hseg}
+    for entry, count, hcount, other in zip(seg_entries, seg_counts, hist2st_counts,
+                                           thitogene_counts):
+        entry["launches"] = hcount  # the Hist2ST fold, this slice's main path
+        entry["launches_by_path"] = {"hist2st_fold": hcount, "histogene_fold": count,
+                                     "thitogene_fold": other}
     # Launches on this slice's main path, flash training; the forward's
     # counts on the eval and serving paths beside them.
     flash_entry["launches"] = counts[0]

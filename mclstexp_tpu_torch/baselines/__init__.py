@@ -1,3 +1,3 @@
-"""The slide-level baseline families of the port: HisToGene and THItoGene
-(``models``, ``layers``, ``graph``, ``trainer``). Port of
-``mclstexp_tpu/baselines``; Hist2ST and BLEEP are still to port."""
+"""The baseline families of the port: HisToGene, Hist2ST and THItoGene (slide
+level) and BLEEP (per spot) (``models``, ``layers``, ``losses``, ``graph``,
+``trainer``). Port of ``mclstexp_tpu/baselines``."""

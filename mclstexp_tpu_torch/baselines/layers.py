@@ -1,6 +1,11 @@
 """Building blocks of the slide-level baselines (NCHW inside the port).
 
-Port of ``mclstexp_tpu/baselines/layers.py`` for HisToGene and THItoGene:
+Port of ``mclstexp_tpu/baselines/layers.py``:
+  * ``ConvMixerBlock`` (JAX :39-71; reference ``baselines/His2ST/
+    HIST2ST.py:14-33``): Hist2ST's depthwise-conv mixer;
+  * ``GraphSAGEBlock`` (JAX :74-96; ``baselines/His2ST/gcn.py:12-53``):
+    Hist2ST's dense-adjacency GraphSAGE layer, mean aggregation, a Linear
+    without bias, ReLU and L2-normalized rows;
   * ``ODConv``: omni-dimensional dynamic convolution in its stride ==
     kernel (patchify) form (JAX :168-233; reference ``baselines/THItoGene/
     ODConv.py:86-141``): four attentions from the pooled input weigh the
@@ -9,11 +14,9 @@ Port of ``mclstexp_tpu/baselines/layers.py`` for HisToGene and THItoGene:
   * ``squash``, ``RoutingLayer``, ``EfficientCapsNet`` (JAX :236-296;
     ``efficient_capsnet.py:6-92``);
   * ``GraphAttention``, ``MultiHeadGAT`` (JAX :99-165; ``GATLayer.py:6-61``).
-Hist2ST's ``ConvMixerBlock`` and ``GraphSAGEBlock`` are not ported yet
-(ROADMAP.md Queue 1, baselines).
 
 Attribute names are the reference torch ones (what ``mclstexp_tpu/
-baselines/torch_import.py:183-234`` reads), so a reference checkpoint loads
+baselines/torch_import.py:139-234`` reads), so a reference checkpoint loads
 with ``strict=True``. Batch norms take the slide's ``mask``
 (``MaskedBatchNormT``). Dropout is ``SeededDropout``: it draws from a
 ``torch.Generator`` that the train step sets (``seed_dropout``), so a step
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, widen
+from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, gelu_exact, widen
 from mclstexp_tpu_torch.models.image.common import MaskedBatchNormT
 
 
@@ -70,6 +73,57 @@ def seed_dropout(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, SeededDropout):
             m.generator = generator
+
+
+class ConvMixerBlock(nn.Module):
+    """Two depthwise k x k SAME convs, each followed by a masked batch norm
+    and exact GELU (``dw`` = [conv, BN, GELU, conv, BN, GELU]), the residual,
+    then a 1 x 1 conv, exact GELU and a masked batch norm (``pw`` = [conv,
+    GELU, BN]): (N, C, H, W) -> (N, C, H, W). The batch norms take the
+    slide's ``mask`` (statistics over real spots) and return
+    ``compute_dtype``, as flax's ``BatchNormT(dtype=...)``."""
+
+    def __init__(self, dim: int, kernel_size: int = 5, device=None):
+        super().__init__()
+        pad = kernel_size // 2
+        self.dw = nn.ModuleList([
+            Conv2dT(dim, dim, kernel_size, padding=pad, groups=dim, device=device),
+            MaskedBatchNormT(dim, device=device), nn.GELU(approximate="none"),
+            Conv2dT(dim, dim, kernel_size, padding=pad, groups=dim, device=device),
+            MaskedBatchNormT(dim, device=device), nn.GELU(approximate="none"),
+        ])
+        self.pw = nn.ModuleList([Conv2dT(dim, dim, 1, device=device),
+                                 nn.GELU(approximate="none"),
+                                 MaskedBatchNormT(dim, device=device)])
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x
+        for i in (0, 3):
+            h = gelu_exact(self.dw[i + 1](self.dw[i](h), mask))
+        x = gelu_exact(self.pw[0](h + x))
+        return self.pw[2](x, mask)
+
+
+class GraphSAGEBlock(nn.Module):
+    """GraphSAGE with gcn=True (Hist2ST's): the neighbours' mean, (adj /
+    where(deg == 0, 1, deg)) @ x in fp32 (the JAX module's adjacency is fp32,
+    which promotes a bf16 x), a Linear without bias (``weight`` (out, in),
+    xavier-uniform) in ``compute_dtype``, ReLU, then each row divided by
+    max(its L2 norm, 1e-12)."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, in_features: int, embed_dim: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((embed_dim, in_features), device=device))
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        deg = adj.sum(dim=1, keepdim=True)
+        neigh = (adj / torch.where(deg == 0, torch.ones_like(deg), deg)) @ widen(x)
+        h = F.relu(F.linear(as_compute(neigh, dt), as_compute(self.weight, dt)))
+        norm = torch.sqrt((h * h).sum(dim=1, keepdim=True))
+        return h / torch.clamp(norm, min=1e-12)
 
 
 class GraphAttention(nn.Module):

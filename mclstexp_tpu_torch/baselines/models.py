@@ -1,11 +1,14 @@
-"""The slide-level baselines HisToGene and THItoGene, and their shared ViT.
+"""The baseline families and the slide baselines' shared ViT.
 
 Port of ``mclstexp_tpu/baselines/models.py`` (``SpotViT`` :50-77,
-``HisToGene`` :80-110, ``THItoGene`` :218-277). A model takes one whole
-section, padded to a bucket with a validity ``mask`` (``trainer.pad_slide``):
-patches (N, P, P, 3) float in [0, 1] in the JAX layout (NHWC), array coords
-(N, 2), THItoGene also the dense spot adjacency (N, N); it returns (N, G)
-expression predictions.
+``HisToGene`` :80-110, ``Hist2ST`` :113-215, ``THItoGene`` :218-277,
+``BLEEP`` :280-309). A slide model takes one whole section, padded to a
+bucket with a validity ``mask`` (``trainer.pad_slide``): patches (N, P, P,
+3) float in [0, 1] in the JAX layout (NHWC), array coords (N, 2), Hist2ST
+and THItoGene also the dense spot adjacency (N, N); HisToGene and THItoGene
+return (N, G) expression predictions, Hist2ST (predictions, its ZINB or NB
+heads or None, h). BLEEP takes a spot batch and returns the two projected
+embeddings.
 
 ``attn_backend`` is the JAX module's: "xla" (the plain path; masked keys
 filled with -1e30) or "flash", the CUDA flash kernels, where the slide's
@@ -19,14 +22,17 @@ dense layers, convolutions, layer norms and attention in bf16
 (``core.layers.set_compute_dtype``), ODConv's four attention heads, the
 capsule routing and the GAT's logits in fp32 (where the JAX module's
 ``nn.Dense`` has no dtype or meets an fp32 parameter), the residual stream
-fp32 where the JAX module adds fp32 position tables, and the predictions
-returned in fp32.
+fp32 where the JAX module adds fp32 position tables, Hist2ST's neighbour
+mean and jump-knowledge LSTM in fp32 (an fp32 adjacency, and flax's
+``OptimizedLSTMCell`` without a dtype, promote their bf16 inputs), and the
+predictions and embeddings returned in fp32.
 
 Attribute names are the reference torch ones (the keys ``mclstexp_tpu/
-baselines/torch_import.py:111-131,183-234`` reads): ``patch_embedding``,
+baselines/torch_import.py:111-293`` reads): ``patch_embedding``,
 ``x_embed``/``y_embed``, ``vit.transformer.layers.{i}.{0,1}``,
-``gene_head``; THItoGene's ``odconv2d``, ``caps_layer`` and ``gat``.
-Hist2ST and BLEEP are not ported yet (ROADMAP.md Queue 1, baselines).
+``gene_head``; Hist2ST's ``vit.transformer.{layer1,down,layer2,layer3,
+jknet}`` and heads; THItoGene's ``odconv2d``, ``caps_layer`` and ``gat``;
+BLEEP's ``image_encoder``, ``image_projection`` and ``spot_projection``.
 """
 
 from __future__ import annotations
@@ -39,29 +45,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from mclstexp_tpu_torch.baselines.layers import (
+    ConvMixerBlock,
     EfficientCapsNet,
     GraphAttention,
+    GraphSAGEBlock,
     MultiHeadGAT,
     ODConv,
     RoutingLayer,
     SeededDropout,
     use_seeded_dropout,
 )
+from mclstexp_tpu_torch.baselines.losses import disp_act, mean_act
 from mclstexp_tpu_torch.core.layers import (
     _TRUNC_STD,
+    AttnBlock,
+    Conv2dT,
     DenseT,
     FeedForward,
     LayerNormT,
     MultiHeadSelfAttention,
     PositionTables,
     PreNorm,
+    ProjectionHead,
     _trunc_normal_,
     as_compute,
     compute_dtype_of,
     init_parameters,
+    lecun_normal_,
     set_compute_dtype,
     widen,
 )
+from mclstexp_tpu_torch.models.image.registry import build_encoder
 
 
 class SpotViT(nn.Module):
@@ -116,6 +130,85 @@ class HisToGene(PositionTables):
         return widen(self.gene_head(x))
 
 
+class Hist2ST(PositionTables):
+    """Conv patchify (k x k, stride k) -> dropout on the conv map -> ``depth1``
+    ConvMixer blocks -> 1 x 1 ``down`` conv to channel // 8 -> flatten in (c,
+    h, w) order -> + position tables -> ``depth2`` pre-LN attention blocks
+    (dim_head 64, mlp width dim, no embedding dropout) -> ``depth3``
+    GraphSAGE blocks -> the jump-knowledge 2-layer LSTM over their outputs
+    (depth is its time axis), averaged over depth = h -> LayerNorm / Linear
+    gene head; on h the ZINB heads (``mean``, ``disp``, ``pi``) or the NB
+    heads (``hr``, ``hp``); with ``coef_head`` the bake-distillation head
+    ``coef`` (Linear, ReLU, Linear(1)), whose output replaces h on ``aug``
+    passes (reference ``His2ST/HIST2ST.py:85-199``). dim = (fig_size //
+    patch_size)^2 * channel // 8: 1,024 at the defaults, 16 heads of 64.
+    The LSTM's ``bias_hh`` does not train (``requires_grad`` False)."""
+
+    def __init__(self, n_genes: int, fig_size: int = 112, patch_size: int = 7,
+                 channel: int = 32, kernel_size: int = 5, depth1: int = 2, depth2: int = 8,
+                 depth3: int = 4, heads: int = 16, n_pos: int = 64, dropout: float = 0.2,
+                 zinb: bool = True, nb: bool = False, coef_head: bool = False,
+                 dtype: str = "float32", attn_backend: str = "xla", device="cuda"):
+        dim = (fig_size // patch_size) ** 2 * channel // 8
+        super().__init__(n_pos, dim, device=device)
+        self.dim, self.depth1, self.depth2, self.depth3 = dim, depth1, depth2, depth3
+        self.zinb, self.nb, self.coef_head = zinb, nb, coef_head
+        self.patch_embedding = Conv2dT(3, channel, patch_size, stride=patch_size, device=device)
+        self.vit = nn.Module()
+        self.vit.dropout = SeededDropout(dropout)
+        t = self.vit.transformer = nn.Module()
+        t.layer1 = nn.ModuleList(ConvMixerBlock(channel, kernel_size, device)
+                                 for _ in range(depth1))
+        t.down = nn.Sequential(Conv2dT(channel, channel // 8, 1, device=device))
+        t.layer2 = nn.ModuleList(AttnBlock(dim, heads, 64, dim, dropout, device, attn_backend)
+                                 for _ in range(depth2))
+        t.layer3 = nn.ModuleList(GraphSAGEBlock(dim, dim, device) for _ in range(depth3))
+        t.jknet = nn.ModuleList([nn.LSTM(dim, dim, 2, device=device)])
+        # flax's cell has one hidden-side bias, torch's bias_ih + bias_hh:
+        # bias_hh stays fixed, so training moves their sum as JAX moves its one
+        for layer in range(2):
+            getattr(t.jknet[0], f"bias_hh_l{layer}").requires_grad_(False)
+        self.gene_head = nn.Sequential(LayerNormT(dim, device=device),
+                                       DenseT(dim, n_genes, device=device))
+        if zinb and nb:
+            self.hr = DenseT(dim, n_genes, device=device)
+            self.hp = DenseT(dim, n_genes, device=device)
+        elif zinb:
+            for name in ("mean", "disp", "pi"):
+                setattr(self, name, nn.Sequential(DenseT(dim, n_genes, device=device)))
+        if coef_head:
+            self.coef = nn.Sequential(DenseT(dim, dim, device=device), nn.ReLU(),
+                                      DenseT(dim, 1, device=device))
+        use_seeded_dropout(self)
+        set_compute_dtype(self, compute_dtype_of(dtype))
+
+    def forward(self, patches: torch.Tensor, positions: torch.Tensor, adj: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, aug: bool = False):
+        n = patches.shape[0]
+        t = self.vit.transformer
+        x = self.vit.dropout(self.patch_embedding(patches.permute(0, 3, 1, 2)))
+        for block in t.layer1:
+            x = block(x, mask)
+        g = (t.down(x).reshape(n, -1) + self.position_embed(positions))[None]
+        for block in t.layer2:
+            g = block(g, mask)
+        g, jk = g[0], []
+        for block in t.layer3:
+            g = block(g, adj)
+            jk.append(g)
+        h = t.jknet[0](widen(torch.stack(jk)))[0].mean(dim=0)  # (depth3, N, dim) -> (N, dim)
+        pred = widen(self.gene_head(h))
+        extra = None
+        if self.zinb and self.nb:
+            extra = (widen(self.hr(h)), widen(self.hp(h)))
+        elif self.zinb:
+            extra = (mean_act(widen(self.mean(h))), disp_act(widen(self.disp(h))),
+                     torch.sigmoid(widen(self.pi(h))))
+        if self.coef_head and aug:
+            return pred, extra, widen(self.coef(h))
+        return pred, extra, h
+
+
 class THItoGene(PositionTables):
     """ODConv patchify -> Efficient-CapsNet -> [capsules, x, y] tokens -> ViT
     -> multi-head GAT over the spot graph -> gene head (Linear, ReLU,
@@ -155,15 +248,48 @@ class THItoGene(PositionTables):
         return widen(self.gene_head(self.gat(seq, adj, mask)))
 
 
+class BLEEP(nn.Module):
+    """CLIP model: an image tower (``models/image/registry.build_encoder``)
+    and two projection heads, one on the tower's features, one on the raw
+    expression (no spot encoder) (reference ``Bleep/models.py:9-43``).
+    Takes {"image": (B, P, P, 3) float, "expression": (B, G)} and returns
+    the fp32 (image_emb, spot_emb); the loss is ``losses.bleep_clip_loss``."""
+
+    def __init__(self, spot_dim: int, encoder_name: str = "resnet50",
+                 projection_dim: int = 256, dropout: float = 0.1, temperature: float = 1.0,
+                 dtype: str = "float32", device="cuda"):
+        super().__init__()
+        self.encoder_name, self.temperature = encoder_name, temperature
+        self.image_encoder, feat_dim = build_encoder(encoder_name, device=device)
+        self.image_projection = ProjectionHead(feat_dim, projection_dim, dropout, device=device)
+        self.spot_projection = ProjectionHead(spot_dim, projection_dim, dropout, device=device)
+        use_seeded_dropout(self)
+        set_compute_dtype(self, compute_dtype_of(dtype))
+
+    def forward(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        image_emb = self.image_projection(self.image_encoder(batch["image"]))
+        return widen(image_emb), widen(self.spot_projection(batch["expression"]))
+
+
 @torch.no_grad()
 def init_baseline_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter from ``generator``: ``core.layers.init_parameters``
     for the standard modules (Linear and Embedding torch defaults, convs
-    kaiming-normal fan-out truncated at 2 std), and the JAX initializers'
-    families for the rest: GAT ``W`` and ``a`` xavier-uniform with gain
-    sqrt(2), ODConv candidate kernels and routing ``W`` kaiming-normal
-    fan-out (truncated), routing ``b`` zeros."""
+    kaiming-normal fan-out truncated at 2 std, the towers' own families),
+    and the JAX initializers' families for the rest: GAT ``W`` and ``a``
+    xavier-uniform with gain sqrt(2), ODConv candidate kernels and routing
+    ``W`` kaiming-normal fan-out (truncated), routing ``b`` zeros; Hist2ST's
+    convs (``patch_embedding``, the mixers', ``down``) flax ``nn.Conv``'s
+    lecun-normal (variance 1 / fan_in, truncated; a depthwise 5 x 5 has
+    fan_in 25) with zero biases, GraphSAGE ``weight`` xavier-uniform, the
+    LSTM's input kernels lecun-normal, each gate's recurrent kernel
+    orthogonal and its biases zero (flax ``OptimizedLSTMCell``)."""
     init_parameters(model, generator)
+
+    def lecun_conv(conv: nn.Conv2d):
+        lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+        conv.bias.zero_()
+
     for m in model.modules():
         if isinstance(m, GraphAttention):
             for w in (m.W, m.a):
@@ -176,4 +302,21 @@ def init_baseline_parameters(model: nn.Module, generator: torch.Generator) -> nn
             caps, in_caps, _, dim = m.W.shape
             _trunc_normal_(m.W, math.sqrt(2.0 / (caps * in_caps * dim)) / _TRUNC_STD, generator)
             m.b.zero_()
+        elif isinstance(m, Hist2ST):
+            lecun_conv(m.patch_embedding)
+            lecun_conv(m.vit.transformer.down[0])
+        elif isinstance(m, ConvMixerBlock):
+            for conv in (m.dw[0], m.dw[3], m.pw[0]):
+                lecun_conv(conv)
+        elif isinstance(m, GraphSAGEBlock):
+            bound = math.sqrt(6.0 / (m.weight.shape[0] + m.weight.shape[1]))
+            m.weight.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.LSTM):
+            for layer in range(m.num_layers):
+                w_ih = getattr(m, f"weight_ih_l{layer}")
+                lecun_normal_(w_ih, w_ih.shape[1], generator)
+                for gate in getattr(m, f"weight_hh_l{layer}").chunk(4):
+                    nn.init.orthogonal_(gate, generator=generator)
+                getattr(m, f"bias_ih_l{layer}").zero_()
+                getattr(m, f"bias_hh_l{layer}").zero_()
     return model

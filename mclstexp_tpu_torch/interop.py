@@ -14,11 +14,14 @@ ViT depth are read from the tree (so ``tiny_densenet`` too), and
 LayerNorms. Position tables keep their ``pos_vocab`` rows. Every leaf must
 be consumed, or the conversion raises.
 
-``baseline_params_from_jax`` does the same for the slide baselines
-HisToGene and THItoGene, into the reference keys that
-``mclstexp_tpu/baselines/torch_import.py`` reads (the inverse of its
-importers); THItoGene's 1x1-conv Denses become (out, in, 1, 1) weights and
-ODConv's candidate kernels go back to (Kn, Cout, Cin, k, k).
+``baseline_params_from_jax`` does the same for the four baseline families,
+into the reference keys that ``mclstexp_tpu/baselines/torch_import.py``
+reads (the inverse of its importers); THItoGene's 1x1-conv Denses become
+(out, in, 1, 1) weights and ODConv's candidate kernels go back to (Kn,
+Cout, Cin, k, k); Hist2ST's two ``OptimizedLSTMCell``s become one 2-layer
+``nn.LSTM`` (gates [i, f, g, o] stacked by rows, the cell's hidden-side
+bias in ``bias_ih``, ``bias_hh`` zero: the JAX importer sums the two back);
+BLEEP's tower maps like the flagship's.
 """
 
 from __future__ import annotations
@@ -216,11 +219,15 @@ def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
     c.put("x_embed.weight", c.get(False, *pos, "x_embed"))
     c.put("y_embed.weight", c.get(False, *pos, "y_embed"))
 
+    _projection_heads(c)
+    return _finish(c)
+
+
+def _projection_heads(c: _Converter):
     for head in ("image_projection", "spot_projection"):
         c.linear(f"{head}.projection", head, "projection")
         c.linear(f"{head}.fc", head, "fc")
         c.ln(f"{head}.layer_norm", head, "layer_norm")
-    return _finish(c)
 
 
 def _slide_vit(c: _Converter, depth: int):
@@ -237,9 +244,10 @@ def _slide_vit(c: _Converter, depth: int):
 
 def baseline_params_from_jax(model, params: Mapping[str, Any],
                              batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Convert the JAX build's ``HisToGene`` or ``THItoGene`` variables to
-    the state_dict of the port's ``model`` of the same family."""
-    from mclstexp_tpu_torch.baselines.models import HisToGene, THItoGene
+    """Convert the JAX build's ``HisToGene``, ``Hist2ST``, ``THItoGene`` or
+    ``BLEEP`` variables to the state_dict of the port's ``model`` of the same
+    family."""
+    from mclstexp_tpu_torch.baselines.models import BLEEP, Hist2ST, HisToGene, THItoGene
 
     c = _Converter(params, batch_stats)
     if isinstance(model, HisToGene):
@@ -273,6 +281,53 @@ def baseline_params_from_jax(model, params: Mapping[str, Any],
         c.linear("gene_head.0", "head_fc1")
         c.ln("gene_head.2", "head_norm")
         c.linear("gene_head.3", "head_fc2")
+    elif isinstance(model, Hist2ST):
+        _hist2st(c, model)
+    elif isinstance(model, BLEEP):
+        _tower(c, model.encoder_name, "image_encoder")
+        _projection_heads(c)
     else:
         raise NotImplementedError(f"{type(model).__name__} is not a ported baseline")
     return _finish(c)
+
+
+def _lstm_rows(c: _Converter, cell: str, side: str, leaf: str = "kernel") -> np.ndarray:
+    """A flax LSTM cell's four gate Denses of one side ("i" input, "h"
+    hidden) stacked as torch's rows [i, f, g, o]."""
+    return np.concatenate([c.get(False, cell, side + g, leaf).T for g in "ifgo"])
+
+
+def _hist2st(c: _Converter, model):
+    c.conv("patch_embedding", "patch_embedding", bias=True)
+    c.put("x_embed.weight", c.get(False, "pos", "x_embed"))
+    c.put("y_embed.weight", c.get(False, "pos", "y_embed"))
+    t = "vit.transformer"
+    for i in range(model.depth1):
+        base, src = f"{t}.layer1.{i}", f"mixer{i}"
+        for key, unit in (("dw.0", "dw1_conv"), ("dw.3", "dw2_conv"), ("pw.0", "pw_conv")):
+            c.conv(f"{base}.{key}", src, unit, bias=True)
+        for key, unit in (("dw.1", "dw1_bn"), ("dw.4", "dw2_bn"), ("pw.2", "pw_bn")):
+            c.bn(f"{base}.{key}", src, unit)
+    c.conv(f"{t}.down.0", "down", bias=True)
+    for i in range(model.depth2):
+        _attn_block(c, f"{t}.layer2.{i}", "vit", f"block{i}")
+    for i in range(model.depth3):
+        c.linear(f"{t}.layer3.{i}", f"gs{i}", "weight", bias=False)
+    base = f"{t}.jknet.0"
+    for layer, cell in enumerate(("jknet_cell", "jknet2_cell")):
+        c.put(f"{base}.weight_ih_l{layer}", _lstm_rows(c, cell, "i"))
+        c.put(f"{base}.weight_hh_l{layer}", _lstm_rows(c, cell, "h"))
+        bias = _lstm_rows(c, cell, "h", "bias")
+        c.put(f"{base}.bias_ih_l{layer}", bias)
+        c.put(f"{base}.bias_hh_l{layer}", np.zeros_like(bias))
+    c.ln("gene_head.0", "head_norm")
+    c.linear("gene_head.1", "gene_head")
+    if model.zinb and model.nb:
+        c.linear("hr", "hr")
+        c.linear("hp", "hp")
+    elif model.zinb:
+        for head in ("mean", "disp", "pi"):
+            c.linear(f"{head}.0", head)
+    if model.coef_head:
+        c.linear("coef.0", "coef_fc1")
+        c.linear("coef.2", "coef_fc2")

@@ -71,6 +71,17 @@ def _blend(img1: torch.Tensor, img2: torch.Tensor, ratio: torch.Tensor) -> torch
     return torch.clamp(ratio * img1 + (1.0 - ratio) * img2, 0.0, 1.0)
 
 
+def luma(img: torch.Tensor) -> torch.Tensor:
+    """Grayscale over the last axis (RGB): (..., 3) -> (...), the weights
+    rounded to img's type first, as the JAX ``_luma`` casts them. The three
+    products and their sum are taken in float64 and rounded once, so a
+    float32 result lies within one ulp of the JAX function's under any
+    fusion of its multiply-adds (XLA on the CPU makes two of them FMAs)."""
+    w = [float(torch.tensor(c, dtype=img.dtype)) for c in _LUMA]
+    x = img.double()
+    return (x[..., 0] * w[0] + x[..., 1] * w[1] + x[..., 2] * w[2]).to(img.dtype)
+
+
 def _luma_cm(x: torch.Tensor, round_last: bool = True) -> torch.Tensor:
     """Grayscale, channel-major: (B, 3, H, W) -> (B, H, W), the weights
     rounded to x's type first, as the JAX function casts them.

@@ -1,6 +1,7 @@
 """Where the time of one train step goes, at the her2st widths, on the card.
 
-    python -m mclstexp_tpu_torch.profile_step [--slide] [--dtype float32|bfloat16]
+    python -m mclstexp_tpu_torch.profile_step [--slide [histogene|hist2st]] [--side N]
+        [--dtype float32|bfloat16]
 
 Builds the her2st-width model (densenet121, 224 px, spot_dim 785,
 pos_vocab 1024, 2 blocks of 8x64 heads, projection 256, batch 128) from a
@@ -10,8 +11,11 @@ With ``--slide``, the step is instead one whole-slide HisToGene step with
 ``attn_backend="flash"`` at the her2st flow's widths (dim 1024, 8 layers of
 16 x 64 heads, 112 px, 785 genes) on a 63 x 63 grid of random spots
 (3,969, padded to 4,096 rows: attention (1, 16, 4,096, 64) with segment
-ids), from a seed. ``--dtype`` is the model's compute dtype (default
-float32). Prints one JSON object:
+ids), from a seed; ``--slide hist2st`` the same slide (with random counts)
+through one Hist2ST step at the reference widths (dim 1,024, 16 x 64 heads,
+depths 2 / 8 / 4, zinb 0.25, bake 5: six train-mode passes), and ``--side
+N`` an N x N grid instead. ``--dtype`` is the model's compute dtype
+(default float32). Prints one JSON object:
   * ``ms_per_step``: host wall time per step, unprofiled;
   * ``device_busy_ms_per_step`` and ``idle_share``: the union of kernel
     intervals against the profiled window;
@@ -47,6 +51,7 @@ from mclstexp_tpu_torch.train.step import make_train_step
 PHASES = ("augment", "forward", "backward", "optimizer")
 TIMED_STEPS, PROFILED_STEPS = 10, 3
 SLIDE_SIDE = 63  # the whole slide: a 63 x 63 grid, 3,969 spots
+SLIDE_FAMILIES = ("histogene", "hist2st")
 TRACE = BUILD_DIR.parent / "profile_step_trace.json"  # <checkout>/build/
 # First match wins: cuDNN's batch-norm and convolution kernels share the
 # "cudnn" prefix, and its convolutions also carry "gemm" in their names.
@@ -133,21 +138,24 @@ def flagship_step(dtype: str):
     return run, PHASES
 
 
-def slide_step(dtype: str):
-    """run(i) of one whole-slide HisToGene step with "flash", and its
+def slide_step(dtype: str, family: str = "histogene", side: int = SLIDE_SIDE):
+    """run(i) of one whole-slide step of ``family`` with "flash", and its
     phases (none: the slide step names no ranges)."""
     from mclstexp_tpu_torch.baselines import trainer
     from mclstexp_tpu_torch.data.section import Section
 
-    cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
-                                 max_epochs=1, dtype=dtype)
-    n = SLIDE_SIDE * SLIDE_SIDE
+    cfg = trainer.BaselineConfig(model=family, n_genes=785, patch_size=112,
+                                 n_layers=8 if family == "histogene" else None, max_epochs=1,
+                                 dtype=dtype)
+    n = side * side
     rng = np.random.default_rng(31)
-    grid = np.stack(np.meshgrid(np.arange(SLIDE_SIDE), np.arange(SLIDE_SIDE)), -1)
+    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)), -1)
     grid = grid.reshape(-1, 2).astype(np.int32)
     whole = Section("whole", rng.normal(size=(n, 785)).astype(np.float32), grid, grid,
-                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8))
-    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, False, cfg), "cuda")
+                    patches=rng.integers(0, 256, (n, 112, 112, 3), dtype=np.uint8),
+                    counts=rng.poisson(2.0, (n, 785)).astype(np.float32))
+    batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, family == "hist2st",
+                                                    cfg), "cuda")
     state = trainer.init_baseline(cfg, "cuda", "flash")
     step = trainer.make_slide_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -156,13 +164,15 @@ def slide_step(dtype: str):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="profile_step")
-    parser.add_argument("--slide", action="store_true")
+    parser.add_argument("--slide", nargs="?", const="histogene", choices=SLIDE_FAMILIES)
+    parser.add_argument("--side", type=int, default=SLIDE_SIDE)
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
 
-    run, phases = (slide_step if args.slide else flagship_step)(args.dtype)
+    run, phases = (slide_step(args.dtype, args.slide, args.side) if args.slide
+                   else flagship_step(args.dtype))
     for i in range(3):
         run(i)
     torch.cuda.synchronize()
@@ -181,7 +191,9 @@ def main(argv=None) -> None:
     prof.export_chrome_trace(str(TRACE))
     with open(TRACE) as f:
         summary = summarize(json.load(f), PROFILED_STEPS, phases)
-    print(json.dumps({"step": "histogene whole slide" if args.slide else "her2st flagship",
+    what = f"{args.slide} slide of {args.side}x{args.side} spots" if args.slide else \
+        "her2st flagship"
+    print(json.dumps({"step": what,
                       "dtype": args.dtype, "ms_per_step": ms, "timed_steps": TIMED_STEPS,
                       "profiled_steps": PROFILED_STEPS, "device": torch.cuda.get_device_name(0),
                       **summary}, indent=1))

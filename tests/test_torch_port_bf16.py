@@ -35,6 +35,7 @@ from mclstexp_tpu.core import layers as jax_layers
 from mclstexp_tpu.core.losses import symmetric_infonce as jax_infonce
 from mclstexp_tpu.models import spot as jax_spot
 from mclstexp_tpu.models.image import densenet as jax_densenet
+from mclstexp_tpu.models.image import resnet as jax_resnet
 from mclstexp_tpu.models.mclstexp import MclSTExp as JaxMclSTExp
 from mclstexp_tpu.ops import augment as jax_augment
 from mclstexp_tpu_torch import config, interop
@@ -42,6 +43,7 @@ from mclstexp_tpu_torch.baselines import models, trainer
 from mclstexp_tpu_torch.core import layers
 from mclstexp_tpu_torch.core.losses import symmetric_infonce
 from mclstexp_tpu_torch.models.image.densenet import densenet121
+from mclstexp_tpu_torch.models.image.resnet import resnet50
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
 from mclstexp_tpu_torch.models.spot import SpotEncoder
 from mclstexp_tpu_torch.ops import augment
@@ -228,6 +230,57 @@ def test_densenet121_bf16_matches_jax(densenet_case, train):
                   got[torch.float32][1][key], key)
 
 
+@pytest.fixture(scope="module")
+def resnet50_case():
+    """resnet50 (BLEEP's default tower) at 64 px, batch 4: the JAX tower's
+    outputs in bf16 and fp32, eval and train mode (with the new running
+    stats), and its variables; the bf16 program compiled with
+    ``xla_allow_excess_precision`` off, for the reason ``densenet_case``
+    gives."""
+    x = np.random.default_rng(6).uniform(size=(4, 64, 64, 3)).astype(np.float32)
+    mods = {dt: jax_resnet.resnet50(dtype=dt) for dt in (jnp.bfloat16, jnp.float32)}
+    variables = jax.device_get(jax.jit(
+        lambda k: mods[jnp.float32].init(k, x[:1], train=False))(jax.random.PRNGKey(1)))
+    out = {}
+    for dt, mod in mods.items():
+        both = jax.jit(lambda v, m=mod: (m.apply(v, x, train=False),
+                                         m.apply(v, x, train=True, mutable=["batch_stats"])))
+        options = {"xla_allow_excess_precision": False} if dt == jnp.bfloat16 else {}
+        out[dt, False], out[dt, True] = jax.device_get(
+            both.lower(variables).compile(options)(variables))
+    return x, variables, out
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_resnet50_bf16_matches_jax(resnet50_case, train):
+    """resnet50's fp32 features (bf16 inside), and in train mode its 53
+    batch norms' fp32 running statistics, each within the rule."""
+    x, variables, out = resnet50_case
+    sd = interop.tower_params_from_jax(variables["params"], variables["batch_stats"], "resnet50")
+    got = {}
+    for dtype in (BF16, torch.float32):
+        tower = layers.set_compute_dtype(resnet50(device="cpu"), dtype)
+        tower.load_state_dict(sd, strict=True)
+        tower.train(train)
+        with torch.no_grad():
+            got[dtype] = tower(torch.from_numpy(x)), tower.state_dict()
+    assert got[BF16][0].dtype == torch.float32
+    (want, upd), (want32, upd32) = ((out[jnp.bfloat16, True], out[jnp.float32, True]) if train
+                                    else ((out[jnp.bfloat16, False], None),
+                                          (out[jnp.float32, False], None)))
+    _anchored(got[BF16][0], want, want32, got[torch.float32][0], "features")
+    if not train:
+        return
+    new = {dt: interop.tower_params_from_jax(variables["params"], u["batch_stats"], "resnet50")
+           for dt, u in ((BF16, upd), (torch.float32, upd32))}
+    stats = [k for k in new[BF16] if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 2 * 53  # the stem, 16 blocks of 3, 4 downsamples
+    for key in stats:
+        assert got[BF16][1][key].dtype == torch.float32
+        _anchored(got[BF16][1][key], new[BF16][key], new[torch.float32][key],
+                  got[torch.float32][1][key], key)
+
+
 TINY = dict(encoder_name="tiny_densenet", image_dim=16, spot_dim=24, projection_dim=32,
             heads_num=2, heads_dim=16, pos_vocab=64, dense_block_impl="concat")
 
@@ -291,24 +344,30 @@ def test_train_step_loss_and_gradients_bf16_match_jax():
                   got_grads["float32"][k], k)
 
 
-@pytest.mark.parametrize("family", ["histogene", "thitogene"])
+@pytest.mark.parametrize("family", ["histogene", "thitogene", "hist2st"])
 def test_slide_baselines_bf16_match_jax(family):
-    """HisToGene and THItoGene on a padded slide in train mode (masked batch
-    norms): the predictions and the masked MSE of the real rows."""
+    """HisToGene, THItoGene and Hist2ST on a padded slide in train mode
+    (masked batch norms): the predictions and the masked MSE of the real
+    rows (Hist2ST: its first output, through the bf16 mixers, attention and
+    GraphSAGE products, the fp32 neighbour mean and LSTM)."""
     r = np.random.default_rng(3)
-    patch = 16 if family == "histogene" else 112
+    patch = {"histogene": 16, "thitogene": 112, "hist2st": 28}[family]
     n, real, genes = 16, 13, 8
     patches = r.uniform(size=(n, patch, patch, 3)).astype(np.float32)
     positions = r.integers(0, 16, size=(n, 2)).astype(np.int32)
     adj = (r.uniform(size=(n, n)) < 0.3).astype(np.float32)
     target = r.normal(size=(n, genes)).astype(np.float32)
     mask = np.arange(n) < real
-    args = (patches, positions) + ((adj,) if family == "thitogene" else ())
+    args = (patches, positions) + ((adj,) if family != "histogene" else ())
+    hist2st = dict(fig_size=28, patch_size=7, channel=16, depth1=1, depth2=1, depth3=2, heads=2,
+                   dropout=0.0)
 
     def jax_model(dt):
         if family == "histogene":
             return jax_models.HisToGene(n_genes=genes, patch_size=16, dim=32, n_layers=2,
                                         heads=2, dropout=0.0, dtype=dt)
+        if family == "hist2st":
+            return jax_models.Hist2ST(n_genes=genes, dtype=dt, **hist2st)
         return jax_models.THItoGene(n_genes=genes, patch_size=112, dim=32, n_layers=1, caps=4,
                                     route_dim=8, heads=(2, 2), dropout=0.0, dtype=dt)
 
@@ -316,15 +375,18 @@ def test_slide_baselines_bf16_match_jax(family):
         if family == "histogene":
             return models.HisToGene(genes, 16, dim=32, n_layers=2, heads=2, dropout=0.0,
                                     dtype=dt, device="cpu")
+        if family == "hist2st":
+            return models.Hist2ST(genes, dtype=dt, device="cpu", **hist2st)
         return models.THItoGene(genes, 112, dim=32, n_layers=1, caps=4, route_dim=8,
                                 heads=(2, 2), dropout=0.0, dtype=dt, device="cpu")
 
+    first = (lambda out: out[0]) if family == "hist2st" else (lambda out: out)
     variables = _init(jax_model(jnp.float32), *args)
     want = {}
     for dt in (jnp.bfloat16, jnp.float32):
-        pred, _ = jax_model(dt).apply(variables, *args, train=True, mask=mask,
-                                      mutable=["batch_stats"])
-        want[dt] = (pred, trainer_loss_jax(pred, target, mask))
+        out, _ = jax_model(dt).apply(variables, *args, train=True, mask=mask,
+                                     mutable=["batch_stats"])
+        want[dt] = (first(out), trainer_loss_jax(first(out), target, mask))
     got = {}
     for name in ("bfloat16", "float32"):
         tm = port_model(name)
@@ -332,7 +394,7 @@ def test_slide_baselines_bf16_match_jax(family):
             tm, variables["params"], variables.get("batch_stats", {})), strict=True)
         tm.train()
         with torch.no_grad():
-            pred = tm(*map(torch.from_numpy, args), mask=torch.from_numpy(mask))
+            pred = first(tm(*map(torch.from_numpy, args), mask=torch.from_numpy(mask)))
         assert pred.dtype == torch.float32
         got[name] = (pred, trainer.masked_mse(pred, torch.from_numpy(target),
                                               torch.from_numpy(mask).float()))
