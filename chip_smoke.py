@@ -93,7 +93,22 @@ order; any failure exits non-zero and prints no result line:
      answering a POST of 37 patches as an in-process ``PredictionService``
      built from the same checkpoint; seconds per subcommand and the train
      ms/step from ``train_log.jsonl``;
- 15. baselines: the flash kernels with segment ids (the padded slide's mask
+ 15. cli-baseline: the ``baseline`` subcommand on [cli]'s tree and panel,
+     each command a process of its own, the four families at their
+     reference widths (the CLI's defaults), fold 0, one epoch: HisToGene at
+     112 px with ``--super-resolution`` (the held-out section's 56-px grid
+     cut on the card: extract_patches launched once per section on the cold
+     112-px cache and once for the grid; the npz's centers ``sr_grid``'s,
+     its predictions finite), ``--load-checkpoint`` of its ``best_0`` (the
+     same JSON and grid bit for bit, no training step); Hist2ST (zinb, 5
+     bakes), its checkpoint rewritten in the reference's Lightning layout
+     and scored by ``--torch-checkpoint`` (equal to the trained run);
+     THItoGene; BLEEP (resnet50, 224 px, weighted top-50; the HEG PCC NaN
+     only where a HEG is predicted constant); then HisToGene's checkpoint
+     on the CPU in this process, its metrics and grid within 1e-3 of the
+     card's; seconds per process; the grid's cut (events, bit-equal to
+     ``extract_patches_np``) and ``sr_predict`` timed on the card;
+ 16. baselines: the flash kernels with segment ids (the padded slide's mask
      as int32, as the JAX package builds ``SegmentIds``) at the slide
      baselines' (1, 16, n, 64): n = 384, 768 and 4,096 with padded tails and
      one case of interleaved ids, each kernel within 2e-5 of its plain
@@ -108,7 +123,7 @@ order; any failure exits non-zero and prints no result line:
      ``evaluate_baseline_fold``, ms per slide step; THItoGene (4 layers, ViT
      width 1,408, GAT) the same fold with "flash"; and one whole-slide
      HisToGene step at 3,969 spots (padded to 4,096), xla against flash;
- 16. hist2st: Hist2ST at the reference widths (conv patchify, 2 mixers, dim
+ 17. hist2st: Hist2ST at the reference widths (conv patchify, 2 mixers, dim
      1,024, 8 layers of 16 x 64 heads, 4 GraphSAGE blocks, the LSTM, 785
      genes, zinb 0.25, bake 5, lamb 0.5) on [baselines]' sections with
      "flash": fold 0 for one epoch (48 segment launches of each kernel per
@@ -119,12 +134,12 @@ order; any failure exits non-zero and prints no result line:
      card against CPU (8 forward launches), ms per slide step at 768 rows
      (xla, flash, flash, xla) and one whole-slide step (4,096 rows) with
      peak memory;
- 17. bleep: BLEEP (resnet50, 224 px, batch 128) on [train]'s sections:
+ 18. bleep: BLEEP (resnet50, 224 px, batch 128) on [train]'s sections:
      ``train_bleep_fold`` for fold 0 (the reference's 4 epochs),
      ``bleep_embeddings`` (the held-out
      section's card against CPU), ``evaluate_fold`` of fold 0 in the three
      retrieval modes, ms per step;
- 18. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
+ 19. bf16: ``dtype="bfloat16"`` (fp32 parameters, bf16 compute, fp32
      embeddings and loss). The bf16 flash kernels (built with the others in
      [build]; Hopper warpgroup kernels under ``bf16_plan``, checked first
      at the edges of their 64-row tiles, at d % 8 != 0 and on misaligned
@@ -1653,6 +1668,223 @@ def phase_cli() -> dict:
     return launches
 
 
+def _printed_json(out: str):
+    """The JSON block a ``baseline`` command prints last (``indent=2``)."""
+    return json.loads(out[out.rindex("\n{") + 1:] if "\n{" in out else out[out.index("{"):])
+
+
+def _bleep_flat_hegs(root, gene_panel, n_genes: int) -> int:
+    """How many of the held-out section's 50 highest genes the BLEEP fold
+    saved by ``baseline --bleep-retrieval weighted`` predicts constant over
+    its queries (its HEG PCC is NaN exactly when one is)."""
+    import numpy as np
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data import st_dataset
+    from mclstexp_tpu_torch.infer import embed, metrics
+    from mclstexp_tpu_torch.ops import retrieval
+    from mclstexp_tpu_torch.train import checkpoint
+
+    cfg = trainer.BaselineConfig(model="bleep", n_genes=n_genes, patch_size=224)
+    model = trainer.build_baseline(cfg, "cuda")
+    checkpoint.load_checkpoint(os.path.join("model_result", "baselines", "bleep", "best_0"),
+                               model)
+    sections = st_dataset.load_her2st(root, gene_panel, patch_size=224,
+                                      cache_dir=os.path.join("patch_cache", "her2st_224"),
+                                      device="cuda")
+    img, spot = trainer.bleep_embeddings(model, sections)
+    sizes = [s.num_spots for s in sections]
+    _, pred = retrieval.retrieve_and_aggregate(
+        np.concatenate(embed.split_by_section(spot, sizes)[1:]),
+        np.concatenate([s.eval_expression for s in sections[1:]]),
+        embed.split_by_section(img, sizes)[0], top_k=50, weight_ord=-1, device="cuda")
+    hegs = metrics.heg_indices(sections[0].eval_expression)
+    return int((pred[:, hegs].std(axis=0) == 0).sum())
+
+
+def phase_cli_baseline() -> int:
+    """[cli-baseline] the ``baseline`` subcommand on [cli]'s HER2ST tree and
+    its 785-gene panel, each command a process of its own, the families at
+    their reference widths (the CLI's defaults), fold 0, one epoch:
+    HisToGene (112 px) with ``--super-resolution`` (the held-out section's
+    dense grid cut by the extract_patches kernel: one launch per section on
+    the cold 112-px cache, one for the grid), then ``--load-checkpoint`` of
+    its ``best_0`` (no training step; the same JSON and grid predictions bit
+    for bit); Hist2ST (zinb 0.25, bake 5), its ``state.pt`` rewritten in the
+    reference's Lightning layout and scored by ``--torch-checkpoint`` (the
+    trained run's metrics exactly); THItoGene; BLEEP (resnet50, 224 px, the
+    weighted top-50 mode). Then, in this process, HisToGene's checkpoint on
+    the CPU: ``evaluate_baseline_fold`` and the grid's predictions against
+    the card's within 1e-3; the grid's cut (events) and ``sr_predict`` timed
+    on the card. Returns HisToGene's extract_patches launches in its
+    ``baseline`` process."""
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.baselines.super_resolution import sr_grid, sr_predict
+    from mclstexp_tpu_torch.data import genes, st_dataset
+    from mclstexp_tpu_torch.data.io import load_slide
+    from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_np
+    from mclstexp_tpu_torch.train import checkpoint
+
+    torch.cuda.empty_cache()  # the commands' processes share the card with this one
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke", "cli")
+    root = os.path.join(work, "her2st")
+    panel_path = os.path.join(work, "panel", "her2st_hvg_panel.npy")
+    flags = ["--dataset", "her2st", "--data-root", root, "--gene-panel", panel_path]
+    names = st_dataset.her2st_section_names(root)
+    gene_panel = genes.load_panel("her2st", panel_path)
+    n_genes = len(gene_panel)
+    seconds, counts, results = {}, {}, {}
+
+    def run(name, argv):
+        out, counts[name], seconds[name] = _cli(["baseline"] + argv + flags, repo)
+        results[name] = _printed_json(out)
+        if any(counts[name]["row_shift"].values()):
+            raise AssertionError(f"baseline {name}: row_shift launched {counts[name]}")
+        return out
+
+    def finite(name, keys=("hvg_pcc", "heg_pcc", "mse", "mae")):
+        bad = {k: results[name][k] for k in keys if not math.isfinite(results[name][k])}
+        if bad:
+            raise AssertionError(f"baseline {name}: not finite {bad}")
+
+    def saved(family):
+        return os.path.join("model_result", "baselines", family, "best_0")
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        histogene = ["--baseline", "histogene", "--patch-size", "112", "--max_epochs", "1"]
+        out = run("histogene", histogene + ["--super-resolution", "sr.npz"])
+        finite("histogene")
+        if "epoch=0" not in out or not os.path.isfile(
+                os.path.join(saved("histogene"), checkpoint.STATE_FILE)):
+            raise AssertionError(f"baseline histogene trained no epoch or saved no best_0: {out}")
+        sections = st_dataset.load_her2st(root, gene_panel, patch_size=112, device="cpu",
+                                          cache_dir=os.path.join("patch_cache", "her2st_112"))
+        grid, _ = sr_grid(sections[0].centers)
+        sr = np.load("sr.npz")
+        if not np.array_equal(sr["centers"], grid) or \
+                sr["predictions"].shape != (len(grid), n_genes) or \
+                not np.isfinite(sr["predictions"]).all() or \
+                results["histogene"]["super_resolution"]["grid_spots"] != len(grid):
+            raise AssertionError(f"--super-resolution: centers {sr['centers'].shape} against "
+                                 f"sr_grid's {grid.shape}, predictions {sr['predictions'].shape}")
+        if counts["histogene"]["extract_patches"] != len(names) + 1:
+            raise AssertionError(f"baseline histogene: extract_patches launched "
+                                 f"{counts['histogene']['extract_patches']} times for "
+                                 f"{len(names)} sections and the grid")
+
+        out = run("histogene --load-checkpoint",
+                  histogene + ["--super-resolution", "sr_loaded.npz",
+                               "--load-checkpoint", saved("histogene")])
+        loaded, trained = results["histogene --load-checkpoint"], results["histogene"]
+        same = {k: v for k, v in loaded.items() if k != "super_resolution"} == \
+            {k: v for k, v in trained.items() if k != "super_resolution"}
+        if not same or "loss=" in out or \
+                counts["histogene --load-checkpoint"]["extract_patches"] != 1 or \
+                not np.array_equal(np.load("sr_loaded.npz")["predictions"], sr["predictions"]):
+            raise AssertionError(f"--load-checkpoint: {loaded} against the trained run's "
+                                 f"{trained}; launches {counts['histogene --load-checkpoint']}")
+
+        hist2st = ["--baseline", "hist2st", "--patch-size", "112"]
+        run("hist2st", hist2st + ["--max_epochs", "1"])
+        finite("hist2st")
+        state = checkpoint.restore_checkpoint(saved("hist2st"))
+        torch.save({"epoch": 0, "global_step": state["step"],
+                    "state_dict": {f"model.{k}": v for k, v in state["model"].items()}},
+                   "hist2st_lightning.ckpt")
+        run("hist2st --torch-checkpoint", hist2st + ["--torch-checkpoint",
+                                                     "hist2st_lightning.ckpt"])
+        if results["hist2st --torch-checkpoint"] != results["hist2st"]:
+            raise AssertionError(f"--torch-checkpoint of the Lightning layout: "
+                                 f"{results['hist2st --torch-checkpoint']} against the trained "
+                                 f"run's {results['hist2st']}")
+
+        run("thitogene", ["--baseline", "thitogene", "--patch-size", "112", "--max_epochs", "1"])
+        finite("thitogene")
+
+        run("bleep", ["--baseline", "bleep", "--patch-size", "224", "--max_epochs", "1",
+                      "--bleep-retrieval", "weighted"])
+        finite("bleep", ("hvg_pcc", "mse", "mae"))
+        flat = None
+        if not math.isfinite(results["bleep"]["heg_pcc"]):
+            flat = _bleep_flat_hegs(root, gene_panel, n_genes)
+            if flat == 0:
+                raise AssertionError(f"baseline bleep: HEG PCC NaN with no HEG predicted "
+                                     f"constant: {results['bleep']}")
+        if any(counts[k]["extract_patches"] for k in ("hist2st", "hist2st --torch-checkpoint",
+                                                      "thitogene", "bleep")):
+            raise AssertionError(f"a load after the first missed the patch cache: {counts}")
+
+        # HisToGene's checkpoint on the CPU: the card's metrics and grid
+        cfg = trainer.BaselineConfig(model="histogene", n_genes=n_genes, patch_size=112)
+        cpu = trainer.init_baseline(cfg, "cpu")
+        checkpoint.apply_checkpoint(cpu, checkpoint.restore_checkpoint(saved("histogene")))
+        t0 = time.perf_counter()
+        cpu_metrics = trainer.evaluate_baseline_fold(cfg, sections, 0, cpu.model)
+        metric_err = max(abs(cpu_metrics[k] - trained[k]) for k in cpu_metrics)
+        slide = load_slide(st_dataset.her2st_slide_path(root, names[0]))
+        cpu_sr, _ = sr_predict(cpu.model, sections[0], slide, cfg)
+        sr_err = float(np.abs(cpu_sr - sr["predictions"]).max())
+        cpu_s = time.perf_counter() - t0
+        if not (metric_err <= 1e-3 and sr_err <= 1e-3):
+            raise AssertionError(f"HisToGene card against CPU: metrics {trained} against "
+                                 f"{cpu_metrics} (max abs diff {metric_err:.3e}), grid "
+                                 f"predictions off by {sr_err:.3e}")
+        del cpu
+
+        # the grid on the card in this process: the cut alone (events; bit-equal
+        # to extract_patches_np) and sr_predict from the host slide (host clock)
+        card = trainer.build_baseline(cfg, "cuda")
+        checkpoint.load_checkpoint(saved("histogene"), card)
+        img = torch.from_numpy(slide).cuda()
+        xy = torch.from_numpy(grid.astype(np.int64)).cuda()
+        cut = extract_patches(img, xy, cfg.patch_size)
+        if not np.array_equal(cut.cpu().numpy(), extract_patches_np(slide, grid, cfg.patch_size)):
+            raise AssertionError("the grid's patches cut on the card differ from "
+                                 "extract_patches_np")
+        cut_ms = cuda_ms(lambda: extract_patches(img, xy, cfg.patch_size), iters=20)
+        cut_bound_ms = 2 * cut.numel() / HBM_BYTES_PER_S * 1e3  # each patch byte read, written
+        predict_ms = []
+        for _ in range(4):  # the first call cold
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sr_predict(card, sections[0], slide, cfg)
+            predict_ms.append((time.perf_counter() - t0) * 1e3)
+        del card, img, xy, cut
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    log(f"[cli-baseline] {len(names)} sections ({[s.num_spots for s in sections]} spots), "
+        f"{n_genes} genes, fold 0, one epoch, the families' reference widths; seconds per "
+        f"process, start to exit (the kernels already built): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    log(f"[cli-baseline] HisToGene fold 0 {trained}; --super-resolution grid of "
+        f"{len(grid)} spots over {sections[0].name} ({sections[0].num_spots} spots), "
+        f"predictions {sr['predictions'].shape} finite; extract_patches launches "
+        f"{counts['histogene']['extract_patches']} ({len(names)} sections on the cold 112-px "
+        f"cache + the grid), {counts['histogene --load-checkpoint']['extract_patches']} in "
+        f"--load-checkpoint (the grid), 0 in the other commands; --load-checkpoint: the same "
+        f"JSON and grid predictions bit for bit, no training step")
+    log(f"[cli-baseline] Hist2ST {results['hist2st']}; its state.pt as a Lightning .ckpt "
+        f"scored by --torch-checkpoint: equal; THItoGene {results['thitogene']}; BLEEP "
+        f"(resnet50, weighted top-50) {results['bleep']}"
+        + ("" if flat is None else f" ({flat} HEGs predicted constant)"))
+    log(f"[cli-baseline] HisToGene's checkpoint on the CPU ({cpu_s:.1f} s): "
+        f"evaluate_baseline_fold within {metric_err:.3e} of the card's metrics, the grid's "
+        f"predictions within {sr_err:.3e} (atol 1e-3 each)")
+    log(f"[cli-baseline] the grid on the card: {len(grid)} patches of {cfg.patch_size} px cut from "
+        f"a {slide.shape[0]} x {slide.shape[1]} slide in {cut_ms:.4f} ms (events; bound "
+        f"{cut_bound_ms:.4f} ms, bytes), bit-equal to extract_patches_np; sr_predict (host "
+        f"slide to predictions, {-(-len(grid) // cfg.bucket) * cfg.bucket} rows) "
+        f"{[round(v, 2) for v in predict_ms]} ms (the first cold) on {card_line()}")
+    return counts["histogene"]["extract_patches"]
+
+
 SEG_CASES = ((384, 346, "tail"), (768, 705, "tail"), (4096, 3969, "tail"),
              (768, None, "interleaved"))  # (n, real rows, ids) at (1, 16, n, 64)
 SEG_NAMES = {"fwd": "flash_attention[fwd,segments]", "bwd_dkv": "flash_bwd_dkv[segments]",
@@ -2762,6 +2994,7 @@ def main() -> int:
     serve_launches = phase_serve(cfg, eval_model)
     patch_entry["launches"] = phase_data()
     cli_launches = phase_cli()
+    baseline_launches = phase_cli_baseline()
     seg_entries = phase_segment_kernels()
     seg_counts, thitogene_counts = phase_baselines()
     hist2st_counts = phase_hist2st()
@@ -2792,8 +3025,11 @@ def main() -> int:
     for entry in entries:
         entry["launches_by_path"] = {"train": entry["launches"],
                                      "cli": cli_launches["row_shift"][entry["kernel"]]}
+    # extract_patches on this slice's main path, `baseline` with --super-resolution
     patch_entry["launches_by_path"] = {"data": patch_entry["launches"],
-                                       "cli": cli_launches["extract_patches"]}
+                                       "cli": cli_launches["extract_patches"],
+                                       "cli_baseline": baseline_launches}
+    patch_entry["launches"] = baseline_launches
     entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries, *bf16_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())

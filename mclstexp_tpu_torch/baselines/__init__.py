@@ -1,3 +1,4 @@
 """The baseline families of the port: HisToGene, Hist2ST and THItoGene (slide
 level) and BLEEP (per spot) (``models``, ``layers``, ``losses``, ``graph``,
-``trainer``). Port of ``mclstexp_tpu/baselines``."""
+``trainer``, ``super_resolution``, ``torch_import``). Port of
+``mclstexp_tpu/baselines``."""

@@ -31,9 +31,10 @@ jitted there, and XLA multiplies by float32(1 / 255) (``augment.to_float``);
 ``predict_slide`` and ``bleep_embeddings`` divide eagerly, a true division
 (``to_float_eager``).
 
-Not ported yet (ROADMAP.md Queue 1): the slide-DP mode and BLEEP's
-``mesh=`` (Queue 1 item 5; both raise ``TypeError``), ``super_resolution``
-and ``torch_import``.
+The super-resolution grid and the reference checkpoint import are
+``baselines/super_resolution.py`` and ``baselines/torch_import.py``. Not
+ported yet (ROADMAP.md Queue 1 item 5): the slide-DP mode and BLEEP's
+``mesh=`` (both raise ``TypeError``).
 """
 
 from __future__ import annotations

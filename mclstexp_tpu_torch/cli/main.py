@@ -1,14 +1,15 @@
 """Command-line interface of the port: hvg / train / eval / predict / serve /
-export-torch / fetch.
+baseline / export-torch / fetch.
 
 Port of ``mclstexp_tpu/cli/main.py``, with the same subcommands, flags and
 defaults over the port's library:
 
-  python -m mclstexp_tpu_torch.cli hvg     --dataset her2st --data-root ... --out ...
-  python -m mclstexp_tpu_torch.cli train   --dataset her2st --data-root ... [--fold N]
-  python -m mclstexp_tpu_torch.cli eval    --dataset her2st --data-root ...
-  python -m mclstexp_tpu_torch.cli predict --dataset her2st --checkpoint ... --fold N
-  python -m mclstexp_tpu_torch.cli serve   --dataset her2st --checkpoint ...
+  python -m mclstexp_tpu_torch.cli hvg      --dataset her2st --data-root ... --out ...
+  python -m mclstexp_tpu_torch.cli train    --dataset her2st --data-root ... [--fold N]
+  python -m mclstexp_tpu_torch.cli eval     --dataset her2st --data-root ...
+  python -m mclstexp_tpu_torch.cli predict  --dataset her2st --checkpoint ... --fold N
+  python -m mclstexp_tpu_torch.cli serve    --dataset her2st --checkpoint ...
+  python -m mclstexp_tpu_torch.cli baseline --baseline hist2st --dataset her2st ... [--fold N]
 
 One flag is the port's own: ``--device`` (default ``cuda``), where the
 model, the patch cut and the retrieval run. Without a card the commands that
@@ -21,7 +22,8 @@ is the compute dtype of every subcommand's model, as in the JAX CLI:
 ``bfloat16`` trains, evaluates, predicts and serves in bf16 (fp32
 parameters, bf16 compute, the JAX rule). A checkpoint keeps no dtype, as
 JAX's keep none: ``eval`` of a bf16-trained fold without ``--dtype`` scores
-in fp32, as JAX's does.
+in fp32, as JAX's does. The JAX CLI's ``bench``, its multi-host flags,
+``eval --shard-eval`` and ``baseline --dp`` are not part of the port's.
 """
 
 from __future__ import annotations
@@ -542,6 +544,120 @@ def cmd_export_torch(args) -> int:
     return 0
 
 
+def cmd_baseline(args) -> int:
+    """Train and score one baseline family on one fold (the comparison the
+    reference vendors under ``baselines/``), on ``--device``.
+
+    Training saves the port's ``state.pt`` to ``--checkpoint-dir``'s
+    ``baselines/<family>/best_<fold>`` unless ``--no-save``;
+    ``--load-checkpoint`` restores such a directory and ``--torch-checkpoint``
+    a reference-trained ``.pt`` or Lightning ``.ckpt``
+    (``baselines/torch_import.py``), each scored without training. BLEEP is
+    scored by retrieval in ``--bleep-retrieval``'s mode, the slide families
+    on the held-out slide; ``--super-resolution`` also predicts that slide's
+    dense 56-px grid (``baselines/super_resolution.py``) into an ``.npz``.
+    Prints the result as JSON. Attention is "xla": the JAX CLI has no
+    backend flag for the baselines."""
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.train import checkpoint as ckpt
+
+    cfg = _build_config(args)
+    sections = _load_sections(cfg, device=args.device)
+    # THItoGene's reference flow deepens the ViT for cSCC
+    # (THItoGene/train.py:19-23: n_layers 4 her2st / 8 skin)
+    n_layers = args.n_layers
+    if n_layers is None and args.baseline == "thitogene" and cfg.data.dataset == "cscc":
+        n_layers = 8
+    bcfg = trainer.BaselineConfig(
+        model=args.baseline,
+        n_genes=sections[0].num_genes,
+        patch_size=cfg.data.patch_size,
+        max_epochs=args.max_epochs,
+        n_layers=n_layers,
+        lr=args.lr,
+        # the parser's None sentinels: an unset flag falls through to the
+        # family's reference default
+        weight_decay=args.weight_decay,
+        dropout=args.dropout if args.dropout is not None else 0.2,
+        temperature=args.temperature if args.temperature is not None else 1.0,
+        seed=args.seed,
+        zinb_coef=args.zinb,
+        bake=args.bake,
+        lamb=args.lamb,
+        batch_size=args.batch_size or trainer.BaselineConfig.batch_size,
+        dtype=args.dtype,
+        encoder_name=args.bleep_encoder,
+    )
+
+    if args.torch_checkpoint or args.load_checkpoint:
+        state = trainer.init_baseline(bcfg, args.device)
+        if args.torch_checkpoint:
+            from mclstexp_tpu_torch.baselines.torch_import import (
+                load_baseline_torch_checkpoint,
+            )
+
+            load_baseline_torch_checkpoint(args.torch_checkpoint, args.baseline, state.model)
+        else:
+            ckpt.apply_checkpoint(state, ckpt.restore_checkpoint(args.load_checkpoint))
+    elif args.baseline == "bleep":
+        state = trainer.train_bleep_fold(bcfg, sections, args.fold, device=args.device)
+    else:
+        state = trainer.train_baseline_fold(bcfg, sections, args.fold, device=args.device)
+    if not args.load_checkpoint and not args.torch_checkpoint and not args.no_save:
+        out_dir = os.path.join(cfg.train.checkpoint_dir, "baselines", args.baseline,
+                               f"best_{args.fold}")
+        ckpt.save_checkpoint(out_dir, state)
+        print(f"checkpoint: {out_dir}", file=sys.stderr)
+
+    model = state.model
+    if args.baseline == "bleep":
+        from mclstexp_tpu_torch.infer import embed, evaluate
+
+        img, spot = trainer.bleep_embeddings(model, sections)
+        sizes = [s.num_spots for s in sections]
+        # the reference notebook's three modes (BLEEP_inference.ipynb cell 5)
+        top_k, weight_ord = {
+            "simple": (1, 0),  # nearest match only
+            "average": (50, 0),  # uniform top-50
+            "weighted": (50, -1),  # exp(-(d^2 - d_top^2 + 1)) top-50
+        }[args.bleep_retrieval]
+        result = evaluate.evaluate_fold(
+            args.fold,
+            embed.split_by_section(img, sizes)[args.fold],
+            embed.split_by_section(spot, sizes),
+            [s.eval_expression for s in sections],
+            top_k=top_k,
+            weight_ord=weight_ord,
+            device=args.device,
+        )
+    else:
+        result = trainer.evaluate_baseline_fold(bcfg, sections, args.fold, model)
+        if args.super_resolution:
+            result["super_resolution"] = _baseline_super_resolution(args, cfg, bcfg, model,
+                                                                    sections)
+    print(json.dumps(result, indent=2))
+    return 0
+
+
+def _baseline_super_resolution(args, cfg, bcfg, model, sections) -> dict:
+    """The held-out section's dense-grid prediction (HisToGene's SR mode,
+    reference ``predict.py:46-68``), written as (predictions, centers) to
+    the ``--super-resolution`` path."""
+    from mclstexp_tpu_torch.baselines.super_resolution import sr_predict
+    from mclstexp_tpu_torch.data.io import load_slide
+    from mclstexp_tpu_torch.data.st_dataset import her2st_slide_path
+
+    if cfg.data.dataset != "her2st":
+        raise SystemExit("--super-resolution needs --dataset her2st "
+                         "(the reference SR tutorial's dataset)")
+    section = sections[args.fold]
+    slide = load_slide(her2st_slide_path(cfg.data.data_root, section.name))
+    preds, centers = sr_predict(model, section, slide, bcfg)
+    out = args.super_resolution
+    np.savez(out, predictions=preds, centers=centers)
+    return {"path": out, "grid_spots": int(len(centers))}
+
+
 def cmd_fetch(args) -> int:
     """Acquire a dataset and print the hvg/train commands to run next."""
     from mclstexp_tpu_torch.data.fetch import fetch
@@ -600,6 +716,46 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--fold", type=int, required=True)
     p.add_argument("--out", type=str, default="")
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("baseline", help="train/eval a baseline family")
+    _add_model_flags(p); _add_data_flags(p)
+    # None sentinels: unset flags fall through to each family's reference
+    # defaults in BaselineConfig instead of the flagship defaults above
+    p.set_defaults(weight_decay=None, dropout=None, temperature=None)
+    p.add_argument("--baseline", type=str, required=True,
+                   choices=["histogene", "hist2st", "thitogene", "bleep"])
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--zinb", type=float, default=0.25)
+    p.add_argument("--bake", type=int, default=None,
+                   help="Hist2ST distillation passes; default = reference's 5")
+    p.add_argument("--lamb", type=float, default=0.5)
+    p.add_argument("--bleep-encoder", type=str, default="resnet50",
+                   choices=["resnet50", "res101", "resnet152", "vit", "vit_l",
+                            "clip_vit", "tiny_cnn"],
+                   help="BLEEP image tower (reference "
+                        "baselines/Bleep/modules.py:7-132 menu)")
+    p.add_argument("--bleep-retrieval", type=str, default="average",
+                   choices=["simple", "average", "weighted"],
+                   help="BLEEP inference mode (BLEEP_inference.ipynb cell 5): "
+                        "nearest match / uniform top-50 / exp-weighted top-50")
+    p.add_argument("--no-save", action="store_true",
+                   help="skip the end-of-training checkpoint")
+    p.add_argument("--load-checkpoint", type=str, default="",
+                   help="restore this baseline checkpoint instead of training")
+    p.add_argument("--torch-checkpoint", type=str, default="",
+                   help="score a reference-trained torch/Lightning baseline "
+                        "checkpoint (.pt state_dict or Lightning .ckpt) "
+                        "without retraining (baselines/torch_import.py)")
+    p.add_argument("--super-resolution", type=str, default="",
+                   help="also predict the held-out section on the dense 56-px "
+                        "grid (HisToGene SR mode) and write (predictions, "
+                        "centers) to this .npz")
+    p.add_argument("--n-layers", type=int, default=None,
+                   help="slide-ViT depth; default = the family's reference "
+                        "flow (HisToGene 8, THItoGene 4/8 by dataset)")
+    # each family resolves its reference flow's lr and epochs
+    # (trainer._FAMILY_LR / _FAMILY_EPOCHS)
+    p.set_defaults(fn=cmd_baseline, lr=None, max_epochs=None)
 
     p = sub.add_parser("serve", help="HTTP prediction service from a checkpoint")
     _add_model_flags(p); _add_data_flags(p)

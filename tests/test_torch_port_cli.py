@@ -219,9 +219,10 @@ def test_help_loads_no_jax_and_lists_the_subcommands():
     out = subprocess.run([sys.executable, "-m", "mclstexp_tpu_torch.cli", "--help"], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for cmd in ("hvg", "train", "eval", "predict", "serve", "export-torch", "fetch"):
+    for cmd in ("hvg", "train", "eval", "predict", "serve", "baseline", "export-torch",
+                "fetch"):
         assert cmd in out.stdout
-    assert "baseline" not in out.stdout and "bench" not in out.stdout
+    assert "bench" not in out.stdout
     code = (
         "import runpy, sys\n"
         "sys.argv = ['mclstexp_tpu_torch.cli', 'train', '--help']\n"
@@ -241,9 +242,9 @@ def test_help_loads_no_jax_and_lists_the_subcommands():
 
 
 def test_commands_run_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
-    """Without a card the default ``--device cuda`` fails in torch; it never
-    falls back to the CPU. A dtype other than float32 or bfloat16 is refused
-    (argparse's choices)."""
+    """Without a card the default ``--device cuda`` fails in torch (``train``,
+    ``baseline``); it never falls back to the CPU. A dtype other than
+    float32 or bfloat16 is refused (argparse's choices)."""
     monkeypatch.chdir(tmp_path)
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the CPU-only failure cannot show")
@@ -251,6 +252,10 @@ def test_commands_run_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(argv)
     assert not (tmp_path / "model_result" / "synthetic").exists()
+    with pytest.raises((RuntimeError, AssertionError)):
+        cli.main(["baseline", "--baseline", "histogene", "--dataset", "synthetic",
+                  "--n-layers", "1", "--max_epochs", "1"])
+    assert not (tmp_path / "model_result" / "baselines").exists()
     with pytest.raises(SystemExit):
         cli.main(argv + ["--device", "cpu", "--dtype", "float16"])
 
