@@ -161,7 +161,23 @@ order; any failure exits non-zero and prints no result line:
      ms per slide step and peak memory bf16 against fp32 at 768 rows and
      at the whole slide's 4,096), a THItoGene fold and a Hist2ST fold (48
      bf16 segment launches of each kernel per step, none in fp32) in bf16,
-     and one BLEEP step in bf16.
+     and one BLEEP step in bf16;
+ 20. analysis: the port's tutorial (``mclstexp_tpu_torch.tutorial``, two
+     epochs) on the card: ``train_fold`` (row_shift's shears, three launches
+     a step), the embedding sweep, the held-out fold's retrieval and
+     prediction file, ``gene_ranking``, the plot (matplotlib is absent
+     there: one line says the PNG was not written) and domain clustering;
+     ``cluster_predictions`` on the card against the CPU (the same k-means
+     labels, equal ARI/NMI) on its prediction and on seed-made domains at
+     her2st's width (600 spots x 785 genes), PCA + k-means timed;
+ 21. shard-eval: a one-rank NCCL group in this process (``make_mesh``):
+     ``sharded_retrieve_and_aggregate`` at [serve]'s her2st scale against
+     ``retrieve_and_aggregate`` (indices identical, aggregates within 1e-6),
+     timed, the group destroyed; then ``torchrun --nproc-per-node=<cards>
+     -m``-style ``eval --shard-eval`` on [cli]'s tree and checkpoint with a
+     fresh patch cache: the ranks' cooperative pre-cut launches
+     extract_patches once per section, the metrics equal [cli]'s ``eval``
+     within rtol 1e-6, each rank's world size and rank printed.
 The line before the last is a JSON object with one entry per kernel and
 layout; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2966,6 +2982,208 @@ def phase_bf16_bleep(sections) -> None:
     torch.cuda.empty_cache()
 
 
+BLOBS = (600, 785, 6)  # her2st width: spots, genes, domains
+
+
+def _blobs(seed: int = 15):
+    """Seed-made domains at her2st's width: 6 centers 8 apart per gene, unit
+    noise; labels "domain<k>", every 50th spot "undetermined"."""
+    import numpy as np
+
+    n, g, k = BLOBS
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, size=n)
+    x = (8.0 * rng.normal(size=(k, g))[y] + rng.normal(size=(n, g))).astype(np.float32)
+    labels = np.array([f"domain{v}" for v in y], dtype=object)
+    labels[::50] = "undetermined"
+    return x, labels
+
+
+def phase_analysis() -> dict:
+    """[analysis] the port's tutorial on the card (two epochs: training with
+    row_shift's Paeth shears, the embedding sweep, the fold's retrieval and
+    prediction file, the gene ranking, the plot where matplotlib is
+    importable, domain clustering); the ranking again on its prediction;
+    ``cluster_predictions`` on the card against the CPU on the same input
+    (the same k-means labels, equal ARI and NMI), then on seed-made domains
+    at her2st's width (600 spots x 785 genes), with the card's time for PCA
+    and k-means. Returns row_shift's launches in the tutorial."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch import tutorial
+    from mclstexp_tpu_torch.data.pipeline import num_train_steps
+    from mclstexp_tpu_torch.infer import cluster, metrics
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "build", "chip_smoke", "tutorial")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = tutorial.main(out_dir, max_epochs=2, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(row_shift.kernel_launches)
+    steps = 2 * num_train_steps(2 * 64, 32)  # two 64-spot training sections, batch 32
+    if launches != _shear_launches(steps):
+        raise AssertionError(f"the tutorial's {steps} steps launched row_shift {launches}; "
+                             f"the Paeth rotation takes {_shear_launches(steps)}")
+    pred, ranking = out["pred"], out["ranking"]
+    if pred.shape != (64, 32) or not np.isfinite(pred).all() or \
+            not all(math.isfinite(v) for v in out["metrics"].values()):
+        raise AssertionError(f"tutorial: prediction {pred.shape}, metrics {out['metrics']}")
+    logp = np.asarray(ranking["mean_neglog10_p"])
+    finite = logp[np.isfinite(logp)]
+    if sorted(ranking["gene"]) != sorted(f"GENE{i}" for i in range(32)) or \
+            not (np.diff(finite) <= 0).all() or not np.isnan(logp[len(finite):]).all():
+        raise AssertionError(f"gene_ranking of the tutorial's prediction: {ranking}")
+    png = ("written: " + out["png"]) if out["png"] else \
+        "not written (matplotlib is not importable here; the rest of the run went on)"
+    log(f"[analysis] tutorial on the card, 2 epochs ({steps} steps): {seconds:.2f} s; fold "
+        f"metrics {out['metrics']}; row_shift {launches}; top genes {ranking['gene'][:5]}; "
+        f"PNG {png}")
+
+    labels = out["labels"]
+    card = metrics.cluster_predictions(pred, labels, device="cuda")
+    host = metrics.cluster_predictions(pred, labels, device="cpu")
+    card_labels, _ = cluster.kmeans(cluster.pca(pred, 9, "cuda"), 2, 0, "cuda")
+    host_labels, _ = cluster.kmeans(cluster.pca(pred, 9, "cpu"), 2, 0, "cpu")
+    if card != host or not (card_labels == host_labels).all():
+        raise AssertionError(f"tutorial clustering: card {card}, CPU {host}")
+    log(f"[analysis] tutorial clustering on the card {card}, equal to the CPU's "
+        f"(k-means labels identical)")
+
+    x, labels = _blobs()
+    keep = labels != "undetermined"
+    card = metrics.cluster_predictions(x, labels, device="cuda")
+    host = metrics.cluster_predictions(x, labels, device="cpu")
+    times = []
+    for _ in range(6):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, "cuda"), BLOBS[2], 0, "cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+    host_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, "cpu"), BLOBS[2], 0, "cpu")
+    if card != host or not (card_labels == host_labels).all() or card["ari"] != 1.0:
+        raise AssertionError(f"domains at her2st width: card {card}, CPU {host}")
+    log(f"[analysis] {BLOBS[0]} spots x {BLOBS[1]} genes, {BLOBS[2]} domains "
+        f"({int(keep.sum())} labelled): {card}, equal to the CPU's; PCA (9 components, "
+        f"float64 SVD) + k-means on the card {sorted(times[1:])[2]:.2f} ms (median of 5; "
+        f"{', '.join(f'{t:.2f}' for t in times)})")
+    return launches
+
+
+def phase_shard_eval() -> int:
+    """[shard-eval] the multi-process eval path on the card: in this process
+    a one-rank NCCL group (``make_mesh``), ``sharded_retrieve_and_aggregate``
+    at [serve]'s her2st scale (568 queries, 15,499 keys of which 14,931
+    active, K=200, 256 / 785 wide) against ``retrieve_and_aggregate`` on the
+    same inputs (indices identical, aggregates within 1e-6), each timed; the
+    group destroyed. Then ``eval --shard-eval`` under ``torchrun`` (one
+    process per card) on [cli]'s tree and checkpoint with a fresh patch
+    cache, so the cooperative pre-cut cuts every section with the
+    extract_patches kernel: its metrics against [cli]'s ``eval`` within rtol
+    1e-6. Returns the extract_patches launches of the torchrun job."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.ops import retrieval
+    from mclstexp_tpu_torch.ops.retrieval_sharded import sharded_retrieve_and_aggregate
+    from mclstexp_tpu_torch.parallel import distributed
+    from mclstexp_tpu_torch.parallel.mesh import make_mesh
+
+    nq, nk, k = 568, 15499, 200
+    rng = np.random.default_rng(16)
+    keys = rng.normal(size=(nk, 256)).astype(np.float32)
+    expr = rng.normal(size=(nk, 785)).astype(np.float32)
+    queries = rng.normal(size=(nq, 256)).astype(np.float32)
+    mask = np.ones(nk, bool)
+    mask[:nq] = False  # the held-out section, as [serve]'s fold
+    mesh = make_mesh(device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        # one query chunk of the fold's size: the score product has the
+        # dense path's shape, so the two select on the same scores
+        chunk = dict(query_chunk=nq)
+        times = {"sharded": [], "dense": []}
+        for _ in range(6):  # the first of each is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, idx, emb, pred = sharded_retrieve_and_aggregate(
+                keys, expr, queries, k, mesh, key_mask=mask, return_matches=True,
+                device="cuda", **chunk)
+            times["sharded"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want_emb, want_pred = retrieval.retrieve_and_aggregate(
+                keys, expr, queries, k, key_mask=mask, device="cuda")
+            times["dense"].append((time.perf_counter() - t0) * 1e3)
+        _, want_idx = retrieval.find_matches(torch.from_numpy(keys).cuda(),
+                                             torch.from_numpy(queries).cuda(), k,
+                                             key_mask=torch.from_numpy(mask).cuda())
+        err = max(float(np.abs(emb - want_emb).max()), float(np.abs(pred - want_pred).max()))
+        if not np.array_equal(idx, want_idx.cpu().numpy()) or not err <= 1e-6:
+            raise AssertionError(f"sharded retrieval: indices equal "
+                                 f"{np.array_equal(idx, want_idx.cpu().numpy())}, aggregates "
+                                 f"max abs diff {err}")
+    finally:
+        distributed.shutdown()
+    med = {name: sorted(t[1:])[2] for name, t in times.items()}
+    log(f"[shard-eval] sharded_retrieve_and_aggregate over a one-rank {backend} group: "
+        f"{nq} queries x {int(mask.sum())} active keys of {nk}, K={k}: indices identical to "
+        f"retrieve_and_aggregate's, aggregates within {err:.1e}; {med['sharded']:.2f} ms "
+        f"sharded, {med['dense']:.2f} ms dense (host arrays in and out, medians of 5: "
+        f"{', '.join(f'{t:.2f}' for t in times['sharded'])} / "
+        f"{', '.join(f'{t:.2f}' for t in times['dense'])}); group destroyed: "
+        f"{not distributed.is_initialized()}")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke", "cli")
+    child = os.path.join(work, "cli_child.py")
+    with open(child, "w") as f:
+        f.write(_CLI_CHILD)
+    flags = ["--dataset", "her2st", "--data-root", os.path.join(work, "her2st"),
+             "--gene-panel", os.path.join(work, "panel", "her2st_hvg_panel.npy")]
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the job's processes share the card with this one
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", child, "eval", "--fold", "0", "--shard-eval",
+             "--patch-cache", "patch_cache_shard", "--json", "shard.json"] + flags,
+            capture_output=True, text=True, env=_child_env(repo), timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun eval --shard-eval exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        ranks = [line for line in proc.stderr.splitlines() if "eval --shard-eval: rank" in line]
+        counts = [json.loads(line) for line in proc.stdout.splitlines()
+                  if line.startswith('{"row_shift"')]
+        host, sharded = _json_file("eval.json"), _json_file("shard.json")
+    finally:
+        os.chdir(cwd)
+    launches = sum(c["extract_patches"] for c in counts)
+    sections = len(os.listdir(os.path.join(work, "her2st", "ST-cnts")))
+    if len(ranks) != world or len(counts) != world or launches != sections:
+        raise AssertionError(f"torchrun eval --shard-eval: ranks {ranks}, launch counts "
+                             f"{counts}; the pre-cut cuts each of {sections} sections once")
+    for key, v in host["avg"].items():
+        if not math.isclose(sharded["avg"][key], v, rel_tol=1e-6):
+            raise AssertionError(f"eval --shard-eval {key} {sharded['avg'][key]} vs eval {v}")
+    log(f"[shard-eval] torchrun --nproc-per-node={world} eval --shard-eval (world size "
+        f"{world}; {'; '.join(r.split(': ', 1)[1] for r in ranks)}): {seconds:.2f} s; "
+        f"extract_patches {launches} in the cooperative pre-cut of {sections} sections on "
+        f"a fresh cache; metrics {sharded['avg']} equal to [cli]'s eval within rtol 1e-6")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3004,6 +3222,8 @@ def main() -> int:
     phase_bf16_cli()
     bf16_seg, bf16_tseg, bf16_hseg = phase_bf16_baselines()
     phase_bf16_bleep(sections)
+    tutorial_launches = phase_analysis()
+    shard_eval_launches = phase_shard_eval()
     for entry, count, seg, tseg, hseg in zip(bf16_entries, bf16_counts, bf16_seg, bf16_tseg,
                                              bf16_hseg):
         entry["launches"] = count  # the bf16 flagship fold, the bf16 slice's main path
@@ -3022,14 +3242,18 @@ def main() -> int:
     for entry, count in zip(bwd_entries, counts[1:]):
         entry["launches"] = count
     # The command line's path ([cli]) beside each kernel's own main path
+    # row_shift on this slice's main path, the tutorial, beside [train] and [cli]
     for entry in entries:
         entry["launches_by_path"] = {"train": entry["launches"],
-                                     "cli": cli_launches["row_shift"][entry["kernel"]]}
-    # extract_patches on this slice's main path, `baseline` with --super-resolution
+                                     "cli": cli_launches["row_shift"][entry["kernel"]],
+                                     "tutorial": tutorial_launches[entry["kernel"]]}
+        entry["launches"] = tutorial_launches[entry["kernel"]]
+    # extract_patches on this slice's main path, eval --shard-eval's pre-cut
     patch_entry["launches_by_path"] = {"data": patch_entry["launches"],
                                        "cli": cli_launches["extract_patches"],
-                                       "cli_baseline": baseline_launches}
-    patch_entry["launches"] = baseline_launches
+                                       "cli_baseline": baseline_launches,
+                                       "shard_eval": shard_eval_launches}
+    patch_entry["launches"] = shard_eval_launches
     entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries, *bf16_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -22,8 +22,18 @@ is the compute dtype of every subcommand's model, as in the JAX CLI:
 ``bfloat16`` trains, evaluates, predicts and serves in bf16 (fp32
 parameters, bf16 compute, the JAX rule). A checkpoint keeps no dtype, as
 JAX's keep none: ``eval`` of a bf16-trained fold without ``--dtype`` scores
-in fp32, as JAX's does. The JAX CLI's ``bench``, its multi-host flags,
-``eval --shard-eval`` and ``baseline --dp`` are not part of the port's.
+in fp32, as JAX's does.
+
+Several processes, one per card: under ``torchrun --nproc-per-node N``
+(or with ``--coordinator``, ``--num-processes`` and ``--process-id``) each
+command joins a process group at entry (``parallel/distributed.py``) and
+runs on ``cuda:{LOCAL_RANK}``. The ranks then cut the patch cache together,
+each its share of the sections, before any reads it; ``eval --shard-eval``
+splits the embedding sweep over the ranks (without ``torchrun``, over a
+one-rank group), and only rank 0 writes files and prints the result.
+``train`` and ``baseline`` refuse more than one process: data-parallel
+training is not ported yet. The JAX CLI's ``bench`` and ``baseline --dp``
+are not part of the port's.
 """
 
 from __future__ import annotations
@@ -69,6 +79,16 @@ def _add_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--weight_decay", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
+
+
+def _add_dist_flags(p: argparse.ArgumentParser):
+    # Several processes, one per card. torchrun's environment needs none of
+    # these; they spell the rendezvous out where no launcher sets it.
+    p.add_argument("--coordinator", type=str, default="",
+                   help="rendezvous address host:port of rank 0 (tcp://); omit under "
+                        "torchrun")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def _add_data_flags(p: argparse.ArgumentParser):
@@ -140,10 +160,15 @@ def _build_config(args):
 def _load_sections(cfg, with_patches: bool = True, device="cuda"):
     """The preset's sections; patches are cut on ``device`` (the
     extract_patches kernel on the card) into a cache per dataset and patch
-    size."""
+    size. In a process group the ranks first cut the cache together, each
+    its ``process_shard`` of the sections, and wait for each other before
+    any rank reads it (the cache directory must be shared by all ranks)."""
     from mclstexp_tpu_torch.data import genes, synthetic
-    from mclstexp_tpu_torch.data.st_dataset import load_cscc, load_her2st
-    from mclstexp_tpu_torch.data.visium import load_visium
+    from mclstexp_tpu_torch.data.st_dataset import (
+        cscc_section_names, her2st_section_names, load_cscc, load_her2st,
+    )
+    from mclstexp_tpu_torch.data.visium import VISIUM_SECTIONS, load_visium
+    from mclstexp_tpu_torch.parallel import distributed
 
     ds = cfg.data.dataset
     if ds == "synthetic":
@@ -151,13 +176,28 @@ def _load_sections(cfg, with_patches: bool = True, device="cuda"):
     ps = cfg.data.patch_size
     # one cache per (dataset, patch size): a wrong-size cache reads as a miss
     cache = os.path.join(cfg.data.patch_cache_dir, f"{ds}_{ps}")
-    if ds == "visium":
-        return load_visium(cfg.data.data_root, cfg.data.preprocessed_root, patch_size=ps,
-                           cache_dir=cache, with_patches=with_patches, device=device)
-    panel = genes.load_panel(ds, cfg.data.gene_panel or None)
-    load = {"her2st": load_her2st, "cscc": load_cscc}[ds]
-    return load(cfg.data.data_root, panel, patch_size=ps, cache_dir=cache,
-                with_patches=with_patches, device=device)
+
+    def load(names=None):
+        if ds == "visium":
+            kw = {} if names is None else {"names": names}
+            return load_visium(cfg.data.data_root, cfg.data.preprocessed_root, patch_size=ps,
+                               cache_dir=cache, with_patches=with_patches, device=device,
+                               **kw)
+        panel = genes.load_panel(ds, cfg.data.gene_panel or None)
+        return {"her2st": load_her2st, "cscc": load_cscc}[ds](
+            cfg.data.data_root, panel, names=names, patch_size=ps, cache_dir=cache,
+            with_patches=with_patches, device=device)
+
+    if with_patches and distributed.is_initialized():
+        if ds == "her2st":
+            all_names = her2st_section_names(cfg.data.data_root)
+        elif ds == "cscc":
+            all_names = cscc_section_names()
+        else:
+            all_names = list(VISIUM_SECTIONS)
+        load(names=all_names[distributed.process_shard(len(all_names))])
+        distributed.sync_hosts("patch-cache-precut")
+    return load()
 
 
 def _maybe_remap(cfg, sections, prefer_saved: bool = False):
@@ -249,7 +289,18 @@ def cmd_hvg(args) -> int:
     return 0
 
 
+def _single_process(command: str) -> None:
+    from mclstexp_tpu_torch.parallel import distributed
+
+    if distributed.world_size() > 1:
+        raise NotImplementedError(
+            f"{command} runs as one process: data-parallel training over a process group "
+            f"(the global-batch step, slide-DP, the gathered losses) is the port's next "
+            f"multi-device slice; start it without torchrun")
+
+
 def cmd_train(args) -> int:
+    _single_process("train")
     cfg = _build_config(args)
     from mclstexp_tpu_torch.train.loop import train_all_folds, train_fold
     from mclstexp_tpu_torch.utils.logging import MetricLogger
@@ -319,9 +370,14 @@ def _write_json(path: str, results) -> None:
 
 def cmd_eval(args) -> int:
     """The LOO protocol: per fold, the embedding sweep under the fold's
-    checkpoint and the retrieval metrics; prints the four averages."""
+    checkpoint and the retrieval metrics; prints the four averages.
+    ``--shard-eval`` splits the sweep over the process group's ranks
+    (``compute_embeddings_sharded``; ignored under the Visium eval-time
+    augmentation, as in JAX); every rank then scores every fold, and rank 0
+    alone writes the prediction, embedding and JSON files and prints."""
     cfg = _build_config(args)
     from mclstexp_tpu_torch.infer import embed, evaluate
+    from mclstexp_tpu_torch.parallel import distributed
     from mclstexp_tpu_torch.train import checkpoint as ckpt
     from mclstexp_tpu_torch.train.loop import check_positions_in_vocab
     from mclstexp_tpu_torch.train.state import create_train_state
@@ -366,6 +422,14 @@ def cmd_eval(args) -> int:
 
     prepared = embed.prepare_eval_arrays(sections, device=args.device)  # one upload
     bounds = evaluate.section_bounds(sizes)
+    mesh = None
+    if args.shard_eval and not cfg.data.eval_time_augment:
+        from mclstexp_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device)
+        print(f"eval --shard-eval: rank {distributed.rank()} of world size "
+              f"{distributed.world_size()} on {args.device}", file=sys.stderr, flush=True)
+    lead = distributed.rank() == 0  # the one rank that writes files and prints
     per_fold = []
     for fold in folds:
         if args.torch_checkpoint:
@@ -378,18 +442,25 @@ def cmd_eval(args) -> int:
             ckpt.load_checkpoint(ckpt.fold_checkpoint_dir(
                 cfg.train.checkpoint_dir, cfg.data.dataset, sections[fold].name, fold),
                 state.model)
-        img, spot = embed.compute_embeddings(
-            state.model, sections, cfg.eval.batch_size,
-            eval_augment=cfg.data.eval_time_augment, prepared=prepared,
-            raw_scale=cfg.data.visium_raw_scale, as_device=True, device=args.device,
-        )
-        if args.save_embeddings:
+        if mesh is not None:
+            img, spot = embed.compute_embeddings_sharded(
+                state.model, sections, mesh, cfg.eval.batch_size,
+                raw_scale=cfg.data.visium_raw_scale, prepared=prepared, as_device=True,
+                device=args.device,
+            )
+        else:
+            img, spot = embed.compute_embeddings(
+                state.model, sections, cfg.eval.batch_size,
+                eval_augment=cfg.data.eval_time_augment, prepared=prepared,
+                raw_scale=cfg.data.visium_raw_scale, as_device=True, device=args.device,
+            )
+        if args.save_embeddings and lead:
             out_dir = os.path.join(cfg.eval.embedding_dir,
                                    f"{cfg.data.dataset}_result", f"embeddings_{fold}")
             embed.save_embedding_files(img.cpu().numpy(), spot.cpu().numpy(), sizes, out_dir)
         pred_path = None
         # prediction dumps for the full protocol only (one fold: `predict`)
-        if cfg.eval.prediction_dir and len(folds) == len(sections):
+        if cfg.eval.prediction_dir and len(folds) == len(sections) and lead:
             pred_path = os.path.join(cfg.eval.prediction_dir, sections[fold].name,
                                      "matched_spot_expression_pred.npy")
         per_fold.append(evaluate.evaluate_fold_resident(
@@ -404,9 +475,10 @@ def cmd_eval(args) -> int:
         "folds": folds,
         "avg": {k: float(np.mean([m[k] for m in per_fold])) for k in per_fold[0]},
     }
-    _print_averages(results["avg"])
-    if args.json:
-        _write_json(args.json, results)
+    if lead:
+        _print_averages(results["avg"])
+        if args.json:
+            _write_json(args.json, results)
     return 0
 
 
@@ -561,6 +633,7 @@ def cmd_baseline(args) -> int:
     from mclstexp_tpu_torch.baselines import trainer
     from mclstexp_tpu_torch.train import checkpoint as ckpt
 
+    _single_process("baseline")
     cfg = _build_config(args)
     sections = _load_sections(cfg, device=args.device)
     # THItoGene's reference flow deepens the ViT for cSCC
@@ -670,7 +743,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("hvg", help="build preprocessed expression matrices")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--out", type=str, default="")
     p.add_argument("--select-panel", action="store_true",
                    help="emit panel artifacts (per-section HVG masks, "
@@ -686,15 +759,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_hvg)
 
     p = sub.add_parser("train", help="train folds (leave-one-section-out)")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--fold", type=int, default=None, help="single fold; default all")
     p.add_argument("--resume", action="store_true")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="LOO retrieval evaluation")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--fold", type=int, default=None)
     p.add_argument("--save-embeddings", action="store_true")
+    p.add_argument("--shard-eval", action="store_true",
+                   help="split the B=32 embedding sweep over the process group's ranks "
+                        "(torchrun; one rank without it); per-batch outputs as on one "
+                        "card; ignored when the Visium eval-augment quirk is on")
     p.add_argument("--from-embeddings", type=str, default="",
                    help="score pre-computed embedding dumps under this root "
                         "(per-fold embeddings_<fold>/ dirs in the reference "
@@ -711,14 +788,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("predict", help="predict expression for one section")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--checkpoint", type=str, required=True)
     p.add_argument("--fold", type=int, required=True)
     p.add_argument("--out", type=str, default="")
     p.set_defaults(fn=cmd_predict)
 
     p = sub.add_parser("baseline", help="train/eval a baseline family")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     # None sentinels: unset flags fall through to each family's reference
     # defaults in BaselineConfig instead of the flagship defaults above
     p.set_defaults(weight_decay=None, dropout=None, temperature=None)
@@ -758,7 +835,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_baseline, lr=None, max_epochs=None)
 
     p = sub.add_parser("serve", help="HTTP prediction service from a checkpoint")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--checkpoint", type=str, required=True,
                    help="checkpoint directory (a fold's best_<k> dir)")
     p.add_argument("--host", type=str, default="127.0.0.1")
@@ -774,7 +851,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = sub.add_parser("export-torch",
                        help="export a checkpoint to a reference torch .pt")
-    _add_model_flags(p); _add_data_flags(p)
+    _add_model_flags(p); _add_data_flags(p); _add_dist_flags(p)
     p.add_argument("--checkpoint", type=str, required=True,
                    help="checkpoint directory (a fold's best_<k> dir)")
     p.add_argument("--out", type=str, required=True, help="output .pt path")
@@ -799,7 +876,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_fetch)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    if not hasattr(args, "device"):  # fetch
+        return args.fn(args)
+    # Several processes (torchrun, or the explicit flags): join the group,
+    # each on its own card; a no-op for one process. A group this command
+    # made (here or by eval --shard-eval's mesh) ends with it.
+    from mclstexp_tpu_torch.parallel import distributed
+
+    had_group = distributed.is_initialized()
+    distributed.maybe_initialize_distributed(
+        args.coordinator or None, args.num_processes, args.process_id, device=args.device)
+    if distributed.is_initialized():
+        args.device = distributed.local_device(args.device)
+    try:
+        return args.fn(args)
+    finally:
+        if not had_group:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@ mode (BatchNorm on running statistics), so it runs at a larger batch.
 
 Output layout matches the reference: ``<out_dir>/img_embeddings_<i+1>.npy``
 and ``spot_embeddings_<i+1>.npy``, stored transposed (P, N_i) per section.
+
+``compute_embeddings_sharded`` runs the same batches over the ranks of a
+mesh (``parallel/mesh.py``) and gathers them back in order.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mclstexp_tpu_torch.data.pipeline import ConcatSections
 from mclstexp_tpu_torch.data.section import Section
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
 from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.parallel.mesh import mesh_axis
 
 
 def prepare_eval_arrays(sections: Sequence[Section], with_patches: bool = True,
@@ -141,6 +146,78 @@ def compute_embeddings(
         return img, spot
     return (None if img is None else img.cpu().numpy(),
             None if spot is None else spot.cpu().numpy())
+
+
+def _sharded_tower(encode, arrays: Sequence[torch.Tensor], n: int, bs: int, width: int,
+                   group, n_dev: int, me: int) -> torch.Tensor:
+    """One tower over the sharded sweep: the n // bs full batches, padded to a
+    multiple of ``n_dev``, each rank encoding its contiguous block of them,
+    then an ``all_gather`` in rank order; the tail batch on every rank."""
+    full = n - n % bs
+    nb = full // bs
+    outs = []
+    if nb:
+        per_rank = -(-nb // n_dev)
+        mine = [encode(*[a[b * bs:(b + 1) * bs] for a in arrays])
+                for b in range(me * per_rank, min((me + 1) * per_rank, nb))]
+        block = torch.zeros(per_rank * bs, width, device=arrays[0].device)
+        if mine:  # padding batches past nb stay zero and are dropped below
+            block[:len(mine) * bs] = torch.cat(mine)
+        parts = [torch.empty_like(block) for _ in range(n_dev)]
+        dist.all_gather(parts, block, group=group)
+        outs.append(torch.cat(parts)[:full])
+    if full < n:  # the tail batch, unsharded, as the one-card sweep runs it
+        outs.append(encode(*[a[full:] for a in arrays]))
+    return torch.cat(outs)
+
+
+@torch.no_grad()
+def compute_embeddings_sharded(
+    model: MclSTExp,
+    sections: Sequence[Section],
+    mesh,
+    batch_size: int = 32,
+    raw_scale: bool = False,
+    prepared=None,
+    axis: str = "data",
+    image_batch_size: Optional[int] = None,
+    as_device: bool = False,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The embedding sweep over the ranks of ``mesh``'s ``axis``: each tower's
+    full batches split into contiguous blocks, one per rank, gathered back
+    in the original order on every rank; the tail batch runs unsharded.
+
+    Each spot batch is still exactly one ``batch_size`` attention sequence in
+    the original order, so every batch's output is ``compute_embeddings``'
+    (batches merely run on different ranks). The image tower, independent
+    per spot in eval mode, runs at ``image_batch_size or max(batch_size,
+    256)``. The Visium eval-time augmentation is not supported here (its
+    draws are defined per batch of the one-card sweep), as in the JAX
+    package. Returns (image, spot) embeddings as host ndarrays, or tensors
+    on ``device`` under ``as_device``."""
+    device = torch.device(device)
+    _check_model_device(model, device)
+    group, n_dev, me = mesh_axis(mesh, axis)
+    if prepared is None:
+        prepared = prepare_eval_arrays(sections, device=device)
+    n = prepared["n"]
+    image_bs = image_batch_size or max(batch_size, 256)
+    width = model.config.projection_dim
+    was_training = model.training
+    model.eval()
+    try:
+        img = _sharded_tower(
+            lambda p: model.encode_image(p.float() if raw_scale else augment.to_float(p)),
+            (prepared["patches"],), n, image_bs, width, group, n_dev, me)
+        spot = _sharded_tower(model.encode_spots,
+                              (prepared["expression"], prepared["positions"]), n, batch_size,
+                              width, group, n_dev, me)
+    finally:
+        model.train(was_training)
+    if as_device:
+        return img, spot
+    return img.cpu().numpy(), spot.cpu().numpy()
 
 
 def split_by_section(embeddings, section_sizes: Sequence[int]) -> List:

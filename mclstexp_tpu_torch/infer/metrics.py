@@ -1,7 +1,6 @@
 """Evaluation metrics: gene-wise PCC (+p), HEG selection, MSE/MAE.
 
-Port of ``mclstexp_tpu/infer/metrics.py`` (clustering comes with the
-analysis slice). Semantics are the reference's:
+Port of ``mclstexp_tpu/infer/metrics.py``. Semantics are the reference's:
   * per-gene Pearson r and two-sided p across spots, in float64 on the host
     (scipy for p); constant columns give NaN r, which the HVG mean drops;
   * HEG: the 50 highest-mean genes of the *ground truth*, with the
@@ -9,14 +8,18 @@ analysis slice). Semantics are the reference's:
   * MSE/MAE: uniform averages over all entries.
 ``expression_metrics_device`` computes the same bundle in fp32 torch on the
 tensors' device, for the LOO fold loop, with one 4-scalar readback.
+``cluster_predictions`` is the domain clustering of the tutorial, on the
+port's own PCA, k-means and scores (``infer/cluster.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from mclstexp_tpu_torch.infer import cluster
 
 
 def pearson_per_gene(pred: np.ndarray, true: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -102,3 +105,27 @@ def expression_metrics_device(pred: torch.Tensor, true: torch.Tensor,
     err = true - pred
     vals = torch.stack([hvg, heg, (err * err).mean(), err.abs().mean()]).cpu().tolist()
     return dict(zip(("hvg_pcc", "heg_pcc", "mse", "mae"), vals))
+
+
+def cluster_predictions(pred: np.ndarray, labels: Sequence[str], n_components: int = 9,
+                        random_state: int = 0, device="cuda") -> Dict[str, float]:
+    """KMeans domain clustering of predicted expression against pathologist
+    labels: spots labelled "undetermined" dropped, PCA to ``min(9, N - 1,
+    G)`` components, k-means++ KMeans with one cluster per label, then ARI
+    and NMI rounded to 3 places (the reference's ``utils.py:67-79``). PCA
+    and the Lloyd loop run on ``device``; the PCA is exact (``infer/cluster.py``
+    says where scikit-learn's default solver is not)."""
+    labels = np.asarray(labels)
+    keep = labels != "undetermined"
+    x = np.asarray(pred)[keep]
+    kept = labels[keep]
+    n_clusters = len(set(kept.tolist()))
+    comps = min(n_components, x.shape[0] - 1, x.shape[1])
+    x_pca = cluster.pca(x, comps, device=device)
+    assign, _ = cluster.kmeans(x_pca, n_clusters, random_state=random_state, device=device)
+    assign = assign.astype(str)
+    return {
+        "ari": float(round(cluster.adjusted_rand_score(assign, kept), 3)),
+        "nmi": float(round(cluster.normalized_mutual_info_score(kept, assign), 3)),
+        "n_clusters": n_clusters,
+    }

@@ -1,0 +1,72 @@
+"""Device-mesh and sharding helpers.
+
+Port of ``mclstexp_tpu/parallel/mesh.py``. A JAX ``Mesh`` names the
+devices one process sees; here the mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the process
+group, one card (or CPU process) each. ``make_mesh`` makes a one-rank group
+(a ``FileStore`` in a temporary directory) when none is initialized, so the
+sharded paths run their collectives at world size 1 too.
+``shard_batch`` keeps JAX's placement rule: a batch whose length divides
+the mesh axis is sharded (this rank keeps its contiguous slice), any other
+is replicated (every rank keeps all of it).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import tempfile
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from mclstexp_tpu_torch.parallel import distributed
+
+
+def _one_rank_group(device) -> None:
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(distributed.local_rank())
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="mclstexp_mesh_"), "store"), 1)
+    dist.init_process_group("nccl" if cuda else "gloo", store=store, world_size=1, rank=0)
+
+
+def make_mesh(shape: Optional[Tuple[int, ...]] = None, axes: Tuple[str, ...] = ("data",),
+              device="cuda") -> DeviceMesh:
+    """A mesh over every rank of the process group (created at world size 1
+    when there is none); by default 1-D on "data". ``device`` picks the
+    mesh's device type and, for a new group, its backend (NCCL on a card,
+    gloo on the CPU)."""
+    if not distributed.is_initialized():
+        _one_rank_group(device)
+    world = dist.get_world_size()
+    if shape is None:
+        shape = (world,) + (1,) * (len(axes) - 1)
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} ranks; the group "
+                         f"has {world}")
+    return DeviceMesh(torch.device(device).type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def mesh_axis(mesh: DeviceMesh, axis: str = "data"):
+    """(process group, size, this rank's index) of one axis of ``mesh``."""
+    dim = mesh.mesh_dim_names.index(axis)
+    return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def shard_batch(batch: Dict[str, object], mesh: DeviceMesh, axis: str = "data"):
+    """This rank's part of a host batch: its contiguous slice along the
+    leading axis when the length divides the mesh axis, else all of it
+    (remainder batches are replicated)."""
+    _, n_shards, me = mesh_axis(mesh, axis)
+    out = {}
+    for k, v in batch.items():
+        if len(v) % n_shards == 0:
+            per = len(v) // n_shards
+            out[k] = v[me * per:(me + 1) * per]
+        else:
+            out[k] = v
+    return out
