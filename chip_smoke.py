@@ -51,6 +51,16 @@ order; any failure exits non-zero and prints no result line:
      same weights and batch; ms/step flash against xla;
   9. resume: the flash fold resumed from its checkpoint for one more
      epoch (start epoch, step count, finite losses, kernels launched);
+  9a. train-dp: [train-flash]'s fold under a one-rank NCCL group
+     (``make_mesh``): the data-parallel step (global batch norms,
+     ``symmetric_infonce_gathered``, the gradient average), the same kernel
+     launches as [train-flash]; losses and parameters against the same fold
+     without a group (whether bit-equal is logged); ms/step against the
+     step without a group;
+  9b. stream: [train]'s fold past the device budget
+     (``device_data_budget_bytes=0``, batches through
+     ``prefetch_to_device``) against the resident fold, in a process with
+     deterministic algorithms: bit-equal, ms per step of each;
  10. tenx: one ``augment_mode="tenx"`` step (the Visium augmentation, raw
      0-255 scale) on the card, its augmented images bit-equal to the
      CPU's for the same draws;
@@ -108,6 +118,12 @@ order; any failure exits non-zero and prints no result line:
      on the CPU in this process, its metrics and grid within 1e-3 of the
      card's; seconds per process; the grid's cut (events, bit-equal to
      ``extract_patches_np``) and ``sr_predict`` timed on the card;
+ 15a. cli-dp: ``torchrun --nproc-per-node=1`` running ``train --fold 0``
+     and ``baseline --baseline histogene --dp`` on [cli]'s tree with a fresh
+     patch cache (each child's pre-cut launches extract_patches once per
+     section): the data-parallel checkpoint against [cli]'s, the slide-DP
+     scores against [cli-baseline]'s; then BLEEP's fold with a one-rank mesh
+     in this process against the fold without one;
  16. baselines: the flash kernels with segment ids (the padded slide's mask
      as int32, as the JAX package builds ``SegmentIds``) at the slide
      baselines' (1, 16, n, 64): n = 384, 768 and 4,096 with padded tails and
@@ -169,7 +185,8 @@ order; any failure exits non-zero and prints no result line:
      there: one line says the PNG was not written) and domain clustering;
      ``cluster_predictions`` on the card against the CPU (the same k-means
      labels, equal ARI/NMI) on its prediction and on seed-made domains at
-     her2st's width (600 spots x 785 genes), PCA + k-means timed;
+     her2st's width (600 spots x 785 genes), PCA + k-means timed; on a flat
+     spectrum at that width scikit-learn's randomized PCA, card against CPU;
  21. shard-eval: a one-rank NCCL group in this process (``make_mesh``):
      ``sharded_retrieve_and_aggregate`` at [serve]'s her2st scale against
      ``retrieve_and_aggregate`` (indices identical, aggregates within 1e-6),
@@ -893,10 +910,10 @@ def _reset_counts() -> None:
     row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
 
-def _train_flash_fold(cfg, sections, resume: bool):
-    """train_fold with the counts set to 0 just before it and read just
-    after: (state, losses, resume records, (fwd, dkv, dq) launches,
-    row_shift launches by layout)."""
+def _train_flash_fold(cfg, sections, resume: bool, mesh=None):
+    """train_fold (over ``mesh`` if given) with the counts set to 0 just
+    before it and read just after: (state, losses, resume records, (fwd,
+    dkv, dq) launches, row_shift launches by layout)."""
     import torch
 
     from mclstexp_tpu_torch.ops.row_shift import row_shift
@@ -905,7 +922,8 @@ def _train_flash_fold(cfg, sections, resume: bool):
 
     logger = MetricLogger(echo=True)
     _reset_counts()
-    state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda", resume=resume)
+    state = train_fold(cfg, sections, fold=0, logger=logger, device="cuda", resume=resume,
+                       mesh=mesh)
     torch.cuda.synchronize()
     counts, shifts = _flash_counts(), dict(row_shift.kernel_launches)
     losses = [r["loss"] for r in logger.records if "loss" in r]
@@ -1718,7 +1736,7 @@ def _bleep_flat_hegs(root, gene_panel, n_genes: int) -> int:
     return int((pred[:, hegs].std(axis=0) == 0).sum())
 
 
-def phase_cli_baseline() -> int:
+def phase_cli_baseline() -> tuple:
     """[cli-baseline] the ``baseline`` subcommand on [cli]'s HER2ST tree and
     its 785-gene panel, each command a process of its own, the families at
     their reference widths (the CLI's defaults), fold 0, one epoch:
@@ -1733,7 +1751,7 @@ def phase_cli_baseline() -> int:
     the CPU: ``evaluate_baseline_fold`` and the grid's predictions against
     the card's within 1e-3; the grid's cut (events) and ``sr_predict`` timed
     on the card. Returns HisToGene's extract_patches launches in its
-    ``baseline`` process."""
+    ``baseline`` process and the scores it printed."""
     import numpy as np
     import torch
 
@@ -1898,7 +1916,7 @@ def phase_cli_baseline() -> int:
         f"{cut_bound_ms:.4f} ms, bytes), bit-equal to extract_patches_np; sr_predict (host "
         f"slide to predictions, {-(-len(grid) // cfg.bucket) * cfg.bucket} rows) "
         f"{[round(v, 2) for v in predict_ms]} ms (the first cold) on {card_line()}")
-    return counts["histogene"]["extract_patches"]
+    return counts["histogene"]["extract_patches"], results["histogene"]
 
 
 SEG_CASES = ((384, 346, "tail"), (768, 705, "tail"), (4096, 3969, "tail"),
@@ -3007,7 +3025,10 @@ def phase_analysis() -> dict:
     ``cluster_predictions`` on the card against the CPU on the same input
     (the same k-means labels, equal ARI and NMI), then on seed-made domains
     at her2st's width (600 spots x 785 genes), with the card's time for PCA
-    and k-means. Returns row_shift's launches in the tutorial."""
+    and k-means, and on a flat spectrum at that width, where the PCA is
+    scikit-learn's randomized solver: its scores on the card within 1e-3 of
+    the largest of the CPU's, the clustering equal. Returns row_shift's
+    launches in the tutorial."""
     import shutil
 
     import numpy as np
@@ -3049,8 +3070,8 @@ def phase_analysis() -> dict:
     labels = out["labels"]
     card = metrics.cluster_predictions(pred, labels, device="cuda")
     host = metrics.cluster_predictions(pred, labels, device="cpu")
-    card_labels, _ = cluster.kmeans(cluster.pca(pred, 9, "cuda"), 2, 0, "cuda")
-    host_labels, _ = cluster.kmeans(cluster.pca(pred, 9, "cpu"), 2, 0, "cpu")
+    card_labels, _ = cluster.kmeans(cluster.pca(pred, 9, 0, "cuda"), 2, 0, "cuda")
+    host_labels, _ = cluster.kmeans(cluster.pca(pred, 9, 0, "cpu"), 2, 0, "cpu")
     if card != host or not (card_labels == host_labels).all():
         raise AssertionError(f"tutorial clustering: card {card}, CPU {host}")
     log(f"[analysis] tutorial clustering on the card {card}, equal to the CPU's "
@@ -3064,15 +3085,43 @@ def phase_analysis() -> dict:
     for _ in range(6):  # the first is a warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        card_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, "cuda"), BLOBS[2], 0, "cuda")
+        card_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, 0, "cuda"), BLOBS[2], 0, "cuda")
         times.append((time.perf_counter() - t0) * 1e3)
-    host_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, "cpu"), BLOBS[2], 0, "cpu")
+    host_labels, _ = cluster.kmeans(cluster.pca(x[keep], 9, 0, "cpu"), BLOBS[2], 0, "cpu")
     if card != host or not (card_labels == host_labels).all() or card["ari"] != 1.0:
         raise AssertionError(f"domains at her2st width: card {card}, CPU {host}")
     log(f"[analysis] {BLOBS[0]} spots x {BLOBS[1]} genes, {BLOBS[2]} domains "
-        f"({int(keep.sum())} labelled): {card}, equal to the CPU's; PCA (9 components, "
-        f"float64 SVD) + k-means on the card {sorted(times[1:])[2]:.2f} ms (median of 5; "
-        f"{', '.join(f'{t:.2f}' for t in times)})")
+        f"({int(keep.sum())} labelled): {card}, equal to the CPU's; PCA (9 components, the "
+        f"{cluster.pca_solver(x[keep].shape, 9)} solver in float32) + k-means on the card "
+        f"{sorted(times[1:])[2]:.2f} ms (median of 5; {', '.join(f'{t:.2f}' for t in times)})")
+
+    # a flat spectrum (unit noise around weak domain centers): scikit-learn's
+    # randomized solver, whose components are not the exact ones here
+    rs = np.random.RandomState(3)
+    y = rs.randint(0, BLOBS[2], size=BLOBS[0])
+    flat = (0.3 * rs.normal(size=(BLOBS[2], BLOBS[1]))[y]
+            + rs.normal(size=BLOBS[:2])).astype(np.float32)
+    flat_labels = np.array([f"domain{v}" for v in y], dtype=object)
+    solver = cluster.pca_solver(flat.shape, 9)
+    host_pca = cluster.pca(flat, 9, 0, "cpu").numpy()
+    pca_ms = []
+    for _ in range(6):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_pca = cluster.pca(flat, 9, 0, "cuda").cpu().numpy()
+        pca_ms.append((time.perf_counter() - t0) * 1e3)
+    err = float(np.abs(card_pca - host_pca).max() / np.abs(host_pca).max())
+    card = metrics.cluster_predictions(flat, flat_labels, device="cuda")
+    host = metrics.cluster_predictions(flat, flat_labels, device="cpu")
+    if solver != "randomized" or card_pca.dtype != np.float32 or not err <= 1e-3 or \
+            card != host:
+        raise AssertionError(f"flat spectrum: solver {solver}, card PCA {err:.2e} of the "
+                             f"largest score from the CPU's, clustering {card} vs {host}")
+    log(f"[analysis] flat spectrum ({BLOBS[0]} x {BLOBS[1]}, domains of scale 0.3 over unit "
+        f"noise): randomized PCA (10 oversamples, 7 LU-normalized power iterations, float32) "
+        f"on the card within {err:.2e} of the largest score from the CPU's (allowed 1e-3), "
+        f"{sorted(pca_ms[1:])[2]:.2f} ms (median of 5; {', '.join(f'{t:.2f}' for t in pca_ms)}"
+        f"); cluster_predictions {card}, equal to the CPU's")
     return launches
 
 
@@ -3184,6 +3233,550 @@ def phase_shard_eval() -> int:
     return launches
 
 
+def _state_diff(got: dict, want: dict) -> dict:
+    """Two state dicts apart: bit-equal or not, the largest |difference| of
+    any parameter element (Adam bounds it by 2 lr a step), the largest
+    running-statistic difference relative to its tensor's largest magnitude
+    (with the tensor's name), and the share of parameter elements within
+    1e-5 of their tensor's largest magnitude."""
+    import torch
+
+    out = dict(equal=True, param=0.0, stat=0.0, stat_name=None, close=0.0)
+    close = total = 0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        g = got[k]
+        out["equal"] = out["equal"] and torch.equal(g, w)
+        err = (g.double() - w.double()).abs()
+        scale = max(float(w.abs().max()), 1e-30)
+        if k.endswith(("running_mean", "running_var")):
+            if float(err.max()) / scale >= out["stat"]:
+                out["stat"], out["stat_name"] = float(err.max()) / scale, k
+        else:
+            out["param"] = max(out["param"], float(err.max()))
+            close += int((err <= 1e-5 * scale).sum())
+            total += w.numel()
+    out["close"] = close / max(total, 1)
+    return out
+
+
+def _check_state_diff(what: str, diff: dict, lr: float, steps: int,
+                      stat_rtol: float) -> None:
+    if not (diff["param"] <= 2 * lr * steps and diff["stat"] <= stat_rtol):
+        raise AssertionError(f"{what}: parameters {diff['param']:.3e} apart (bound 2 lr a "
+                             f"step {2 * lr * steps:.1e}), running statistics "
+                             f"{diff['stat']:.3e} of their largest magnitude apart "
+                             f"({diff['stat_name']}; allowed {stat_rtol})")
+
+
+def _diff_text(diff: dict, lr: float, steps: int, stat_rtol: float) -> str:
+    return (f"bit-equal: {diff['equal']}; largest parameter difference {diff['param']:.3e} "
+            f"(bound 2 lr a step {2 * lr * steps:.1e}), {100 * diff['close']:.3f}% of "
+            f"parameter elements within 1e-5 of their tensor's largest magnitude; running "
+            f"statistics within {diff['stat']:.3e} of their largest magnitude "
+            f"({diff['stat_name']}; allowed {stat_rtol})")
+
+
+def _one_step_grads(state, run) -> tuple:
+    """(loss, {parameter: gradient}) of ``run(state)``, one step of a train
+    step on ``state``, whose optimizer is replaced by SGD at lr 0 so that
+    the gradients stay on the unchanged parameters."""
+    import torch
+
+    from mclstexp_tpu_torch.train.state import TrainState
+
+    model = state.model
+    loss = float(run(TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))))
+    return loss, {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _fp64_grads(model, forward) -> dict:
+    """The parameter gradients of ``forward(twin)``, a loss, where ``twin``
+    is a float64 copy of ``model`` in train mode."""
+    import copy
+
+    twin = copy.deepcopy(model).double().train()
+    forward(twin).backward()
+    return {n: p.grad for n, p in twin.named_parameters() if p.grad is not None}
+
+
+def _xent64(logits, targets):
+    """Soft-target cross-entropy in float64, both directions averaged."""
+    import torch
+
+    def one(lg, tg):
+        return -(tg * torch.log_softmax(lg, dim=-1)).sum(dim=-1).mean()
+
+    return (one(logits, targets) + one(logits.T, targets.T)) / 2.0
+
+
+def _check_grads(what: str, got: tuple, want: tuple, exact) -> str:
+    """The group's (loss, gradients) against the run without a group: the
+    loss within 1e-6, every tensor within ``DP_GRAD_RTOL`` of its largest
+    magnitude, or else held to ``exact()``, a float64 evaluation of the
+    step: its one-process float32 gradient then ill-conditioned (farther
+    than ``DP_GRAD_ILL`` from the float64 one: a sum that cancels, such as
+    a norm's bias or the weight of the convolution before it, over channels
+    whose spread is small against their mean, on these near-uniform
+    synthetic patches; cuDNN's algorithm, which the memory free for its
+    workspace picks, moves such sums by 1e-3 to 1e-2), and the group's no
+    farther from the float64 one than ``DP_GRAD_RTOL`` or
+    ``DP_GRAD_ILL_FACTOR`` times the one-process distance, whichever is
+    larger: such a sum's float32 error changes by several times with the
+    order of its terms (measured 2.1 times on the CPU,
+    tests/test_torch_port_dp.py, and 4.4 to 8.1 times on the card). A
+    gradient N times too large or a missing term lies ~100% from float64.
+    Returns the log's text."""
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    if set(got[1]) != set(want[1]) or not loss_err <= 1e-6:
+        raise AssertionError(f"{what}: loss {got[0]} against {want[0]}")
+    worst, worst_name, ill = 0.0, None, {}
+    fp64 = None
+    for name, w in want[1].items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((got[1][name] - w).abs().max()) / scale
+        if err <= DP_GRAD_RTOL:
+            if err >= worst:
+                worst, worst_name = err, name
+            continue
+        fp64 = fp64 or exact()
+        one = float((w.double() - fp64[name]).abs().max()) / scale
+        grp = float((got[1][name].double() - fp64[name]).abs().max()) / scale
+        ill[name] = (err, one, grp)
+    bad = {k: v for k, v in ill.items()
+           if not (v[1] > DP_GRAD_ILL and v[2] <= max(DP_GRAD_ILL_FACTOR * v[1], DP_GRAD_RTOL))}
+    if bad:
+        worst_bad = sorted((bad or ill).items(), key=lambda kv: -kv[1][2])[:8]
+        raise AssertionError(f"{what}: {len(ill)} of {len(want[1])} gradient tensors apart, "
+                             f"{len(bad)} beyond the float64 bounds, each (apart from the run "
+                             f"without a group; that run, the group's from a float64 "
+                             f"evaluation): {worst_bad}")
+    ill = {k: (round(v[1], 6), round(v[2], 6)) for k, v in ill.items()}
+    return (f"one step from the same weights and batch (TF32 off): loss {got[0]:.6f} against "
+            f"{want[0]:.6f}; {len(want[1]) - len(ill)} gradient tensors within {worst:.3e} of "
+            f"their largest magnitude ({worst_name}; allowed {DP_GRAD_RTOL}); "
+            f"{len(ill)} farther, each (without a group, the group) from a float64 evaluation: "
+            f"{ill}")
+
+
+def _dp_step_ms(cfg, state, batch, draws, shard, n: int = 3) -> float:
+    """``_step_ms`` of the data-parallel step over ``shard``'s group."""
+    import torch
+
+    from mclstexp_tpu_torch.train.step import make_train_step
+
+    step = make_train_step("st", rot_impl=cfg.train.rot_impl)
+    for _ in range(2):
+        step(state, batch, draws, None, shard)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss = step(state, batch, draws, None, shard)
+    torch.cuda.synchronize()
+    if not math.isfinite(float(loss)):
+        raise AssertionError("non-finite loss in the timed data-parallel steps")
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+# A data-parallel run at world 1 against the run without a group. One step
+# from the same weights, batch and draws, TF32 off: the same loss and every
+# gradient tensor within DP_GRAD_RTOL of its largest magnitude (the global
+# norm's fp32 statistics round otherwise than cuDNN's). Whole folds part
+# further at every step, Adam turning a gradient at the rounding floor into
+# a step anywhere in (-lr, lr) and cuDNN's TF32 convolutions rounding the
+# next inputs at 2^-11: the flagship folds ([train-dp], 4 steps; [cli-dp]'s
+# train, 14) held to losses within rtol DP_LOSS_RTOL / _LONG, every
+# parameter within 2 lr a step, running statistics within DP_STAT_RTOL /
+# _LONG of each tensor's largest magnitude.
+DP_GRAD_RTOL = 1e-3
+DP_GRAD_ILL = 1e-4  # a float32 gradient this far from float64 is ill-conditioned
+DP_GRAD_ILL_FACTOR = 10.0
+DP_LOSS_RTOL = 2e-3
+DP_STAT_RTOL = 2e-2
+DP_LOSS_RTOL_LONG = 5e-3
+DP_STAT_RTOL_LONG = 1e-1
+DP_NORM_RTOL = 1e-4  # one forward's outputs and statistics, TF32 off
+
+
+def phase_train_dp(fcfg, sections, steps):
+    """[train-dp] [train-flash]'s fold (her2st widths, "flash") under a
+    one-rank NCCL group (``make_mesh``): the data-parallel step (the global
+    batch norm, ``symmetric_infonce_gathered``, the gradient average),
+    launching row_shift's shears and the three flash kernels as
+    [train-flash] does; its losses against the same fold without a group
+    (rtol ``DP_LOSS_RTOL``: the runs part a little more at every step, see
+    the constants) and its state (every parameter element within 2 lr a step: Adam's step
+    is at most lr, whatever a gradient's rounding; the running statistics
+    within ``DP_STAT_RTOL`` of each tensor's largest magnitude; the share of
+    parameters within 1e-5 logged), whether they are bit-equal; the global
+    norm alone, one train-mode forward of the image tower against cuDNN's
+    norms from the same weights (TF32 off, within ``DP_NORM_RTOL``); and
+    one step's loss and gradients against the step without a group from
+    the same weights, batch and draws (TF32 off, within ``DP_GRAD_RTOL``);
+    and ms/step against the step without a group (plain, dp, dp, plain).
+    Returns the launches of the data-parallel fold: ((forward, dK/dV, dQ),
+    row_shift's by kernel)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from mclstexp_tpu_torch.models.image.common import BatchNormT, global_batch_stats
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.parallel import distributed
+    from mclstexp_tpu_torch.parallel.mesh import make_mesh
+    from mclstexp_tpu_torch.train.state import create_train_state
+    from mclstexp_tpu_torch.train.step import Shard, make_train_step
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cfg_in(tag):
+        return fcfg.replace(train=dataclasses.replace(fcfg.train, checkpoint_dir=os.path.join(
+            root, "build", "chip_smoke", tag)))
+
+    ref, ref_losses, _, _, _ = _train_flash_fold(cfg_in("model_result_nogroup"), sections,
+                                                 resume=False)
+    mesh = make_mesh(device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        t0 = time.perf_counter()
+        state, losses, _, counts, shifts = _train_flash_fold(cfg_in("model_result_dp"),
+                                                             sections, resume=False, mesh=mesh)
+        seconds = time.perf_counter() - t0
+        want = fcfg.model.head_layers * steps
+        if state.step != steps or counts != (want, want, want) or \
+                shifts != _shear_launches(steps):
+            raise AssertionError(f"data-parallel fold: {state.step} steps, flash launches "
+                                 f"{counts}, row_shift {shifts}")
+        bit_losses = losses == ref_losses
+        for a, b in zip(losses, ref_losses):
+            if not math.isclose(a, b, rel_tol=DP_LOSS_RTOL):
+                raise AssertionError(f"data-parallel losses {losses} against {ref_losses}")
+        diff = _state_diff(state.model.state_dict(), ref.model.state_dict())
+        _check_state_diff("[train-dp] the data-parallel fold", diff, fcfg.train.lr, steps,
+                          DP_STAT_RTOL)
+        log(f"[train-dp] train_fold over a one-rank {backend} group (make_mesh), "
+            f"attn_backend='flash': {steps} steps in {seconds:.1f} s incl. set-up; launches "
+            f"forward/dK-dV/dQ {counts}, row_shift {shifts}; losses {losses} against "
+            f"{ref_losses} without a group (rtol {DP_LOSS_RTOL}; bit-equal: {bit_losses}); "
+            f"state {_diff_text(diff, fcfg.train.lr, steps, DP_STAT_RTOL)}")
+
+        # the global norm alone: one train-mode forward of the image tower
+        # from the same weights on the same images, with and without it
+        batch, draws = _step_batch(fcfg, sections)
+        group = torch.distributed.group.WORLD
+        images = augment.train_augment_inline(batch["image_u8"], draws)
+        towers = [copy.deepcopy(ref.model.tower).train() for _ in range(2)]
+        with _no_tf32(), torch.no_grad():
+            plain_feats = towers[0](images)
+            with global_batch_stats(towers[1], group):
+                group_feats = towers[1](images)
+        out_err = float((group_feats - plain_feats).abs().max()) / float(
+            plain_feats.abs().max())
+        n_norms = sum(isinstance(m, BatchNormT) for m in towers[0].modules())
+        stats = _state_diff(towers[1].state_dict(), towers[0].state_dict())
+        if not (out_err <= DP_NORM_RTOL and stats["stat"] <= DP_NORM_RTOL):
+            raise AssertionError(f"[train-dp] the global batch norm: features {out_err:.3e}, "
+                                 f"running statistics {stats['stat']:.3e} "
+                                 f"({stats['stat_name']}) of their largest magnitude from "
+                                 f"cuDNN's (allowed {DP_NORM_RTOL})")
+        log(f"[train-dp] densenet121's {n_norms} batch norms over the group against cuDNN's, one "
+            f"train-mode forward of B={len(images)} (TF32 off): features within {out_err:.3e} "
+            f"of their largest magnitude, running statistics within {stats['stat']:.3e} "
+            f"({stats['stat_name']}; allowed {DP_NORM_RTOL}); bit-equal: {stats['equal']}")
+        del towers, plain_feats, group_feats
+        n = fcfg.train.batch_size
+        shard = Shard(group, slice(0, n), n, replicated=False)
+        step = make_train_step("st", rot_impl=fcfg.train.rot_impl)
+        with _no_tf32():
+            runs = [_one_step_grads(create_train_state(fcfg.model, fcfg.train, "cuda"),
+                                    lambda st, sh=sh: step(st, batch, draws, None, sh))
+                    for sh in (None, shard)]
+
+        def exact():  # the step in float64 ("xla" attention: the kernels are fp32)
+            twin = create_train_state(dataclasses.replace(fcfg.model, attn_backend="xla"),
+                                      fcfg.train, "cuda").model
+            images = augment.train_augment_inline(batch["image_u8"], draws).double()
+
+            def forward(m):
+                image, spot = m({"image": images, "expression": batch["expression"].double(),
+                                 "position": batch["position"]})
+                return _xent64(spot @ image.T / fcfg.model.temperature,
+                               torch.eye(n, dtype=torch.float64, device="cuda"))
+
+            return _fp64_grads(twin, forward)
+
+        with _no_tf32():
+            text = _check_grads("[train-dp] one step", runs[1], runs[0], exact)
+        log(f"[train-dp] the data-parallel step at B={n}: {text}")
+        del runs
+        times = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            if name == "plain":
+                times[name].append(_step_ms(fcfg, ref, batch, draws, n=3))
+            else:
+                times[name].append(_dp_step_ms(fcfg, state, batch, draws, shard))
+        log(f"[train-dp] ms/step at B={n} (plain, dp, dp, plain; 3 steps each): plain "
+            f"{times['plain']}, data-parallel at world 1 {times['dp']} on {card_line()}")
+    finally:
+        distributed.shutdown()
+    del state, ref
+    torch.cuda.empty_cache()
+    return counts, shifts
+
+
+_STREAM_CHILD = """import dataclasses, json, os, sys
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cudnn.benchmark = False
+from mclstexp_tpu_torch.config import her2st_config
+from mclstexp_tpu_torch.data import pipeline, synthetic
+from mclstexp_tpu_torch.ops.row_shift import row_shift
+from mclstexp_tpu_torch.train import loop
+from mclstexp_tpu_torch.utils.logging import MetricLogger
+out_dir = sys.argv[1]
+cfg = her2st_config(out_dir)
+m = cfg.model
+sections = synthetic.make_dataset(num_sections=3, num_spots=225, num_genes=m.spot_dim,
+                                  patch_size=cfg.data.patch_size, seed=0)
+streamed = []
+prefetch = loop.prefetch_to_device
+def counting(*args, **kw):
+    streamed.append(1)
+    return prefetch(*args, **kw)
+loop.prefetch_to_device = counting
+result = {}
+for name, budget in (("resident", cfg.train.device_data_budget_bytes), ("streamed", 0)):
+    run = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=2,
+                                                device_data_budget_bytes=budget))
+    row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
+    logger = MetricLogger(echo=False)
+    state = loop.train_fold(run, sections, 0, logger, device="cuda")
+    torch.cuda.synchronize()
+    steps = [r for r in logger.records if "loss" in r]
+    stamps = [r["time"] for r in steps]
+    result[name] = dict(losses=[r["loss"] for r in steps],
+                        ms=[(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+                        launches=dict(row_shift.kernel_launches), streams=len(streamed),
+                        raw_bytes=pipeline.raw_bytes(pipeline.ConcatSections.from_sections(
+                            sections[1:])))
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               os.path.join(out_dir, name + ".pt"))
+    del state
+print(json.dumps(result), flush=True)
+"""
+
+
+def phase_stream() -> dict:
+    """[stream] [train]'s fold (her2st widths, "xla") past the device budget
+    (``device_data_budget_bytes=0``): every batch streamed through
+    ``prefetch_to_device`` (a thread pins each host batch and copies it on
+    a side stream ahead of the step) against the resident fold, in a
+    process of its own with deterministic algorithms
+    (``torch.use_deterministic_algorithms``, ``CUBLAS_WORKSPACE_CONFIG``)
+    so that two folds can be bit-equal at all; two epochs: the same losses
+    and parameters bit for bit, row_shift's shears launched alike, ms per
+    step of each (the steps' log stamps; every step syncs to log its loss).
+    Returns the streamed fold's row_shift launches."""
+    import subprocess
+
+    import torch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "build", "chip_smoke", "stream")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    env = dict(_child_env(repo), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _STREAM_CHILD, out_dir], capture_output=True,
+                          text=True, env=env, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[stream] child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    resident, streamed = result["resident"], result["streamed"]
+    want = torch.load(os.path.join(out_dir, "resident.pt"), weights_only=True)
+    got = torch.load(os.path.join(out_dir, "streamed.pt"), weights_only=True)
+    equal = sorted(got) == sorted(want) and all(torch.equal(got[k], w) for k, w in want.items())
+    if resident["streams"] != 0 or streamed["streams"] != 2 or \
+            streamed["losses"] != resident["losses"] or not equal or \
+            streamed["launches"] != resident["launches"]:
+        raise AssertionError(f"[stream] streamed fold {streamed} against resident {resident}; "
+                             f"parameters bit-equal: {equal}")
+    log(f"[stream] train_fold past the device budget ({resident['raw_bytes']} raw bytes, "
+        f"budget 0), 2 epochs: {len(streamed['losses'])} steps streamed through "
+        f"prefetch_to_device, bit-equal to the resident fold (losses {streamed['losses']}, "
+        f"every parameter and running statistic), row_shift {streamed['launches']} in both; "
+        f"ms of the second epoch's full batches (steps 6, 7; deterministic algorithms): "
+        f"resident {resident['ms'][4:6]}, streamed {streamed['ms'][4:6]} (every step: "
+        f"{resident['ms']} / {streamed['ms']}); the process {seconds:.1f} s on {card_line()}")
+    return streamed["launches"]
+
+
+def phase_cli_dp(sections, ref_scores: dict) -> int:
+    """[cli-dp] ``torchrun --nproc-per-node=1`` running the port's command
+    line on [cli]'s tree, each command a process group of one rank over
+    NCCL: ``train --fold 0 --max_epochs 1`` (the data-parallel fold) and
+    ``baseline --baseline histogene --patch-size 112 --max_epochs 1 --dp``
+    (slide-DP, one slide a step padded to the training set's largest
+    bucket), each with a fresh patch cache, so each child's cooperative
+    pre-cut launches extract_patches once per section. ``train``'s
+    checkpoint against [cli]'s (every parameter within 2 lr a step, the
+    running statistics within ``DP_STAT_RTOL_LONG``, the epoch loss within
+    rtol ``DP_LOSS_RTOL_LONG``: 14 steps on each side); ``baseline --dp``'s
+    scores against ``ref_scores``, [cli-baseline]'s HisToGene (finite; MSE
+    and MAE within rtol 1e-2, the PCCs within 2e-2: slide-DP pads every
+    slide to the largest bucket, so each slide's dropout mask is drawn at
+    another shape and the run is another trajectory from the same initial
+    weights). Then BLEEP's fold with a mesh in this process at world 1
+    (resnet50, [train]'s sections, one epoch: finite losses), and its
+    step's loss and gradients against the step without a mesh from the
+    same weights, batch and dropout draws (TF32 off, ``DP_GRAD_RTOL``).
+    Returns the extract_patches launches of the two children."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.core.layers import seed_dropout
+    from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData
+    from mclstexp_tpu_torch.data.st_dataset import her2st_section_names
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.parallel import distributed
+    from mclstexp_tpu_torch.parallel.mesh import make_mesh
+    from mclstexp_tpu_torch.train import checkpoint
+    from mclstexp_tpu_torch.train.step import Shard
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke", "cli")
+    child = os.path.join(work, "cli_child.py")
+    with open(child, "w") as f:
+        f.write(_CLI_CHILD)
+    root = os.path.join(work, "her2st")
+    flags = ["--dataset", "her2st", "--data-root", root, "--gene-panel",
+             os.path.join(work, "panel", "her2st_hvg_panel.npy"),
+             "--checkpoint-dir", "model_result_dp", "--patch-cache", "patch_cache_dp"]
+    names = sorted(os.listdir(os.path.join(root, "ST-cnts")))
+    torch.cuda.empty_cache()
+    seconds, launches, outs = {}, {}, {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name, argv in (("train", ["train", "--fold", "0", "--max_epochs", "1"]),
+                           ("baseline --dp", ["baseline", "--baseline", "histogene",
+                                              "--patch-size", "112", "--max_epochs", "1",
+                                              "--dp"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node=1", child] + argv + flags,
+                capture_output=True, text=True, env=_child_env(repo), timeout=600)
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun {name} exited {proc.returncode}: "
+                                     f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+            launches[name], outs[name] = json.loads(last), out
+        rel = os.path.join("her2st", her2st_section_names(root)[0], "best_0")
+        got = checkpoint.restore_checkpoint(os.path.join("model_result_dp", rel))
+        want = checkpoint.restore_checkpoint(os.path.join("model_result", rel))
+        log_dp = [json.loads(line) for line in open(os.path.join("model_result_dp",
+                                                                 "train_log.jsonl"))]
+        log_ref = [json.loads(line) for line in open(os.path.join("model_result",
+                                                                  "train_log.jsonl"))]
+        scores = _printed_json(outs["baseline --dp"])
+    finally:
+        os.chdir(cwd)
+    steps = want["step"]
+    diff = _state_diff(got["model"], want["model"])
+    loss_dp = [r["epoch_loss"] for r in log_dp if "epoch_loss" in r]
+    loss_ref = [r["epoch_loss"] for r in log_ref if "epoch_loss" in r]
+    lr = 1e-4  # the CLI's default
+    _check_state_diff("[cli-dp] torchrun train's checkpoint", diff, lr, steps,
+                      DP_STAT_RTOL_LONG)
+    if got["step"] != steps or len(loss_dp) != 1 or \
+            not math.isclose(loss_dp[0], loss_ref[0], rel_tol=DP_LOSS_RTOL_LONG):
+        raise AssertionError(f"torchrun train: step {got['step']} of {steps}, epoch loss "
+                             f"{loss_dp} against {loss_ref}")
+    if not all(math.isfinite(scores[k]) for k in ("hvg_pcc", "heg_pcc", "mse", "mae")):
+        raise AssertionError(f"baseline --dp scores {scores} ([cli-baseline]: {ref_scores})")
+    for k in ("mse", "mae"):
+        if not math.isclose(scores[k], ref_scores[k], rel_tol=1e-2):
+            raise AssertionError(f"baseline --dp {k} {scores[k]} against {ref_scores[k]}")
+    for k in ("hvg_pcc", "heg_pcc"):
+        if not abs(scores[k] - ref_scores[k]) <= 2e-2:
+            raise AssertionError(f"baseline --dp {k} {scores[k]} against {ref_scores[k]}")
+    per_child = {k: v["extract_patches"] for k, v in launches.items()}
+    if any(v != len(names) for v in per_child.values()) or \
+            any(launches["train"]["row_shift"][k] != v
+                for k, v in _shear_launches(steps).items()):
+        raise AssertionError(f"torchrun children's launches {launches}; each pre-cut cuts "
+                             f"the {len(names)} sections once")
+    log(f"[cli-dp] torchrun --nproc-per-node=1 (one rank, NCCL): seconds per command, start to "
+        f"exit: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) +
+        f"; extract_patches {per_child} (each child's pre-cut of {len(names)} sections on a "
+        f"fresh cache), row_shift {launches['train']['row_shift']} in train")
+    log(f"[cli-dp] train: {steps} data-parallel steps, epoch loss {loss_dp[0]:.6f} against "
+        f"[cli]'s {loss_ref[0]:.6f} (both in TF32: rtol {DP_LOSS_RTOL_LONG}); checkpoint "
+        f"{_diff_text(diff, lr, steps, DP_STAT_RTOL_LONG)}")
+    log(f"[cli-dp] baseline --dp (slide-DP) HisToGene {scores} against [cli-baseline]'s "
+        f"{ {k: ref_scores[k] for k in ('hvg_pcc', 'heg_pcc', 'mse', 'mae')} } (MSE, MAE rtol "
+        f"1e-2; PCCs within 2e-2)")
+
+    cfg = _bleep_cfg(max_epochs=1)
+    logger = MetricLogger(echo=False)
+    mesh = make_mesh(device="cuda")
+    try:
+        t0 = time.perf_counter()
+        state = trainer.train_bleep_fold(cfg, sections, 0, logger=logger, device="cuda",
+                                         mesh=mesh)
+        torch.cuda.synchronize()
+        seconds["bleep"] = time.perf_counter() - t0
+        losses = [r["loss"] for r in logger.records]
+        if state.step != 4 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"BLEEP with a mesh: {state.step} steps, losses {losses}")
+        data = DeviceResidentData(ConcatSections.from_sections(sections[1:]), "cuda")
+        batch = data.take(np.arange(cfg.batch_size))
+        n = cfg.batch_size
+        shard = Shard(torch.distributed.group.WORLD, slice(0, n), n, replicated=False)
+        step = trainer.make_bleep_step(cfg)
+
+        def dropout():
+            return augment.reseed(torch.Generator(device="cuda"), 0, 0)
+
+        with _no_tf32():
+            runs = [_one_step_grads(trainer.init_baseline(cfg, "cuda"),
+                                    lambda st, sh=sh: step(st, batch, dropout(), sh))
+                    for sh in (None, shard)]
+
+        def exact():
+            images = augment.to_float(batch["image_u8"]).double()
+
+            def forward(m):
+                seed_dropout(m, dropout())
+                image, spot = m({"image": images, "expression": batch["expression"].double()})
+                t = cfg.temperature
+                targets = torch.softmax((image @ image.T + spot @ spot.T) / 2.0 / t, dim=-1)
+                return _xent64(spot @ image.T / t, targets)
+
+            return _fp64_grads(trainer.init_baseline(cfg, "cuda").model, forward)
+
+        with _no_tf32():
+            text = _check_grads("[cli-dp] BLEEP's step over the mesh", runs[1], runs[0], exact)
+    finally:
+        distributed.shutdown()
+    log(f"[cli-dp] train_bleep_fold with a one-rank NCCL mesh (resnet50, batch 128, one "
+        f"epoch, {state.step} steps) in {seconds['bleep']:.1f} s, epoch loss {losses}; its "
+        f"{text}")
+    del state, runs, data
+    torch.cuda.empty_cache()
+    return sum(per_child.values())
+
+
 def main() -> int:
     import torch
 
@@ -3207,12 +3800,15 @@ def main() -> int:
     phase_step_time(cfg, state, sections)
     fcfg, steps, counts = phase_train_flash(cfg, sections, state)
     phase_resume(fcfg, sections, steps)
+    dp_counts, dp_shifts = phase_train_dp(fcfg, sections, steps)
+    stream_shifts = phase_stream()
     phase_tenx(cfg, sections, state)
     eval_model, eval_launches = phase_eval(cfg, sections)
     serve_launches = phase_serve(cfg, eval_model)
     patch_entry["launches"] = phase_data()
     cli_launches = phase_cli()
-    baseline_launches = phase_cli_baseline()
+    baseline_launches, histogene_scores = phase_cli_baseline()
+    cli_dp_launches = phase_cli_dp(sections, histogene_scores)
     seg_entries = phase_segment_kernels()
     seg_counts, thitogene_counts = phase_baselines()
     hist2st_counts = phase_hist2st()
@@ -3234,26 +3830,31 @@ def main() -> int:
         entry["launches"] = hcount  # the Hist2ST fold, this slice's main path
         entry["launches_by_path"] = {"hist2st_fold": hcount, "histogene_fold": count,
                                      "thitogene_fold": other}
-    # Launches on this slice's main path, flash training; the forward's
-    # counts on the eval and serving paths beside them.
-    flash_entry["launches"] = counts[0]
-    flash_entry["launches_by_path"] = {"train_flash": counts[0], "eval": eval_launches,
-                                       "serve": serve_launches}
-    for entry, count in zip(bwd_entries, counts[1:]):
-        entry["launches"] = count
-    # The command line's path ([cli]) beside each kernel's own main path
-    # row_shift on this slice's main path, the tutorial, beside [train] and [cli]
+    # Launches on this slice's main path, data-parallel flash training; the
+    # one-process fold's and the forward's eval and serving counts beside them.
+    flash_entry["launches"] = dp_counts[0]
+    flash_entry["launches_by_path"] = {"train_dp": dp_counts[0], "train_flash": counts[0],
+                                       "eval": eval_launches, "serve": serve_launches}
+    for entry, count, dp_count in zip(bwd_entries, counts[1:], dp_counts[1:]):
+        entry["launches"] = dp_count
+        entry["launches_by_path"] = {"train_dp": dp_count, "train_flash": count}
+    # row_shift on this slice's main path, the data-parallel fold, beside
+    # [train], the streamed fold, [cli] and the tutorial
     for entry in entries:
-        entry["launches_by_path"] = {"train": entry["launches"],
+        entry["launches_by_path"] = {"train_dp": dp_shifts[entry["kernel"]],
+                                     "train": entry["launches"],
+                                     "stream": stream_shifts[entry["kernel"]],
                                      "cli": cli_launches["row_shift"][entry["kernel"]],
                                      "tutorial": tutorial_launches[entry["kernel"]]}
-        entry["launches"] = tutorial_launches[entry["kernel"]]
-    # extract_patches on this slice's main path, eval --shard-eval's pre-cut
-    patch_entry["launches_by_path"] = {"data": patch_entry["launches"],
+        entry["launches"] = dp_shifts[entry["kernel"]]
+    # extract_patches on this slice's main path, the torchrun train and
+    # baseline --dp children's pre-cuts
+    patch_entry["launches_by_path"] = {"cli_dp": cli_dp_launches,
+                                       "data": patch_entry["launches"],
                                        "cli": cli_launches["extract_patches"],
                                        "cli_baseline": baseline_launches,
                                        "shard_eval": shard_eval_launches}
-    patch_entry["launches"] = shard_eval_launches
+    patch_entry["launches"] = cli_dp_launches
     entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries, *bf16_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -18,9 +18,9 @@ Port of ``mclstexp_tpu/baselines/layers.py``:
 Attribute names are the reference torch ones (what ``mclstexp_tpu/
 baselines/torch_import.py:139-234`` reads), so a reference checkpoint loads
 with ``strict=True``. Batch norms take the slide's ``mask``
-(``MaskedBatchNormT``). Dropout is ``SeededDropout``: it draws from a
-``torch.Generator`` that the train step sets (``seed_dropout``), so a step
-keyed by (seed, epoch, slide) draws the same masks wherever it runs.
+(``MaskedBatchNormT``). Dropout is ``core.layers.SeededDropout``: it draws
+from a ``torch.Generator`` that the train step sets (``seed_dropout``), so
+a step keyed by (seed, epoch, slide) draws the same masks wherever it runs.
 """
 
 from __future__ import annotations
@@ -32,47 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mclstexp_tpu_torch.core.layers import Conv2dT, as_compute, gelu_exact, widen
+from mclstexp_tpu_torch.core.layers import Conv2dT, SeededDropout, as_compute, gelu_exact, widen
 from mclstexp_tpu_torch.models.image.common import MaskedBatchNormT
-
-
-class SeededDropout(nn.Module):
-    """Dropout of rate ``p`` whose keep mask is drawn from ``self.generator``
-    (``seed_dropout``); kept values are scaled by 1 / (1 - p), as flax's
-    ``nn.Dropout``. Identity in eval mode or at p = 0; a train-mode call
-    without a generator raises."""
-
-    def __init__(self, p: float):
-        super().__init__()
-        self.p = float(p)
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        if self.generator is None:
-            raise RuntimeError("SeededDropout needs seed_dropout(model, generator) before a "
-                               "train-mode forward")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
-
-
-def use_seeded_dropout(module: nn.Module) -> nn.Module:
-    """Replace every ``nn.Dropout`` under ``module`` by a ``SeededDropout``
-    of the same rate (neither holds parameters, so the keys stay)."""
-    for name, child in module.named_children():
-        if isinstance(child, nn.Dropout):
-            setattr(module, name, SeededDropout(child.p))
-        else:
-            use_seeded_dropout(child)
-    return module
-
-
-def seed_dropout(module: nn.Module, generator: torch.Generator) -> None:
-    """Let every ``SeededDropout`` under ``module`` draw from ``generator``."""
-    for m in module.modules():
-        if isinstance(m, SeededDropout):
-            m.generator = generator
 
 
 class ConvMixerBlock(nn.Module):

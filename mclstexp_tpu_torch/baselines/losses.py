@@ -8,7 +8,9 @@ Port of ``mclstexp_tpu/baselines/losses.py`` (all fp32):
     size factors (``NB_module.py:26-46``);
   * ``mean_act``, ``disp_act``: the ZINB heads' activations;
   * ``bleep_clip_loss``: CLIP loss with soft targets, the softmax of the
-    averaged intra-modal similarities (``baselines/Bleep/models.py:34-43``).
+    averaged intra-modal similarities (``baselines/Bleep/models.py:34-43``);
+    ``bleep_clip_loss_gathered`` the same over a data-parallel step's
+    global batch.
 
 With a ``mask`` (N,) over spots, padded rows contribute nothing, so a
 bucket-padded slide's loss and gradients are the unpadded slide's. The
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from mclstexp_tpu_torch.core.losses import soft_target_cross_entropy
+from mclstexp_tpu_torch.parallel.collectives import gather_rows
 
 
 def _masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor], width: int) -> torch.Tensor:
@@ -87,3 +90,15 @@ def bleep_clip_loss(spot_emb: torch.Tensor, image_emb: torch.Tensor,
     spots_loss = soft_target_cross_entropy(logits, targets)
     images_loss = soft_target_cross_entropy(logits.T, targets.T)
     return (spots_loss + images_loss) / 2.0
+
+
+def bleep_clip_loss_gathered(spot_emb: torch.Tensor, image_emb: torch.Tensor,
+                             temperature: float, group) -> torch.Tensor:
+    """BLEEP's loss over the global batch from each rank's (b, P) rows: both
+    embeddings gathered over ``group`` (``parallel.collectives.gather_rows``,
+    with its gradient), so the soft targets' intra-modal similarities and the
+    cross-modal logits span every rank's rows, as one process's do; the
+    reference's DDP takes the loss over each rank's rows instead. The same
+    scalar on every rank."""
+    return bleep_clip_loss(gather_rows(spot_emb, group), gather_rows(image_emb, group),
+                           temperature)

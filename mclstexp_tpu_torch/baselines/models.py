@@ -52,8 +52,6 @@ from mclstexp_tpu_torch.baselines.layers import (
     MultiHeadGAT,
     ODConv,
     RoutingLayer,
-    SeededDropout,
-    use_seeded_dropout,
 )
 from mclstexp_tpu_torch.baselines.losses import disp_act, mean_act
 from mclstexp_tpu_torch.core.layers import (
@@ -67,12 +65,14 @@ from mclstexp_tpu_torch.core.layers import (
     PositionTables,
     PreNorm,
     ProjectionHead,
+    SeededDropout,
     _trunc_normal_,
     as_compute,
     compute_dtype_of,
     init_parameters,
     lecun_normal_,
     set_compute_dtype,
+    use_seeded_dropout,
     widen,
 )
 from mclstexp_tpu_torch.models.image.registry import build_encoder

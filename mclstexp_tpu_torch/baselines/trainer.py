@@ -31,10 +31,27 @@ jitted there, and XLA multiplies by float32(1 / 255) (``augment.to_float``);
 ``predict_slide`` and ``bleep_embeddings`` divide eagerly, a true division
 (``to_float_eager``).
 
+Data parallelism, JAX's two modes:
+
+* slide-DP (``train_baseline_fold(slides_per_step=D, mesh=...)``, JAX's
+  ``make_slide_dp_step``): D slides a step, every one padded to the
+  training set's largest bucket; the loss and the gradient are the mean
+  over the slides and one optimizer step takes the mean gradient; each
+  slide's forward takes its own batch statistics from the same old running
+  statistics, and the new running statistics are the mean of the slides'
+  updates. On one process the D slides run one after another (no group is
+  needed, as JAX runs the mode on one device); over a mesh every rank takes
+  its share of each step's slides (all of them where the ranks do not
+  divide the count) and the gradients, statistics and loss are averaged
+  over the ranks (``parallel.collectives.average_gradients``). A scaling
+  mode, not the sequential trajectory.
+* BLEEP with a ``mesh``: the global batch's objective, as one process's:
+  each rank's rows of the batch, global batch norms in the image tower,
+  dropout masks drawn for the global batch and sliced, and
+  ``bleep_clip_loss_gathered``.
+
 The super-resolution grid and the reference checkpoint import are
-``baselines/super_resolution.py`` and ``baselines/torch_import.py``. Not
-ported yet (ROADMAP.md Queue 1 item 5): the slide-DP mode and BLEEP's
-``mesh=`` (both raise ``TypeError``).
+``baselines/super_resolution.py`` and ``baselines/torch_import.py``.
 """
 
 from __future__ import annotations
@@ -47,7 +64,6 @@ import torch
 
 from mclstexp_tpu_torch.baselines import losses as bl
 from mclstexp_tpu_torch.baselines.graph import knn_adjacency
-from mclstexp_tpu_torch.baselines.layers import seed_dropout
 from mclstexp_tpu_torch.baselines.models import (
     BLEEP,
     Hist2ST,
@@ -55,6 +71,7 @@ from mclstexp_tpu_torch.baselines.models import (
     THItoGene,
     init_baseline_parameters,
 )
+from mclstexp_tpu_torch.core.layers import dropout_rows, seed_dropout
 from mclstexp_tpu_torch.data.pipeline import (
     ConcatSections,
     DeviceResidentData,
@@ -64,8 +81,12 @@ from mclstexp_tpu_torch.data.pipeline import (
 )
 from mclstexp_tpu_torch.data.section import Section
 from mclstexp_tpu_torch.infer.metrics import expression_metrics
+from mclstexp_tpu_torch.models.image.common import global_batch_stats
 from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.parallel.collectives import average_gradients
+from mclstexp_tpu_torch.parallel.mesh import batch_rows, check_data_mesh, mesh_axis
 from mclstexp_tpu_torch.train.state import TrainState, torch_adam
+from mclstexp_tpu_torch.train.step import Shard, batch_shard
 from mclstexp_tpu_torch.utils.logging import MetricLogger
 from mclstexp_tpu_torch.utils.meters import AvgMeter
 
@@ -333,6 +354,58 @@ def make_slide_step(cfg: BaselineConfig, steps_per_epoch: int = 1) -> Callable:
     return step
 
 
+def _running_stats(model) -> Dict[str, torch.Tensor]:
+    """The batch norms' running statistics and counters, by buffer name."""
+    return {name: buf for name, buf in model.named_buffers()
+            if name.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def make_slide_dp_step(cfg: BaselineConfig, steps_per_epoch: int = 1) -> Callable:
+    """The slide-DP step (JAX ``make_slide_dp_step``): (state, this rank's
+    padded slides, their dropout generators, group or None) -> the mean
+    loss over the step's slides.
+
+    Each slide's ``slide_loss`` runs from the same old running statistics
+    and its gradient, divided by the rank's slide count, accumulates; the
+    running statistics become the mean of the slides' updates (counters:
+    one slide's). Over a ``group`` the gradients, the statistics and the
+    loss are then averaged over the ranks, each of which took an equal
+    share of the step's slides (or all of them): the mean over every
+    slide. One optimizer step at ``baseline_lr``."""
+
+    def step(state: TrainState, slides, generators, group=None) -> torch.Tensor:
+        model = state.model
+        stats = _running_stats(model)
+        old = {k: v.clone() for k, v in stats.items()}
+        new = {k: torch.zeros_like(v) for k, v in stats.items() if v.is_floating_point()}
+        state.optimizer.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=next(model.parameters()).device)
+        for batch, generator in zip(slides, generators):
+            for k, v in stats.items():
+                v.copy_(old[k])
+            loss = slide_loss(model, cfg, batch, generator)
+            (loss / len(slides)).backward()
+            for k in new:
+                new[k] += stats[k]
+            total += loss.detach()
+        for k, v in new.items():
+            stats[k].copy_(v / len(slides))
+        loss = total / len(slides)
+        if group is not None:
+            average_gradients(model.parameters(), group)
+            world = torch.distributed.get_world_size(group)
+            for v in [stats[k] for k in new] + [loss]:
+                torch.distributed.all_reduce(v, group=group)
+                v /= world
+        for g in state.optimizer.param_groups:
+            g["lr"] = baseline_lr(cfg, state.step, steps_per_epoch)
+        state.optimizer.step()
+        state.step += 1
+        return loss
+
+    return step
+
+
 def baseline_optimizer(cfg: BaselineConfig, params) -> torch.optim.Optimizer:
     """The family's reference optimizer: torch Adam (coupled L2) for the
     slide families (Hist2ST's StepLR is applied by the step,
@@ -354,26 +427,60 @@ def init_baseline(cfg: BaselineConfig, device="cuda", attn_backend: str = "xla")
 
 def train_baseline_fold(cfg: BaselineConfig, sections: Sequence[Section], fold: int,
                         logger: Optional[MetricLogger] = None, device="cuda",
-                        attn_backend: str = "xla") -> TrainState:
+                        attn_backend: str = "xla", mesh=None,
+                        slides_per_step: int = 1) -> TrainState:
     """Leave-one-out training of a slide-level baseline on ``device``: the
     reference's one slide per optimizer step, every epoch over the training
     sections in ``np.random.default_rng(cfg.seed)`` order (an epoch is
     len(training sections) steps, which Hist2ST's StepLR counts). Returns
-    the state; one ``MetricLogger`` record per epoch."""
+    the state; one ``MetricLogger`` record per epoch.
+
+    ``mesh`` and/or ``slides_per_step`` > 1 switch to the slide-DP mode
+    (``make_slide_dp_step``): D = ``slides_per_step`` slides a step, or the
+    mesh's "data" size without one, consecutive in the epoch's order, each
+    slide's dropout keyed by (seed, epoch * 1000 + slide) as in the
+    sequential mode; under a mesh each rank takes ``batch_rows`` of every
+    step's slides."""
     logger = logger or MetricLogger()
     device = torch.device(device)
     train_secs, _ = split_fold(sections, fold)
     state = init_baseline(cfg, device, attn_backend)
-    step = make_slide_step(cfg, steps_per_epoch=len(train_secs))
     with_adj = cfg.model in _USES_ADJ
-    padded = [slide_tensors(pad_slide(s, cfg.bucket, with_adj, cfg), device) for s in train_secs]
     order_rng = np.random.default_rng(cfg.seed)
     generator = torch.Generator(device=device)
+    if mesh is None and slides_per_step <= 1:
+        step = make_slide_step(cfg, steps_per_epoch=len(train_secs))
+        padded = [slide_tensors(pad_slide(s, cfg.bucket, with_adj, cfg), device)
+                  for s in train_secs]
+        for epoch in range(resolve_epochs(cfg)):
+            meter = AvgMeter("loss")
+            for i in order_rng.permutation(len(padded)):
+                dropout_rng = augment.reseed(generator, cfg.seed, epoch * 1000 + int(i))
+                meter.update(float(step(state, padded[i], dropout_rng)))
+            logger.log(model=cfg.model, fold=fold, epoch=epoch, loss=meter.avg)
+        return state
+
+    group = None
+    d_slides = slides_per_step
+    if mesh is not None:
+        check_data_mesh(mesh)
+        group, n_data, _ = mesh_axis(mesh)
+        d_slides = slides_per_step if slides_per_step > 1 else n_data
+    step = make_slide_dp_step(cfg, steps_per_epoch=-(-len(train_secs) // d_slides))
+    # one common padded extent: every slide pads to the set's largest bucket
+    target = max(-(-s.num_spots // cfg.bucket) * cfg.bucket for s in train_secs)
+    padded = [slide_tensors(pad_slide(s, target, with_adj, cfg), device) for s in train_secs]
+    generators = [torch.Generator(device=device) for _ in range(d_slides)]
     for epoch in range(resolve_epochs(cfg)):
         meter = AvgMeter("loss")
-        for i in order_rng.permutation(len(padded)):
-            dropout_rng = augment.reseed(generator, cfg.seed, epoch * 1000 + int(i))
-            meter.update(float(step(state, padded[i], dropout_rng)))
+        perm = order_rng.permutation(len(padded))
+        for start in range(0, len(perm), d_slides):
+            chunk = perm[start:start + d_slides]
+            mine = chunk[batch_rows(len(chunk), mesh)] if mesh is not None else chunk
+            keyed = [augment.reseed(g, cfg.seed, epoch * 1000 + int(i))
+                     for g, i in zip(generators, mine)]
+            loss = step(state, [padded[i] for i in mine], keyed, group)
+            meter.update(float(loss), len(chunk))
         logger.log(model=cfg.model, fold=fold, epoch=epoch, loss=meter.avg)
     return state
 
@@ -399,19 +506,34 @@ def evaluate_baseline_fold(cfg: BaselineConfig, sections: Sequence[Section], fol
 
 def make_bleep_step(cfg: BaselineConfig) -> Callable:
     """BLEEP's step: (state, {"image_u8", "expression"} on the model's
-    device, dropout generator) -> loss; the images scaled as the jitted JAX
-    step scales them (``augment.to_float``), the CLIP loss, one AdamW step."""
+    device, dropout generator[, shard]) -> loss; the images scaled as the
+    jitted JAX step scales them (``augment.to_float``), the CLIP loss, one
+    AdamW step. Under a ``train.step.Shard`` the images are the rank's rows
+    of the global batch and the expression all of it: the rank's rows of
+    both towers, global batch norms, the global batch's dropout masks
+    sliced, ``bleep_clip_loss_gathered``, the gradients averaged over the
+    ranks (a replicated batch: the whole step on every rank)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: torch.Generator) -> torch.Tensor:
+             generator: torch.Generator, shard: Optional[Shard] = None) -> torch.Tensor:
         model = state.model
         model.train()
         seed_dropout(model, generator)
-        image_emb, spot_emb = model({"image": augment.to_float(batch["image_u8"]),
-                                     "expression": batch["expression"]})
-        loss = bl.bleep_clip_loss(spot_emb, image_emb, cfg.temperature)
+        images = augment.to_float(batch["image_u8"])
+        if shard is None or shard.replicated:
+            image_emb, spot_emb = model({"image": images, "expression": batch["expression"]})
+            loss = bl.bleep_clip_loss(spot_emb, image_emb, cfg.temperature)
+        else:
+            with global_batch_stats(model.image_encoder, shard.group), \
+                    dropout_rows([model], shard.rows.start, shard.total):
+                image_emb, spot_emb = model({"image": images,
+                                             "expression": batch["expression"][shard.rows]})
+            loss = bl.bleep_clip_loss_gathered(spot_emb, image_emb, cfg.temperature,
+                                               shard.group)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if shard is not None:
+            average_gradients(model.parameters(), shard.group)
         state.optimizer.step()
         state.step += 1
         return loss.detach()
@@ -420,12 +542,14 @@ def make_bleep_step(cfg: BaselineConfig) -> Callable:
 
 
 def train_bleep_fold(cfg: BaselineConfig, sections: Sequence[Section], fold: int,
-                     logger: Optional[MetricLogger] = None, device="cuda") -> TrainState:
+                     logger: Optional[MetricLogger] = None, device="cuda",
+                     mesh=None) -> TrainState:
     """BLEEP's leave-one-out fold on ``device``: the training sections on the
     device (``DeviceResidentData``), the shared pipeline's shuffled batches of
     ``cfg.batch_size`` (remainder kept), dropout keyed by (seed, epoch *
     100000 + batch). One ``MetricLogger`` record per epoch, the loss averaged
-    over spots."""
+    over spots. ``mesh``: data parallelism over its "data" axis, the
+    one-process objective on the global batch (``make_bleep_step``)."""
     logger = logger or MetricLogger()
     device = torch.device(device)
     train_secs, _ = split_fold(sections, fold)
@@ -433,12 +557,16 @@ def train_bleep_fold(cfg: BaselineConfig, sections: Sequence[Section], fold: int
     state = init_baseline(cfg, device)
     step = make_bleep_step(cfg)
     generator = torch.Generator(device=device)
+    if mesh is not None:
+        check_data_mesh(mesh)
     for epoch in range(resolve_epochs(cfg)):
         meter = AvgMeter("loss")
         pending = []  # (loss tensor, batch size): read once per epoch
-        for i, batch in enumerate(device_train_batches(data, cfg.batch_size, cfg.seed, epoch)):
+        batches = device_train_batches(data, cfg.batch_size, cfg.seed, epoch, mesh)
+        for i, batch in enumerate(batches):
+            bs = len(batch["expression"])
             rng = augment.reseed(generator, cfg.seed, epoch * 100000 + i)
-            pending.append((step(state, batch, rng), len(batch["expression"])))
+            pending.append((step(state, batch, rng, batch_shard(mesh, bs)), bs))
         for loss, n in pending:
             meter.update(float(loss), n)
         logger.log(model="bleep", fold=fold, epoch=epoch, loss=meter.avg)

@@ -28,12 +28,14 @@ Several processes, one per card: under ``torchrun --nproc-per-node N``
 (or with ``--coordinator``, ``--num-processes`` and ``--process-id``) each
 command joins a process group at entry (``parallel/distributed.py``) and
 runs on ``cuda:{LOCAL_RANK}``. The ranks then cut the patch cache together,
-each its share of the sections, before any reads it; ``eval --shard-eval``
-splits the embedding sweep over the ranks (without ``torchrun``, over a
-one-rank group), and only rank 0 writes files and prints the result.
-``train`` and ``baseline`` refuse more than one process: data-parallel
-training is not ported yet. The JAX CLI's ``bench`` and ``baseline --dp``
-are not part of the port's.
+each its share of the sections, before any reads it; ``train`` trains
+data-parallel over every rank (each step one process's step on the global
+batch, ``train/loop.py``); ``baseline --dp`` trains data-parallel over
+every rank (BLEEP's global batch, the slide families' slide-DP mode;
+without ``torchrun``, over a one-rank group); ``eval --shard-eval`` splits
+the embedding sweep over the ranks (without ``torchrun``, over a one-rank
+group); and only rank 0 writes files and prints the result. The JAX CLI's
+``bench`` is not part of the port's.
 """
 
 from __future__ import annotations
@@ -289,29 +291,22 @@ def cmd_hvg(args) -> int:
     return 0
 
 
-def _single_process(command: str) -> None:
-    from mclstexp_tpu_torch.parallel import distributed
-
-    if distributed.world_size() > 1:
-        raise NotImplementedError(
-            f"{command} runs as one process: data-parallel training over a process group "
-            f"(the global-batch step, slide-DP, the gathered losses) is the port's next "
-            f"multi-device slice; start it without torchrun")
-
-
 def cmd_train(args) -> int:
-    _single_process("train")
+    """Train one fold or all of them; in a process group, data-parallel
+    over every rank (``train_fold``'s mesh), rank 0 writing the files."""
     cfg = _build_config(args)
+    from mclstexp_tpu_torch.parallel import distributed
     from mclstexp_tpu_torch.train.loop import train_all_folds, train_fold
     from mclstexp_tpu_torch.utils.logging import MetricLogger
 
     sections = _load_sections(cfg, device=args.device)
     cfg, sections, remap = _maybe_remap(cfg, sections, prefer_saved=args.resume)
-    if remap is not None:
+    if remap is not None and distributed.rank() == 0:
         # the row assignment the checkpoints are trained under (_maybe_remap)
         d = os.path.join(cfg.train.checkpoint_dir, cfg.data.dataset)
         os.makedirs(d, exist_ok=True)
         remap.save(os.path.join(d, "pos_remap.npz"))
+    distributed.sync_hosts("pos-remap")
     logger = MetricLogger(path=os.path.join(cfg.train.checkpoint_dir, "train_log.jsonl"))
     try:
         if args.fold is not None:
@@ -629,11 +624,15 @@ def cmd_baseline(args) -> int:
     on the held-out slide; ``--super-resolution`` also predicts that slide's
     dense 56-px grid (``baselines/super_resolution.py``) into an ``.npz``.
     Prints the result as JSON. Attention is "xla": the JAX CLI has no
-    backend flag for the baselines."""
+    backend flag for the baselines. ``--dp`` trains data-parallel over a
+    mesh of every rank of the process group (a one-rank group without
+    ``torchrun``): BLEEP on the global batch, the slide families in the
+    slide-DP mode, one slide per rank a step. Rank 0 alone writes the
+    checkpoint and prints."""
     from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.parallel import distributed
     from mclstexp_tpu_torch.train import checkpoint as ckpt
 
-    _single_process("baseline")
     cfg = _build_config(args)
     sections = _load_sections(cfg, device=args.device)
     # THItoGene's reference flow deepens the ViT for cSCC
@@ -662,6 +661,11 @@ def cmd_baseline(args) -> int:
         encoder_name=args.bleep_encoder,
     )
 
+    mesh = None
+    if args.dp and not (args.torch_checkpoint or args.load_checkpoint):
+        from mclstexp_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device)
     if args.torch_checkpoint or args.load_checkpoint:
         state = trainer.init_baseline(bcfg, args.device)
         if args.torch_checkpoint:
@@ -673,14 +677,18 @@ def cmd_baseline(args) -> int:
         else:
             ckpt.apply_checkpoint(state, ckpt.restore_checkpoint(args.load_checkpoint))
     elif args.baseline == "bleep":
-        state = trainer.train_bleep_fold(bcfg, sections, args.fold, device=args.device)
+        state = trainer.train_bleep_fold(bcfg, sections, args.fold, device=args.device,
+                                         mesh=mesh)
     else:
-        state = trainer.train_baseline_fold(bcfg, sections, args.fold, device=args.device)
+        state = trainer.train_baseline_fold(bcfg, sections, args.fold, device=args.device,
+                                            mesh=mesh)
+    lead = distributed.rank() == 0
     if not args.load_checkpoint and not args.torch_checkpoint and not args.no_save:
         out_dir = os.path.join(cfg.train.checkpoint_dir, "baselines", args.baseline,
                                f"best_{args.fold}")
-        ckpt.save_checkpoint(out_dir, state)
-        print(f"checkpoint: {out_dir}", file=sys.stderr)
+        ckpt.save_checkpoint_on_lead(out_dir, state)
+        if lead:
+            print(f"checkpoint: {out_dir}", file=sys.stderr)
 
     model = state.model
     if args.baseline == "bleep":
@@ -705,10 +713,11 @@ def cmd_baseline(args) -> int:
         )
     else:
         result = trainer.evaluate_baseline_fold(bcfg, sections, args.fold, model)
-        if args.super_resolution:
+        if args.super_resolution and lead:
             result["super_resolution"] = _baseline_super_resolution(args, cfg, bcfg, model,
                                                                     sections)
-    print(json.dumps(result, indent=2))
+    if lead:
+        print(json.dumps(result, indent=2))
     return 0
 
 
@@ -811,6 +820,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                             "clip_vit", "tiny_cnn"],
                    help="BLEEP image tower (reference "
                         "baselines/Bleep/modules.py:7-132 menu)")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel training over every rank of the process group "
+                        "(torchrun; one rank without it): BLEEP keeps its exact "
+                        "global-batch objective; the slide families run slide-per-rank "
+                        "with mean gradients (torch-DDP-at-batch-1 semantics - a scaling "
+                        "mode, not the sequential parity trajectory)")
     p.add_argument("--bleep-retrieval", type=str, default="average",
                    choices=["simple", "average", "weighted"],
                    help="BLEEP inference mode (BLEEP_inference.ipynb cell 5): "

@@ -40,7 +40,7 @@ class ModelConfig:
     # Spot-attention backend: "xla" runs the plain fp32-softmax path,
     # "flash" the CUDA flash-attention kernels on the card (forward, and the
     # dK/dV and dQ kernels when training; the plain versions on the CPU),
-    # and "ring" raises until the port has a device mesh (ROADMAP.md).
+    # and "ring" raises: ring attention is not ported yet (ROADMAP.md).
     attn_backend: str = "xla"
     # torch .pt of an ImageNet-pretrained image tower (torchvision/timm
     # state_dict), grafted into the fresh model (models/image/torch_import.py)
@@ -67,12 +67,14 @@ class TrainConfig:
     # shears through the row_shift kernel) or "gather" (direct
     # nearest-neighbour inverse map).
     rot_impl: str = "paeth"
-    # TPU layout knobs, accepted and ignored by the port: the device mesh
-    # and the budget under which the JAX build keeps data device-resident
-    # (the port always keeps the training set on the device).
+    # The data-parallel mesh (parallel/mesh.train_mesh): None is one "data"
+    # axis over every rank of the process group, or no mesh for one process
+    # without a group; axes other than "data" must be of length 1.
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("data",)
     debug_nans: bool = False  # JAX NaN sanitizer; ignored by the port
+    # A training set of more raw bytes than this is streamed to the device
+    # batch by batch (data/pipeline.prefetch_to_device) instead of kept there.
     device_data_budget_bytes: int = 4 * 1024**3
 
 

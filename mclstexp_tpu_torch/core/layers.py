@@ -39,8 +39,9 @@ to and from bf16.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -190,7 +191,7 @@ class MultiHeadSelfAttention(nn.Module):
         if backend == "ring":
             raise NotImplementedError(
                 "attn_backend='ring' (sequence-parallel attention over a device mesh) is not "
-                "ported yet (ROADMAP.md Queue 1, multi-device)")
+                "ported yet (ROADMAP.md Queue 1 item 4, ring attention)")
         if backend not in ("xla", "flash"):
             raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash'")
         self.heads, self.dim_head, self.backend = heads, dim_head, backend
@@ -275,6 +276,71 @@ class ProjectionHead(nn.Module):
         projected = self.projection(x)
         h = self.dropout(self.fc(gelu_exact(projected)))
         return self.layer_norm(h + projected)
+
+
+class SeededDropout(nn.Module):
+    """Dropout of rate ``p`` whose keep mask is drawn from ``self.generator``
+    (``seed_dropout``); kept values are scaled by 1 / (1 - p), as flax's
+    ``nn.Dropout``. Identity in eval mode or at p = 0; a train-mode call
+    without a generator raises.
+
+    ``rows`` = (start, total), set by ``dropout_rows`` in a data-parallel
+    step: the input holds rows start.. of a global batch of ``total``, and
+    the mask is drawn for the global batch and sliced, so that every rank
+    keeps the rows one process would."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("SeededDropout needs seed_dropout(model, generator) before a "
+                               "train-mode forward")
+        if self.rows is None:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            start, total = self.rows
+            keep = torch.rand((total,) + tuple(x.shape[1:]), generator=self.generator,
+                              device=x.device)[start:start + x.shape[0]]
+        return torch.where(keep >= self.p, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def use_seeded_dropout(module: nn.Module) -> nn.Module:
+    """Replace every ``nn.Dropout`` under ``module`` by a ``SeededDropout``
+    of the same rate (neither holds parameters, so the keys stay)."""
+    for name, child in module.named_children():
+        if isinstance(child, nn.Dropout):
+            setattr(module, name, SeededDropout(child.p))
+        else:
+            use_seeded_dropout(child)
+    return module
+
+
+def seed_dropout(module: nn.Module, generator: torch.Generator) -> None:
+    """Let every ``SeededDropout`` under ``module`` draw from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, SeededDropout):
+            m.generator = generator
+
+
+@contextlib.contextmanager
+def dropout_rows(modules: Sequence[nn.Module], start: int, total: int) -> Iterator[None]:
+    """Within the block every ``SeededDropout`` under ``modules`` sees rows
+    ``start..`` of a global batch of ``total`` rows (``SeededDropout.rows``)."""
+    drops = [m for module in modules for m in module.modules()
+             if isinstance(m, SeededDropout)]
+    for m in drops:
+        m.rows = (start, total)
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.rows = None
 
 
 class PositionTables(nn.Module):

@@ -7,19 +7,27 @@ build's, for parity:
   * eval: sequential batches over the concatenation, no shuffle;
   * the final partial batch is kept (torch DataLoader drop_last=False).
 
-The port keeps the whole training set on the device (``DeviceResidentData``)
-and sends one index tensor per step.
+A training set within the device budget stays on the device
+(``DeviceResidentData``, one index tensor sent per step); a larger one is
+streamed: ``prefetch_to_device`` copies each host batch to the device from
+a background thread ahead of the step. Under a mesh a training batch holds
+this rank's rows of the images (``parallel.mesh.batch_rows``) and every row
+of the expression and positions, which the spot tower attends over whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
+import threading
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 import torch
 
 from mclstexp_tpu_torch.data.section import Section
+from mclstexp_tpu_torch.parallel.mesh import batch_rows
 
 Batch = Dict[str, np.ndarray]
 
@@ -81,6 +89,12 @@ def eval_batches(data: ConcatSections, batch_size: int) -> Iterator[Batch]:
         yield data.take(np.arange(start, min(start + batch_size, n)))
 
 
+def raw_bytes(data: ConcatSections) -> int:
+    """The training set's bytes as the JAX loop sums them against
+    ``device_data_budget_bytes``: patches, expression and positions."""
+    return data.patches.nbytes + data.expression.nbytes + data.positions.nbytes
+
+
 class DeviceResidentData:
     """The training set on the device; a batch is one gather per field."""
 
@@ -91,20 +105,104 @@ class DeviceResidentData:
         self.expression = torch.from_numpy(data.expression).to(self.device)
         self.positions = torch.from_numpy(data.positions).long().to(self.device)
 
-    def take(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
+    def take(self, idx: np.ndarray, image_rows: slice = slice(None)) -> Dict[str, torch.Tensor]:
+        """The batch of rows ``idx``; of the images only ``idx[image_rows]``."""
         i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
         return {
-            "image_u8": self.patches[i],
+            "image_u8": self.patches[i[image_rows]],
             "expression": self.expression[i],
             "position": self.positions[i],
         }
 
 
 def device_train_batches(device_data: DeviceResidentData, batch_size: int, seed: int,
-                         epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
-    """``train_batches`` over the device-resident set (same order)."""
+                         epoch: int, mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """``train_batches`` over the device-resident set (same order); under
+    ``mesh`` each batch's images are this rank's rows."""
     for idx in epoch_order(device_data.n, batch_size, seed, epoch):
-        yield device_data.take(idx)
+        rows = slice(None) if mesh is None else batch_rows(len(idx), mesh)
+        yield device_data.take(idx, rows)
+
+
+def _to_torch(batch: Batch) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors, positions as int64 (``DeviceResidentData``'s
+    types)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    if "position" in out:
+        out["position"] = out["position"].long()
+    return out
+
+
+PREFETCH = 2  # batches the producer may hold ready ahead of the step
+
+
+def prefetch_to_device(iterator: Iterator[Batch], device,
+                       mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """The host batches of ``iterator`` on ``device``, copied ahead of the
+    consumer (``mclstexp_tpu/data/pipeline.py::prefetch_to_device``).
+
+    A background thread slices each batch (under ``mesh`` the images to this
+    rank's rows, as ``device_train_batches`` does), and on a card pins it
+    and copies it with ``non_blocking`` copies on a side stream, recording
+    an event; the consumer's stream waits on that event before the batch is
+    used, and the tensors are marked as used on the consumer's stream, so
+    their memory is not reused before the step that reads them is done. At
+    most ``PREFETCH`` batches wait. An exception of the producer (reading the
+    patch cache, a copy) is raised in the consumer, so it never ends an
+    epoch early in silence. Closing the generator stops the thread."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            stream = torch.cuda.Stream(device) if cuda else None
+            with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+                for batch in iterator:
+                    if mesh is not None:
+                        rows = batch_rows(len(batch["expression"]), mesh)
+                        batch = dict(batch, image_u8=batch["image_u8"][rows])
+                    host = _to_torch(batch)
+                    if cuda:
+                        host = {k: v.pin_memory() for k, v in host.items()}
+                    on_device = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+                    if not put((on_device, stream.record_event() if cuda else None)):
+                        return
+        except BaseException as e:  # noqa: BLE001 - shipped to the consumer and raised there
+            put(e)
+        else:
+            put(end)
+
+    thread = threading.Thread(target=produce, name="prefetch_to_device", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            batch, ready = item
+            if ready is not None:
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(ready)
+                for v in batch.values():
+                    v.record_stream(consumer)
+            yield batch
+    finally:
+        stop.set()
+        thread.join()
 
 
 def num_train_steps(n: int, batch_size: int) -> int:

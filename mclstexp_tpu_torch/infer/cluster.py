@@ -6,15 +6,23 @@ The JAX package clusters predicted expression with scikit-learn
 ``normalized_mutual_info_score``). The port has its own versions, so that
 it needs no scikit-learn on the machine of the card:
 
-* ``pca``: scikit-learn's ``PCA(svd_solver="full").fit_transform``: an exact
-  SVD of the centered data in float64 on ``device``, with its sign rule
+* ``pca``: scikit-learn's ``PCA(n_components, random_state=...)
+  .fit_transform`` with its default ``svd_solver="auto"``, which picks by
+  the data's shape (``decomposition/_pca.py::_fit``): "covariance_eigh"
+  (at most 1,000 features and at least ten times as many samples: the
+  eigenvectors of the covariance matrix), "full" (at most 500 along both
+  sides, or components at 80% of the smaller side or more: an exact SVD of
+  the centered data), else "randomized" (``utils/extmath.py::
+  _randomized_svd``: 10 oversamples, 7 power iterations under 10% of the
+  smaller side else 4, each normalized by an LU factorization, the
+  Gaussian test matrix drawn by ``np.random.RandomState(random_state)`` on
+  the host, the shorter side's transpose as scikit-learn takes it). Each
+  computes in the input's type (float32 stays float32, anything else is
+  float64) on ``device``, then takes scikit-learn's sign rule
   (``svd_flip(u_based_decision=False)``: each component's largest entry
-  positive). scikit-learn's default solver picks a randomized SVD for
-  matrices wider than 500 whose component count is under 80% of the
-  smaller side (her2st's 785 genes at 9 components). On data with a gap in
-  the spectrum the two agree; on a flat spectrum (pure noise) the randomized
-  components differ from the exact ones, and so can the clusters built on
-  them. The port computes the exact ones.
+  positive). Her2st's clustering (600 spots x 785 genes, 9 components) is
+  randomized; on a flat spectrum its components are not the exact ones,
+  and the port computes the same approximation as scikit-learn.
 * ``kmeans``: scikit-learn's ``KMeans(init="k-means++", n_init="auto")``,
   i.e. one k-means++ seeding and the Lloyd loop. The seeding's random draws
   come from ``np.random.RandomState(random_state)`` on the host in
@@ -31,7 +39,7 @@ it needs no scikit-learn on the machine of the card:
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,17 +54,85 @@ def _as_float64(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
 
-def pca(x, n_components: int, device="cuda") -> torch.Tensor:
-    """The first ``n_components`` principal-component scores of ``x`` (N, G),
-    (N, n_components) float64 on ``device``."""
-    x = _as_float64(x, torch.device(device))
-    xc = x - x.mean(dim=0)
-    u, s, vh = torch.linalg.svd(xc, full_matrices=False)
-    # svd_flip(u_based_decision=False): the largest |entry| of each row of
-    # vh positive (the first one where several tie)
-    rows = torch.arange(vh.shape[0], device=vh.device)
-    signs = torch.sign(vh[rows, vh.abs().argmax(dim=1)])
-    u = u * signs[None, :]
+def pca_solver(shape: Tuple[int, int], n_components: int) -> str:
+    """The solver scikit-learn's ``svd_solver="auto"`` picks for dense data
+    of ``shape`` (samples, features)."""
+    n, g = shape
+    if g <= 1_000 and n >= 10 * g:
+        return "covariance_eigh"
+    if max(n, g) <= 500:
+        return "full"
+    if 1 <= n_components < 0.8 * min(n, g):
+        return "randomized"
+    return "full"
+
+
+def _svd_flip(u: Optional[torch.Tensor], vt: torch.Tensor):
+    """``svd_flip(u_based_decision=False)``: each row of ``vt`` signed so
+    that its largest |entry| (the first where several tie) is positive, and
+    the matching column of ``u`` with it."""
+    rows = torch.arange(vt.shape[0], device=vt.device)
+    signs = torch.sign(vt[rows, vt.abs().argmax(dim=1)])
+    return (None if u is None else u * signs[None, :]), vt * signs[:, None]
+
+
+def _randomized_svd(m: torch.Tensor, n_components: int,
+                    random_state: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """scikit-learn's ``_randomized_svd(m, n_components, n_oversamples=10,
+    n_iter="auto", power_iteration_normalizer="auto", flip_sign=False)``
+    in ``m``'s type: (U (n, k), S (k,), Vt (k, g))."""
+    n_random = n_components + 10
+    n_iter = 7 if n_components < 0.1 * min(m.shape) else 4
+    transpose = m.shape[0] < m.shape[1]
+    if transpose:
+        m = m.T
+    # the test matrix, drawn on the host and cast while still numpy
+    q = np.random.RandomState(random_state).normal(size=(m.shape[1], n_random))
+    q = torch.as_tensor(q.astype(np.float32, copy=False) if m.dtype == torch.float32 else q,
+                        device=m.device)
+
+    def lu(a):  # scipy's lu(permute_l=True): P @ L; "none" at two iterations or fewer
+        if n_iter <= 2:
+            return a
+        p, lower, _ = torch.linalg.lu(a)
+        return p @ lower
+
+    for _ in range(n_iter):
+        q = lu(m @ q)
+        q = lu(m.T @ q)
+    q, _ = torch.linalg.qr(m @ q, mode="reduced")
+    u_hat, s, vt = torch.linalg.svd(q.T @ m, full_matrices=False)
+    u = q @ u_hat
+    if transpose:
+        return vt[:n_components].T, s[:n_components], u[:, :n_components].T
+    return u[:, :n_components], s[:n_components], vt[:n_components]
+
+
+def pca(x, n_components: int, random_state: int = 0, device="cuda") -> torch.Tensor:
+    """``PCA(n_components, random_state=random_state).fit_transform(x)``:
+    the first ``n_components`` principal-component scores of ``x`` (N, G),
+    (N, n_components) on ``device``, by the solver ``pca_solver`` picks, in
+    ``x``'s type (float32, else float64)."""
+    device = torch.device(device)
+    x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x, device=device)
+    if x.dtype != torch.float32:
+        x = x.to(torch.float64)
+    n = x.shape[0]
+    mean = x.mean(dim=0)
+    solver = pca_solver(tuple(x.shape), n_components)
+    if solver == "covariance_eigh":
+        cov = x.T @ x
+        cov -= n * mean[:, None] * mean[None, :]
+        cov /= n - 1
+        _, vecs = torch.linalg.eigh(cov)  # ascending; the largest first after the flip
+        _, vt = _svd_flip(None, vecs.flip(1).T[:n_components])
+        return x @ vt.T - mean[None, :] @ vt.T
+    xc = x - mean
+    if solver == "full":
+        u, s, vt = torch.linalg.svd(xc, full_matrices=False)
+    else:
+        u, s, vt = _randomized_svd(xc, n_components, random_state)
+    u, _ = _svd_flip(u, vt)
     return u[:, :n_components] * s[:n_components]
 
 

@@ -113,15 +113,16 @@ def cluster_predictions(pred: np.ndarray, labels: Sequence[str], n_components: i
     labels: spots labelled "undetermined" dropped, PCA to ``min(9, N - 1,
     G)`` components, k-means++ KMeans with one cluster per label, then ARI
     and NMI rounded to 3 places (the reference's ``utils.py:67-79``). PCA
-    and the Lloyd loop run on ``device``; the PCA is exact (``infer/cluster.py``
-    says where scikit-learn's default solver is not)."""
+    and the Lloyd loop run on ``device``; the PCA is scikit-learn's default
+    solver for the data's shape (``infer/cluster.py``), randomized at
+    her2st's 785 genes."""
     labels = np.asarray(labels)
     keep = labels != "undetermined"
     x = np.asarray(pred)[keep]
     kept = labels[keep]
     n_clusters = len(set(kept.tolist()))
     comps = min(n_components, x.shape[0] - 1, x.shape[1])
-    x_pca = cluster.pca(x, comps, device=device)
+    x_pca = cluster.pca(x, comps, random_state=random_state, device=device)
     assign, _ = cluster.kmeans(x_pca, n_clusters, random_state=random_state, device=device)
     assign = assign.astype(str)
     return {

@@ -9,7 +9,8 @@ the ViT towers' blocks are the port's ``AttnBlock``, whose keys
 ``models/image/torch_import.py`` maps from timm's.
 
 ``forward`` returns the pair of (B, P) projected embeddings; the loss lives
-in ``core.losses``. ``config.dropout`` is live, as in the JAX build.
+in ``core.losses``. ``config.dropout`` is live, as in the JAX build; its
+masks come from the train step's generator (``core.layers.SeededDropout``).
 
 ``config.dtype`` "bfloat16" is the JAX rule: parameters fp32, the towers
 and heads computing in bf16 (``core.layers.set_compute_dtype``), the
@@ -29,6 +30,7 @@ from mclstexp_tpu_torch.core.layers import (
     ProjectionHead,
     compute_dtype_of,
     set_compute_dtype,
+    use_seeded_dropout,
     widen,
 )
 from mclstexp_tpu_torch.models.image.registry import build_encoder
@@ -68,11 +70,17 @@ class MclSTExp(PositionTables):
                                                cfg.dropout, device=device)
         self.spot_projection = ProjectionHead(cfg.spot_dim, cfg.projection_dim,
                                               cfg.dropout, device=device)
+        use_seeded_dropout(self)
         set_compute_dtype(self, dtype)
 
     @property
     def tower(self) -> nn.Module:
         return self.image_encoder if self.config.variant == "attention" else self.image_ecode
+
+    @property
+    def image_side(self) -> Tuple[nn.Module, nn.Module]:
+        """The modules ``encode_image`` runs: the tower and its projection."""
+        return self.tower, self.image_projection
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         return widen(self.image_projection(self.tower(images)))

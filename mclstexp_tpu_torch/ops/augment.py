@@ -67,6 +67,14 @@ def sample_st_draws(generator: torch.Generator, batch: int, device) -> StDraws:
     )
 
 
+def take_rows(draws, rows: slice):
+    """The draws of images ``rows`` of a batch (``StDraws`` or
+    ``TenxDraws``): a data-parallel rank draws for the global batch and
+    keeps its rows, so that its images take one process's draws."""
+    return dataclasses.replace(draws, **{f.name: getattr(draws, f.name)[rows]
+                                         for f in dataclasses.fields(draws)})
+
+
 def _blend(img1: torch.Tensor, img2: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(ratio * img1 + (1.0 - ratio) * img2, 0.0, 1.0)
 

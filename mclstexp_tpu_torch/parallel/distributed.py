@@ -13,8 +13,9 @@ host and sees every local device from it; torch runs one process per card
   the NCCL group exists.
 * ``process_shard``: this rank's contiguous share of a work list (the
   sections each rank pre-cuts into the patch cache).
-* ``sync_hosts``: a barrier over the group; under NCCL it names this
-  process's card, since a barrier without ``device_ids`` may guess another.
+* ``sync_hosts``: a barrier over the group (after the pre-cut and rank 0's
+  writes); under NCCL it names this process's card, since a barrier
+  without ``device_ids`` may guess another.
 * ``local_device``: ``cuda`` -> ``cuda:{LOCAL_RANK}``.
 
 ``sync_hosts`` and ``process_shard`` work over whatever group is
@@ -113,8 +114,9 @@ def process_shard(n_items: int) -> slice:
 
 def sync_hosts(tag: str = "sync") -> None:
     """Barrier across the group's processes (no-op without a group). Used
-    after the patch-cache pre-cut, so that no rank reads a half-written
-    cache. ``tag`` names the barrier in a failure."""
+    after the patch-cache pre-cut and after rank 0's checkpoint and
+    ``pos_remap.npz`` writes, so that no rank reads a half-written file.
+    ``tag`` names the barrier in a failure."""
     if not is_initialized():
         return
     try:

@@ -8,7 +8,15 @@ group, one card (or CPU process) each. ``make_mesh`` makes a one-rank group
 sharded paths run their collectives at world size 1 too.
 ``shard_batch`` keeps JAX's placement rule: a batch whose length divides
 the mesh axis is sharded (this rank keeps its contiguous slice), any other
-is replicated (every rank keeps all of it).
+is replicated (every rank keeps all of it); ``batch_rows`` names this
+rank's rows under that rule.
+
+``train_mesh`` is the mesh a training run takes from its config, as JAX's
+loop builds one from ``TrainConfig.mesh_shape`` / ``mesh_axes``: the
+configured shape, else one "data" axis over every rank when a process group
+exists; one process without a group and without a configured shape trains
+with no mesh. The port's training is data-parallel only: a mesh axis other
+than "data" longer than 1 raises (``check_data_mesh``).
 """
 
 from __future__ import annotations
@@ -57,16 +65,45 @@ def mesh_axis(mesh: DeviceMesh, axis: str = "data"):
     return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
 
 
+def batch_rows(n: int, mesh: DeviceMesh, axis: str = "data") -> slice:
+    """This rank's rows of a batch of ``n``: its contiguous share when ``n``
+    divides the mesh axis, else all of them (the batch is replicated)."""
+    _, n_shards, me = mesh_axis(mesh, axis)
+    if n % n_shards:
+        return slice(0, n)
+    per = n // n_shards
+    return slice(me * per, (me + 1) * per)
+
+
 def shard_batch(batch: Dict[str, object], mesh: DeviceMesh, axis: str = "data"):
     """This rank's part of a host batch: its contiguous slice along the
     leading axis when the length divides the mesh axis, else all of it
     (remainder batches are replicated)."""
-    _, n_shards, me = mesh_axis(mesh, axis)
-    out = {}
-    for k, v in batch.items():
-        if len(v) % n_shards == 0:
-            per = len(v) // n_shards
-            out[k] = v[me * per:(me + 1) * per]
-        else:
-            out[k] = v
-    return out
+    return {k: v[batch_rows(len(v), mesh, axis)] for k, v in batch.items()}
+
+
+def check_data_mesh(mesh: DeviceMesh) -> None:
+    """Raise unless ``mesh`` has a "data" axis and every other axis is of
+    length 1: the port trains data-parallel only."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "data" not in names:
+        raise ValueError(f"a training mesh needs a 'data' axis; got axes {names}")
+    wide = {n: mesh.size(i) for i, n in enumerate(names) if n != "data" and mesh.size(i) > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide}: the port trains data-parallel only; sequence- and "
+            f"tensor-parallel layouts (ring attention, the 'model' axis) are not ported yet "
+            f"(ROADMAP.md Queue 1 items 4-5)")
+
+
+def train_mesh(shape: Optional[Tuple[int, ...]], axes: Tuple[str, ...],
+               device="cuda") -> Optional[DeviceMesh]:
+    """The mesh of a training run configured with ``mesh_shape`` ``shape``
+    and ``mesh_axes`` ``axes``: ``make_mesh(shape, axes)`` when a shape is
+    configured or a process group exists, else None (one process, no
+    collectives); checked by ``check_data_mesh``."""
+    if shape is None and not distributed.is_initialized():
+        return None
+    mesh = make_mesh(shape, axes, device=device)
+    check_data_mesh(mesh)
+    return mesh

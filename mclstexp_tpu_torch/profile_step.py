@@ -1,7 +1,7 @@
 """Where the time of one train step goes, at the her2st widths, on the card.
 
     python -m mclstexp_tpu_torch.profile_step [--slide [histogene|hist2st]] [--side N]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--dp]
 
 Builds the her2st-width model (densenet121, 224 px, spot_dim 785,
 pos_vocab 1024, 2 blocks of 8x64 heads, projection 256, batch 128) from a
@@ -15,7 +15,10 @@ ids), from a seed; ``--slide hist2st`` the same slide (with random counts)
 through one Hist2ST step at the reference widths (dim 1,024, 16 x 64 heads,
 depths 2 / 8 / 4, zinb 0.25, bake 5: six train-mode passes), and ``--side
 N`` an N x N grid instead. ``--dtype`` is the model's compute dtype
-(default float32). Prints one JSON object:
+(default float32). ``--dp``: the flagship step data-parallel over a
+one-rank group on this card (``parallel.mesh.make_mesh``; the global batch
+norms, the gathered loss, the gradient all-reduce), what the data-parallel
+step costs before any card is added. Prints one JSON object:
   * ``ms_per_step``: host wall time per step, unprofiled;
   * ``device_busy_ms_per_step`` and ``idle_share``: the union of kernel
     intervals against the profiled window;
@@ -119,8 +122,9 @@ def summarize(trace: dict, steps: int, phases=PHASES) -> dict:
     }
 
 
-def flagship_step(dtype: str):
-    """run(i) of one her2st-width train step, and its phases."""
+def flagship_step(dtype: str, dp: bool = False):
+    """run(i) of one her2st-width train step (with ``dp``, over a one-rank
+    group), and its phases."""
     cfg = her2st_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
     sections = synthetic.make_dataset(num_sections=2, num_spots=128,
@@ -131,10 +135,16 @@ def flagship_step(dtype: str):
     step = make_train_step("st", rot_impl=cfg.train.rot_impl)
     g = torch.Generator(device="cuda").manual_seed(0)
     b = cfg.train.batch_size
+    shard = None
+    if dp:
+        from mclstexp_tpu_torch.parallel.mesh import make_mesh
+        from mclstexp_tpu_torch.train.step import batch_shard
+
+        shard = batch_shard(make_mesh(device="cuda"), b)
 
     def run(i):
         idx = np.arange(i * b, (i + 1) * b) % len(data.expression)
-        return step(state, data.take(idx), augment.sample_st_draws(g, b, "cuda"))
+        return step(state, data.take(idx), augment.sample_st_draws(g, b, "cuda"), None, shard)
     return run, PHASES
 
 
@@ -167,12 +177,14 @@ def main(argv=None) -> None:
     parser.add_argument("--slide", nargs="?", const="histogene", choices=SLIDE_FAMILIES)
     parser.add_argument("--side", type=int, default=SLIDE_SIDE)
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    parser.add_argument("--dp", action="store_true",
+                        help="the flagship step over a one-rank process group")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
 
     run, phases = (slide_step(args.dtype, args.slide, args.side) if args.slide
-                   else flagship_step(args.dtype))
+                   else flagship_step(args.dtype, args.dp))
     for i in range(3):
         run(i)
     torch.cuda.synchronize()
@@ -192,11 +204,15 @@ def main(argv=None) -> None:
     with open(TRACE) as f:
         summary = summarize(json.load(f), PROFILED_STEPS, phases)
     what = f"{args.slide} slide of {args.side}x{args.side} spots" if args.slide else \
-        "her2st flagship"
+        "her2st flagship" + (" over a one-rank group" if args.dp else "")
     print(json.dumps({"step": what,
                       "dtype": args.dtype, "ms_per_step": ms, "timed_steps": TIMED_STEPS,
                       "profiled_steps": PROFILED_STEPS, "device": torch.cuda.get_device_name(0),
                       **summary}, indent=1))
+    if args.dp:
+        from mclstexp_tpu_torch.parallel import distributed
+
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ builds the model in the dtype it asks for (the command line's ``--dtype``).
 restore the whole train state (what resuming a fold needs), as the JAX
 build's functions of the same names do.
 
+``save_checkpoint_on_lead`` is the write of a data-parallel run: rank 0
+writes, and every rank waits at a barrier until the file is whole.
+
 ``load_torch_state_dict`` reads a reference ``.pt`` (a bare ``state_dict``)
 with the reference's key shims: a ``module.`` prefix stripped (DataParallel
 saves) and ``well`` renamed ``spot`` (older attribute names).
@@ -24,6 +27,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from mclstexp_tpu_torch.parallel import distributed
 from mclstexp_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -43,6 +47,15 @@ def save_checkpoint(path: str, state: TrainState) -> str:
                 "optimizer": state.optimizer.state_dict()}, tmp)
     os.replace(tmp, out)  # a crash mid-save never leaves a torn checkpoint
     return out
+
+
+def save_checkpoint_on_lead(path: str, state: TrainState) -> None:
+    """``save_checkpoint`` on rank 0 of the process group (the only process
+    without one), then a barrier over the group: every rank's state is the
+    same, one copy is written, and no rank goes on to read it early."""
+    if distributed.rank() == 0:
+        save_checkpoint(path, state)
+    distributed.sync_hosts("checkpoint")
 
 
 def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:

@@ -8,7 +8,9 @@ got to ``work/result_<world>_<rank>.pt`` for the test to compare. This
 module imports no JAX.
 """
 
+import contextlib
 import dataclasses
+import io
 import os
 
 import numpy as np
@@ -80,3 +82,210 @@ def _run(rank: int, world: int, work: str) -> None:
     out["cut"] = cut
     out["patches"] = [np.asarray(s.patches) for s in loaded]
     torch.save(out, os.path.join(work, f"result_{world}_{rank}.pt"))
+
+
+# ------------------------------------------------------------------------
+# The data-parallel training job (tests/test_torch_port_dp.py): each rank
+# runs the port's training paths over the group and saves what it got to
+# ``work/dp_result_<world>_<rank>.pt``.
+
+def narrow_baseline(cfg, device="cuda", attn_backend="xla"):
+    """``trainer.build_baseline`` at test widths: HisToGene (dim 32, one
+    layer of 2 heads) and Hist2ST (fig 28, patch 7, channel 16, depths
+    1 / 1 / 2, 2 heads), dropout 0.1 in both."""
+    from mclstexp_tpu_torch.baselines import models, trainer
+
+    if cfg.model == "histogene":
+        return models.HisToGene(cfg.n_genes, cfg.patch_size, dim=32, n_layers=1, heads=2,
+                                dropout=0.1, attn_backend=attn_backend, device=device)
+    return models.Hist2ST(cfg.n_genes, fig_size=cfg.patch_size, patch_size=7, channel=16,
+                          depth1=1, depth2=1, depth3=2, heads=2, dropout=0.1,
+                          zinb=cfg.zinb_coef > 0, coef_head=trainer.resolve_bake(cfg) > 0,
+                          attn_backend=attn_backend, device=device)
+
+
+def dp_sections(spots, genes, patch, seed=0):
+    """Synthetic sections of ``spots`` spots each (the port's
+    ``make_section`` with shared gene loadings)."""
+    from mclstexp_tpu_torch.data import synthetic
+
+    loadings = np.random.default_rng(seed).normal(size=(4, genes))
+    return [synthetic.make_section(f"S{i + 1}", n, genes, patch, seed=seed + 100 + i,
+                                   gene_loadings=loadings) for i, n in enumerate(spots)]
+
+
+def step_grads(kind: str, cfg, sections, batch_size: int, mesh=None):
+    """The gradients one step takes on the first ``batch_size`` training
+    spots of fold 0, from the initial parameters: the flagship step (kind
+    "flagship", ``cfg`` a ``Config``) or BLEEP's ("bleep", a
+    ``BaselineConfig``), over ``mesh``'s ranks (this rank's rows, as the
+    loops give them) or, without one, in one process. The optimizer is SGD
+    at lr 0, so the gradients stay on the parameters."""
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.data.pipeline import ConcatSections, DeviceResidentData, split_fold
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.parallel.mesh import batch_rows
+    from mclstexp_tpu_torch.train.state import TrainState, create_train_state
+    from mclstexp_tpu_torch.train.step import batch_shard, make_train_step
+
+    train_secs, _ = split_fold(sections, 0)
+    data = DeviceResidentData(ConcatSections.from_sections(train_secs), "cpu")
+    idx = np.arange(batch_size)
+    rows = slice(None) if mesh is None else batch_rows(batch_size, mesh)
+    batch = data.take(idx, rows)
+    shard = batch_shard(mesh, batch_size)
+    generator = augment.reseed(torch.Generator(), 5, 0, 0)
+    if kind == "flagship":
+        model = create_train_state(cfg.model, cfg.train, "cpu").model
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+        draws = augment.sample_st_draws(generator, batch_size, "cpu")
+        if shard is not None:
+            draws = augment.take_rows(draws, shard.rows)
+        make_train_step("st")(state, batch, draws, generator, shard)
+    else:
+        model = trainer.init_baseline(cfg, "cpu").model
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+        trainer.make_bleep_step(cfg)(state, batch, generator, shard)
+    return {name: p.grad.clone() for name, p in model.named_parameters() if p.grad is not None}
+
+
+def run_dp(rank: int, world: int, work: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work}/dp_store_{world}",
+                            world_size=world, rank=rank)
+    try:
+        _run_dp(rank, world, work)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_dp(rank: int, world: int, work: str) -> None:
+    from mclstexp_tpu_torch.baselines import losses as bl
+    from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.cli import main as cli
+    from mclstexp_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from mclstexp_tpu_torch.core.losses import symmetric_infonce_gathered
+    from mclstexp_tpu_torch.models.image.common import BatchNormT, global_batch_stats
+    from mclstexp_tpu_torch.train import checkpoint
+    from mclstexp_tpu_torch.train.loop import train_fold
+    from mclstexp_tpu_torch.utils.logging import MetricLogger
+
+    inputs = torch.load(os.path.join(work, "dp_inputs.pt"), weights_only=False)
+    group = dist.group.WORLD
+    out = {}
+
+    # (b) the gathered losses on this rank's rows, values and gradients
+    per = len(inputs["spot"]) // world
+    rows = slice(rank * per, (rank + 1) * per)
+    for name, fn in (("infonce", symmetric_infonce_gathered),
+                     ("bleep", bl.bleep_clip_loss_gathered)):
+        spot = torch.tensor(inputs["spot"][rows], requires_grad=True)
+        image = torch.tensor(inputs["image"][rows], requires_grad=True)
+        loss = fn(spot, image, inputs["temperature"], group)
+        loss.backward()
+        out[f"gathered_{name}"] = (float(loss), spot.grad.numpy(), image.grad.numpy())
+
+    # (c) the global batch norm on this rank's rows
+    bn_in = inputs["bn"]
+    per = len(bn_in["x"]) // world
+    rows = slice(rank * per, (rank + 1) * per)
+    bn = BatchNormT(bn_in["x"].shape[1])
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(bn_in["weight"]))
+        bn.bias.copy_(torch.from_numpy(bn_in["bias"]))
+    x = torch.tensor(bn_in["x"][rows], requires_grad=True)
+    bn.train()
+    with global_batch_stats(bn, group):
+        y = bn(x)
+    (y * torch.from_numpy(bn_in["upstream"][rows])).sum().backward()
+    out["bn"] = dict(y=y.detach().numpy(), dx=x.grad.numpy(), dweight=bn.weight.grad.numpy(),
+                     dbias=bn.bias.grad.numpy(), running_mean=bn.running_mean.numpy(),
+                     running_var=bn.running_var.numpy(), group_after=bn.group)
+
+    # only rank 0 writes: count the checkpoint writes of this rank
+    writes = []
+    save = checkpoint.save_checkpoint
+
+    def counting_save(path, state):
+        writes.append(path)
+        return save(path, state)
+
+    checkpoint.save_checkpoint = counting_save
+
+    # (a) the flagship fold, resident and streamed; (d) resume at world 2
+    fold = inputs["fold"]
+    sections = dp_sections(**fold["sections"])
+
+    def fold_cfg(tag, **train_kw):
+        return Config(model=ModelConfig(**fold["model"]),
+                      train=TrainConfig(**{**fold["train"], **train_kw,
+                                           "checkpoint_dir": os.path.join(work, tag)}),
+                      data=DataConfig(dataset="synthetic", patch_size=fold["patch"]))
+
+    def run_fold(tag, resume=False, **train_kw):
+        logger = MetricLogger(path=os.path.join(work, tag, "log.jsonl"), echo=False)
+        state = train_fold(fold_cfg(tag, **train_kw), sections, 0, logger, device="cpu",
+                           resume=resume)
+        logger.close()
+        losses = [(r["epoch"], r["step"], r["loss"]) for r in logger.records if "loss" in r]
+        return dict(losses=losses, state=state.model.state_dict(), step=state.step,
+                    optimizer=state.optimizer.state_dict(),
+                    resumed=[r["epoch"] for r in logger.records if r.get("event") == "resume"])
+
+    out["fold"] = run_fold(f"fold_{world}")
+    out["stream"] = run_fold(f"stream_{world}", device_data_budget_bytes=0)
+    if world == 2:
+        out["whole"] = run_fold("whole", max_epochs=2)
+        run_fold("split", max_epochs=1)
+        out["resumed"] = run_fold("split", resume=True, max_epochs=2)
+        try:  # (h) a mesh with a "model" axis
+            train_fold(fold_cfg("model_axis", mesh_shape=(1, 2), mesh_axes=("data", "model")),
+                       sections, 0, device="cpu")
+            out["model_axis"] = "no error"
+        except NotImplementedError as e:
+            out["model_axis"] = str(e)
+
+    # one step's gradients: a sharded batch of 6 and a replicated one of 5
+    from mclstexp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    bleep = inputs["bleep"]
+    out["grads"] = {
+        (kind, b): step_grads(kind, cfg, dp_sections(**secs), b, mesh)
+        for kind, cfg, secs in (("flagship", fold_cfg("grads"), fold["sections"]),
+                                ("bleep", trainer.BaselineConfig(**bleep["cfg"]),
+                                 bleep["sections"]))
+        for b in (6, 5)}
+
+    # (e) BLEEP with a mesh, (f) slide-DP over the group
+    state = trainer.train_bleep_fold(trainer.BaselineConfig(**bleep["cfg"]),
+                                     dp_sections(**bleep["sections"]), 0,
+                                     logger=MetricLogger(echo=False), device="cpu", mesh=mesh)
+    out["bleep"] = state.model.state_dict()
+    trainer.build_baseline = narrow_baseline
+    out["slide_dp"] = {}
+    for family, case in inputs["slide_dp"].items():
+        logger = MetricLogger(echo=False)
+        state = trainer.train_baseline_fold(trainer.BaselineConfig(**case["cfg"]),
+                                            dp_sections(**case["sections"]), 0, logger=logger,
+                                            device="cpu", mesh=mesh)
+        out["slide_dp"][family] = dict(losses=[r["loss"] for r in logger.records],
+                                       state=state.model.state_dict(), step=state.step)
+    out["writes"] = list(writes)
+
+    # (g) the command line under the group (HisToGene at the narrow widths)
+    if world == 2:
+        cwd = os.getcwd()
+        os.chdir(os.path.join(work, "cli"))
+        try:
+            common = ["--dataset", "synthetic", "--fold", "0", "--max_epochs", "1",
+                      "--device", "cpu"]
+            for name, argv in (("cli_train", ["train"]),
+                               ("cli_baseline", ["baseline", "--baseline", "histogene", "--dp"])):
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    rc = cli.main(argv + common)
+                out[name] = (rc, printed.getvalue())
+        finally:
+            os.chdir(cwd)
+    torch.save(out, os.path.join(work, f"dp_result_{world}_{rank}.pt"))

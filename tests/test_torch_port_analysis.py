@@ -2,14 +2,16 @@
 package and scikit-learn, on the CPU.
 
 Tolerances, each stated where used: ARI and NMI within 1e-12 of
-scikit-learn's; PCA scores within 1e-6 of ``PCA(svd_solver="full")``,
-signs included; k-means labels and k-means++ seeds exactly
+scikit-learn's; PCA scores, signs included, within 1e-6 of
+``PCA(svd_solver="full")`` in float64, and of ``PCA(random_state=0)`` for
+each solver its "auto" rule picks within 1e-9 in float64 and 1e-3 of the
+largest score in float32 (float32 rounding, which a flat spectrum's small
+singular-value gaps amplify); k-means labels and k-means++ seeds exactly
 scikit-learn's; ``cluster_predictions`` and ``gene_ranking`` equal to the
-JAX package's (rounded scores, and the ranking's rows and values).
-
-The clustering data have structure (blobs, the tutorial's prediction):
-scikit-learn's default PCA solver is randomized at her2st's width, and on a
-flat spectrum its components are not the exact ones (``infer/cluster.py``).
+JAX package's (rounded scores, and the ranking's rows and values), on data
+with structure (blobs, the tutorial's prediction) and on flat spectra at
+her2st's width, where scikit-learn's randomized components are not the
+exact ones.
 """
 
 import numpy as np
@@ -54,7 +56,34 @@ def test_pca_matches_sklearn_full(n_components):
     want = PCA(n_components, svd_solver="full").fit_transform(x)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     got32 = cluster.pca(x.astype(np.float32), n_components, device="cpu")
-    assert got32.dtype == torch.float64  # float64 whatever the input
+    assert got32.dtype == torch.float32  # in the input's type, as scikit-learn
+    want32 = PCA(n_components, svd_solver="full").fit_transform(x.astype(np.float32))
+    np.testing.assert_allclose(got32.numpy(), want32, rtol=0,
+                               atol=1e-3 * np.abs(want32).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("shape, n_components, solver", [
+    ((240, 40), 5, "full"),  # at most 500 along both sides
+    ((600, 785), 500, "full"),  # components at 80% of the smaller side or more
+    ((2000, 100), 9, "covariance_eigh"),  # ten times as many samples as features
+    ((600, 785), 9, "randomized"),  # her2st's clustering: transposed, 7 iterations
+    ((700, 300), 9, "randomized"),  # not transposed
+    ((600, 785), 70, "randomized"),  # 4 power iterations
+])
+def test_pca_matches_sklearn_by_solver(shape, n_components, solver, dtype):
+    """``PCA(n_components, random_state=0).fit_transform`` on a flat spectrum
+    (unit noise), whichever solver scikit-learn's "auto" picks."""
+    x = np.random.default_rng(shape[1] + n_components).normal(size=shape).astype(dtype)
+    model = PCA(n_components, random_state=0)
+    want = model.fit_transform(x)
+    assert model._fit_svd_solver == cluster.pca_solver(shape, n_components) == solver
+    got = cluster.pca(x, n_components, random_state=0, device="cpu")
+    assert got.dtype == torch.from_numpy(want).dtype
+    if dtype == np.float64:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -94,9 +123,24 @@ def test_cluster_predictions_match_jax_at_her2st_width():
     got = metrics.cluster_predictions(x.astype(np.float32), labels, device="cpu")
     want = jax_metrics.cluster_predictions(x.astype(np.float32), labels)
     assert got == want and got["n_clusters"] == 6
-    # the JAX package's PCA is randomized at this width (the port's is exact)
+    # scikit-learn's PCA is randomized at this width, and so is the port's
     pca = PCA(n_components=9, random_state=0).fit(x.astype(np.float32))
-    assert pca._fit_svd_solver == "randomized"
+    assert pca._fit_svd_solver == cluster.pca_solver((560, 785), 9) == "randomized"
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.15, 0.3])
+@pytest.mark.parametrize("seed", range(6))
+def test_cluster_predictions_match_jax_on_flat_spectra(seed, scale):
+    """600 spots x 785 genes of unit noise around six seed-made domain
+    centers of ``scale`` (0: isotropic noise, no domain gap): the spectrum
+    is flat, the randomized components are not the exact ones, and the
+    port's scores must be JAX's all the same."""
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, 6, size=600)
+    x = (scale * rs.normal(size=(6, 785))[y] + rs.normal(size=(600, 785))).astype(np.float32)
+    labels = np.array([f"domain{v}" for v in y], dtype=object)
+    got = metrics.cluster_predictions(x, labels, device="cpu")
+    assert got == jax_metrics.cluster_predictions(x, labels) and got["n_clusters"] == 6
 
 
 def _ranking_inputs():

@@ -39,10 +39,12 @@ from mclstexp_tpu.train.state import TrainState as JaxTrainState
 from mclstexp_tpu.train.state import torch_adam as jax_torch_adam
 from mclstexp_tpu_torch import interop
 from mclstexp_tpu_torch.baselines import graph, models, trainer
-from mclstexp_tpu_torch.baselines.layers import SeededDropout, seed_dropout
+from mclstexp_tpu_torch.core.layers import SeededDropout, seed_dropout
 from mclstexp_tpu_torch.data import synthetic
 from mclstexp_tpu_torch.models.image.common import MaskedBatchNormT
 from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.parallel import distributed
+from mclstexp_tpu_torch.parallel.mesh import make_mesh
 from mclstexp_tpu_torch.train.state import TrainState, torch_adam
 
 torch.set_num_threads(1)
@@ -538,11 +540,13 @@ def test_state_dict_imports_back_into_jax(family):
             assert np.array_equal(got[key], want[key]), key
 
 
-def test_unported_families_and_modes_raise():
+def test_unported_families_and_modes_raise(monkeypatch):
     """Every family builds (Hist2ST and BLEEP since they were ported); what
-    raises is an unknown name, a dtype other than float32 / bfloat16, and
-    the multi-device modes not ported yet: the slide-DP mode and BLEEP's
-    ``mesh=``."""
+    raises is an unknown name and a dtype other than float32 / bfloat16.
+    The multi-device modes, which raised before they were ported, run: the
+    slide-DP mode on one process (two slides a step) and over a one-rank
+    mesh, and BLEEP's ``mesh=`` (tests/test_torch_port_dp.py holds them to
+    one process at world sizes 2 and 3)."""
     hist2st = trainer.build_baseline(trainer.BaselineConfig(model="hist2st"), device="cpu")
     assert isinstance(hist2st, models.Hist2ST) and hist2st.dim == 1024 and hist2st.coef_head
     bleep = trainer.build_baseline(trainer.BaselineConfig(model="bleep", n_genes=G,
@@ -554,12 +558,23 @@ def test_unported_families_and_modes_raise():
         trainer.build_baseline(trainer.BaselineConfig(dtype="float16"), device="cpu")
     cfg = trainer.BaselineConfig(**_cfg("histogene", 16, max_epochs=1))
     _, tsecs = _sections([10, 12], 16)
-    for kw in (dict(mesh=object()), dict(slides_per_step=2)):  # the slide-DP mode
-        with pytest.raises(TypeError):
-            trainer.train_baseline_fold(cfg, tsecs, 0, device="cpu", **kw)
-    with pytest.raises(TypeError):  # BLEEP's data-parallel mode
-        trainer.train_bleep_fold(trainer.BaselineConfig(model="bleep", encoder_name="tiny_cnn"),
-                                 tsecs, 0, device="cpu", mesh=object())
+    _, tsecs = _sections([10, 12, 9], 16)
+    small = dict(dim=32, n_layers=1, heads=2)
+    try:
+        mesh = make_mesh(device="cpu")  # a one-rank gloo group
+        for kw, steps in ((dict(mesh=mesh), 2), (dict(slides_per_step=2), 1)):  # slide-DP
+            with monkeypatch.context() as m:
+                m.setattr(trainer, "build_baseline", lambda c, device, attn_backend: (
+                    models.HisToGene(G, 16, dropout=0.1, device=device, **small)))
+                state = trainer.train_baseline_fold(cfg, tsecs, 0, device="cpu", **kw)
+            assert state.step == steps
+        state = trainer.train_bleep_fold(  # BLEEP's data-parallel mode
+            trainer.BaselineConfig(model="bleep", n_genes=G, patch_size=16, max_epochs=1,
+                                   batch_size=8, encoder_name="tiny_cnn"),
+            tsecs, 0, device="cpu", mesh=mesh)
+        assert state.step == 3  # 21 spots in batches of 8
+    finally:
+        distributed.shutdown()
     assert trainer.resolve_bake(trainer.BaselineConfig(model="hist2st", bake=2)) == 2
     assert trainer.resolve_bake(trainer.BaselineConfig(model="hist2st")) == 5
     assert trainer.resolve_bake(cfg) == 0

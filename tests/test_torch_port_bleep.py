@@ -182,7 +182,8 @@ def test_train_bleep_fold_takes_the_jax_batches(monkeypatch):
         return step
 
     def fake(cfg):
-        def step(state, batch, generator):
+        def step(state, batch, generator, shard=None):
+            assert shard is None  # no mesh
             seen.append(batch["expression"].numpy())
             return torch.zeros(())
         return step

@@ -13,8 +13,8 @@
   in each ``--bleep-retrieval`` mode.
 * Round trip: ``baseline`` trains, saves ``best_<fold>``, and
   ``--load-checkpoint`` of it prints the same JSON, for each family.
-* ``--super-resolution`` off her2st exits as JAX's does; ``--dp`` is not a
-  flag of the port (argparse's exit code 2).
+* ``--super-resolution`` off her2st exits as JAX's does; ``--dp`` trains
+  over a one-rank group without torchrun.
 
 Every command runs in a working directory of its own, on ``--device cpu``.
 """
@@ -33,6 +33,7 @@ from mclstexp_tpu.cli import main as jax_cli
 from mclstexp_tpu_torch.baselines import models, trainer
 from mclstexp_tpu_torch.cli import main as cli
 from mclstexp_tpu_torch.data import synthetic
+from mclstexp_tpu_torch.parallel import distributed
 
 torch.set_num_threads(1)
 
@@ -190,8 +191,18 @@ def test_train_then_load_checkpoint_prints_the_same_json(family, tmp_path, monke
         assert not os.path.exists("sr.npz")
 
 
-def test_dp_is_not_a_flag_of_the_port(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["baseline", "--baseline", "bleep", "--dataset", "synthetic", "--dp",
-                  "--device", "cpu"])
-    assert e.value.code == 2 and "--dp" in capsys.readouterr().err
+def test_dp_is_not_a_flag_of_the_port(tmp_path, monkeypatch, capsys):
+    """``--dp`` was not a flag of the port (argparse exited 2) until
+    data-parallel training was ported; it is now the JAX CLI's: without
+    torchrun the command trains over a one-rank group that it makes and
+    destroys, and prints the fold's scores (tests/test_torch_port_dp.py
+    holds it to one process at world size 2)."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["baseline", "--baseline", "bleep", "--dataset", "synthetic", "--dp",
+                     "--bleep-encoder", "tiny_cnn", "--max_epochs", "1", "--device",
+                     "cpu"]) == 0
+    out = capsys.readouterr().out
+    scores = json.loads(out[out.index("{\n"):])
+    assert sorted(scores) == ["heg_pcc", "hvg_pcc", "mae", "mse"]
+    assert not distributed.is_initialized()
+    assert (tmp_path / "model_result" / "baselines" / "bleep" / "best_0" / "state.pt").exists()

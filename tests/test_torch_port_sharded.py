@@ -321,8 +321,13 @@ def test_initialization_paths(monkeypatch):
 
 def test_eval_shard_eval_at_world_one_equals_eval(tmp_path, monkeypatch, capsys):
     """Without torchrun ``--shard-eval`` runs over a one-rank group (made and
-    destroyed by the command) and scores exactly as ``eval``; ``train`` and
-    ``baseline`` refuse a group of more than one process."""
+    destroyed by the command) and scores exactly as ``eval``. ``train`` and
+    ``baseline``, which refused a group before data-parallel training was
+    ported, now train over one: ``train`` in a one-rank group joined by the
+    explicit flags takes the data-parallel step (the group's mesh) and
+    writes fold 0's checkpoint, and ``baseline --dp`` makes and destroys its
+    own one-rank group (tests/test_torch_port_dp.py holds both to one
+    process at world size 2)."""
     monkeypatch.chdir(tmp_path)
     common = ["--dataset", "synthetic", "--device", "cpu"]
     assert cli.main(["train", "--max_epochs", "1"] + common) == 0  # the three folds
@@ -342,11 +347,31 @@ def test_eval_shard_eval_at_world_one_equals_eval(tmp_path, monkeypatch, capsys)
     for p, w in zip(dumps, want_pred):  # rank 0 writes the dumps
         np.testing.assert_array_equal(np.load(p), w)
 
-    monkeypatch.setattr(distributed, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data-parallel training"):
-        cli.main(["train", "--fold", "0", "--max_epochs", "1"] + common)
-    with pytest.raises(NotImplementedError, match="data-parallel training"):
-        cli.main(["baseline", "--baseline", "histogene", "--n-layers", "1"] + common)
+    from mclstexp_tpu_torch.train import loop
+
+    meshes = []
+    fold = loop.train_fold
+
+    def seen(*args, **kw):
+        state = fold(*args, **kw)
+        meshes.append(loop.train_mesh(None, ("data",), "cpu"))
+        return state
+
+    monkeypatch.setattr(loop, "train_fold", seen)
+    ckpt = tmp_path / "dp" / "synthetic" / "S1" / "best_0" / "state.pt"
+    assert cli.main(["train", "--fold", "0", "--max_epochs", "1", "--checkpoint-dir", "dp",
+                     "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+                     "--process-id", "0"] + common) == 0
+    assert not distributed.is_initialized() and ckpt.exists()
+    assert [m.mesh_dim_names for m in meshes] == [("data",)]
+    capsys.readouterr()
+    assert cli.main(["baseline", "--baseline", "histogene", "--n-layers", "1", "--dp",
+                     "--max_epochs", "1", "--checkpoint-dir", "dp"] + common) == 0
+    assert not distributed.is_initialized()
+    out = capsys.readouterr().out
+    scores = json.loads(out[out.index("{\n"):])
+    assert sorted(scores) == ["heg_pcc", "hvg_pcc", "mae", "mse"]
+    assert (tmp_path / "dp" / "baselines" / "histogene" / "best_0" / "state.pt").exists()
 
 
 class _Joined(Exception):

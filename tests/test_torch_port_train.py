@@ -37,7 +37,7 @@ from mclstexp_tpu_torch.core import layers
 from mclstexp_tpu_torch.data import pipeline, synthetic
 from mclstexp_tpu_torch.interop import params_from_jax
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
-from mclstexp_tpu_torch.train import checkpoint
+from mclstexp_tpu_torch.train import checkpoint, loop
 from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.train.loop import check_positions_in_vocab, train_all_folds, train_fold
 from mclstexp_tpu_torch.train.state import TrainState, torch_adam
@@ -296,3 +296,55 @@ def test_visium_fold_trains_with_tenx(tmp_path, monkeypatch):
                                      visium_raw_scale=raw), _sections(), 0, device="cpu")
         assert seen == [raw] * state.step and state.step == pipeline.num_train_steps(40, 16)
         assert (tmp_path / str(raw) / "visium" / "S1" / "best_0" / checkpoint.STATE_FILE).exists()
+
+
+def test_streamed_fold_is_bit_equal_to_the_resident_fold(tmp_path, monkeypatch):
+    """A training set past ``device_data_budget_bytes`` (0 here) streams
+    through ``prefetch_to_device``, and the fold takes the same batches in
+    the same order: the same losses and state, bit for bit."""
+    resident = MetricLogger(echo=False)
+    want = train_fold(_fold_cfg(tmp_path / "resident", 2), _sections(), 1, resident, device="cpu")
+    streamed = []
+    prefetch = loop.prefetch_to_device
+
+    def counting(*args, **kw):
+        streamed.append(1)
+        return prefetch(*args, **kw)
+
+    monkeypatch.setattr(loop, "prefetch_to_device", counting)
+    cfg = _fold_cfg(tmp_path / "streamed", 2)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_data_budget_bytes=0))
+    log = MetricLogger(echo=False)
+    got = train_fold(cfg, _sections(), 1, log, device="cpu")
+    assert len(streamed) == 2  # one stream per epoch
+    assert [(r["epoch"], r["step"], r["loss"]) for r in log.records if "loss" in r] == \
+        [(r["epoch"], r["step"], r["loss"]) for r in resident.records if "loss" in r]
+    for k, v in want.model.state_dict().items():
+        torch.testing.assert_close(got.model.state_dict()[k], v, rtol=0, atol=0, msg=k)
+    # within the budget: resident, no stream
+    streamed.clear()
+    train_fold(_fold_cfg(tmp_path / "again", 1), _sections(), 1, device="cpu")
+    assert streamed == []
+
+
+def test_prefetch_to_device_propagates_producer_errors():
+    """A producer-thread exception is raised in the consumer, not taken for
+    the end of the epoch (as ``tests/test_data.py`` holds JAX's); a clean
+    iterator ends normally; closing the stream early stops its thread."""
+    def batches():
+        yield {"x": np.zeros((2, 3), np.float32)}
+        raise RuntimeError("producer blew up")
+
+    it = pipeline.prefetch_to_device(batches(), "cpu")
+    first = next(it)
+    assert first["x"].shape == (2, 3) and isinstance(first["x"], torch.Tensor)
+    with pytest.raises(RuntimeError, match="producer blew up"):
+        next(it)
+    assert len(list(pipeline.prefetch_to_device(iter([{"x": np.ones(1)}]), "cpu"))) == 1
+
+    import threading
+
+    endless = pipeline.prefetch_to_device(({"x": np.ones(1)} for _ in iter(int, 1)), "cpu")
+    next(endless)
+    endless.close()
+    assert not any(t.name == "prefetch_to_device" for t in threading.enumerate())
