@@ -57,7 +57,16 @@ order; any failure exits non-zero and prints no result line:
      launches as [train-flash]; losses and parameters against the same fold
      without a group (whether bit-equal is logged); ms/step against the
      step without a group;
-  9b. stream: [train]'s fold past the device budget
+  9b. ring-tp: over [train-dp]'s one-rank group, ``ring_self_attention``
+     at the spot tower's (n, 8, 64), n = 128 and 4,096, and the block merge
+     over 4 blocks of the 4,096 rows in one process (the ring's schedule,
+     rotated by indexing), forward and backward against dense attention,
+     timed beside dense attention and the fp32 flash pair; the flagship step
+     under a (1, 1) ("data", "seq") mesh with "ring" and under a (1, 1)
+     ("data", "model") mesh after ``shard_train_state`` with "flash" (at
+     model 1 every parameter stays replicated, as in JAX), their launches,
+     losses and peak memory, ms/step beside [train-dp]'s step;
+ 9c. stream: [train]'s fold past the device budget
      (``device_data_budget_bytes=0``, batches through
      ``prefetch_to_device``) against the resident fold, in a process with
      deterministic algorithms: bit-equal, ms per step of each;
@@ -3519,11 +3528,270 @@ def phase_train_dp(fcfg, sections, steps):
                 times[name].append(_dp_step_ms(fcfg, state, batch, draws, shard))
         log(f"[train-dp] ms/step at B={n} (plain, dp, dp, plain; 3 steps each): plain "
             f"{times['plain']}, data-parallel at world 1 {times['dp']} on {card_line()}")
-    finally:
+    except BaseException:
         distributed.shutdown()
+        raise
     del state, ref
     torch.cuda.empty_cache()
     return counts, shifts
+
+
+RING_NS = (128, 4096)  # the flagship batch; a mega-slide's sequence
+RING_BLOCKS = 4  # the block merge's S in one process
+RING_ATOL = 2e-5  # outputs against dense attention
+RING_GRAD_RTOL = 1e-4  # of each gradient tensor's largest magnitude
+
+
+def _attention_with_grads(fn, q, k, v, g):
+    """fn(q, k, v) and its q, k, v gradients for the upstream ``g``."""
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(g)
+    return out.detach(), (q.grad, k.grad, v.grad)
+
+
+def _pair_ms(fn, q, k, v, g, n: int = 5) -> float:
+    """Event ms of one forward and backward of fn (after one warm-up)."""
+    import torch
+
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    fn(q, k, v).backward(g)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn(q, k, v).backward(g)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _check_attention(what, got, want):
+    """Output within RING_ATOL, each gradient within RING_GRAD_RTOL of its
+    tensor's largest magnitude; returns the log's text."""
+    out_err = float((got[0] - want[0]).abs().max())
+    grad_errs = [float((a - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(got[1], want[1])]
+    if not (out_err <= RING_ATOL and max(grad_errs) <= RING_GRAD_RTOL):
+        raise AssertionError(f"[ring-tp] {what}: output {out_err:.3e} from dense (allowed "
+                             f"{RING_ATOL}), dq/dk/dv {grad_errs} of their largest magnitude "
+                             f"(allowed {RING_GRAD_RTOL})")
+    return (f"output within {out_err:.3e}, dq/dk/dv within "
+            f"{', '.join(f'{e:.3e}' for e in grad_errs)} of their largest magnitude")
+
+
+def _check_spot_grads(got, want, xla_model, img_emb, batch) -> str:
+    """The ring's spot-tower gradients against the "xla" model's: each tensor
+    within GRAD_RTOL of its largest magnitude, or else held to a float64
+    evaluation (the "xla" twin in float64, the loss in float64): no farther
+    from it than DP_GRAD_ILL_FACTOR times the "xla" gradient's distance
+    (the softmax backward's rowsum cancels in a peaked row, and the ring
+    forms it as rowsum(dout * out), the plain backward as sum(p * dp));
+    returns the log's text."""
+    import copy
+
+    import torch
+
+    if set(got) != set(want) or not any("spot_encoder" in k for k in got):
+        raise AssertionError(f"[ring-tp] spot-tower gradients differ in their parameters: "
+                             f"{sorted(got)}")
+    worst, worst_name, ill, exact = 0.0, None, {}, None
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[name] - w).abs().max()) / scale
+        if err <= GRAD_RTOL:
+            if err >= worst:
+                worst, worst_name = err, name
+            continue
+        if exact is None:
+            twin = copy.deepcopy(xla_model).double().train()
+            spot = twin.encode_spots(batch["expression"].double(), batch["position"])
+            n = len(spot)
+            _xent64(spot @ img_emb.double().T / twin.config.temperature,
+                    torch.eye(n, dtype=torch.float64, device=spot.device)).backward()
+            exact = {k: p.grad for k, p in twin.named_parameters() if p.grad is not None}
+        plain = float((w.double() - exact[name]).abs().max()) / scale
+        mine = float((got[name].double() - exact[name]).abs().max()) / scale
+        ill[name] = (round(err, 6), round(plain, 6), round(mine, 6))
+        if not mine <= max(DP_GRAD_ILL_FACTOR * plain, GRAD_RTOL):
+            raise AssertionError(f"[ring-tp] {name}: ring vs xla gradient {err:.3e} of its "
+                                 f"largest magnitude apart; from float64 xla {plain:.3e}, ring "
+                                 f"{mine:.3e} (allowed {DP_GRAD_ILL_FACTOR} x xla's)")
+    return (f"{len(want) - len(ill)} of {len(want)} tensors ring vs xla within {worst:.3e} of "
+            f"their largest magnitude ({worst_name}; allowed {GRAD_RTOL}); the others, each "
+            f"(ring vs xla; xla, ring from a float64 evaluation): {ill}")
+
+
+def _mesh_step_ms(cfg, state, batch, draws, shard, mesh, n: int = 3) -> float:
+    """``_dp_step_ms`` with the step inside ``active_mesh(mesh)``."""
+    from mclstexp_tpu_torch.parallel.mesh import active_mesh
+
+    with active_mesh(mesh):
+        return _dp_step_ms(cfg, state, batch, draws, shard, n)
+
+
+def _mesh_steps(cfg, state, batch, draws, shard, mesh, steps: int = 2):
+    """``steps`` data-parallel steps inside ``active_mesh(mesh)`` with the
+    counts set to 0 just before them and read just after: (losses, (fwd,
+    dkv, dq) launches, row_shift launches by kernel, peak GiB)."""
+    import torch
+
+    from mclstexp_tpu_torch.ops.row_shift import row_shift
+    from mclstexp_tpu_torch.parallel.mesh import active_mesh
+    from mclstexp_tpu_torch.train.step import make_train_step
+
+    step = make_train_step("st", rot_impl=cfg.train.rot_impl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with active_mesh(mesh):
+        losses = [float(step(state, batch, draws, None, shard)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    counts, shifts = _flash_counts(), dict(row_shift.kernel_launches)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return losses, counts, shifts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_ring_tp(fcfg, sections) -> dict:
+    """[ring-tp] the sequence- and tensor-parallel paths over [train-dp]'s
+    one-rank NCCL group (the card's machine has one card: a ring of one
+    rank, a "model" axis of one). (a) ``ring_self_attention`` at the spot
+    tower's (n, 8, 64), n = 128 and 4,096, forward and backward against
+    ``dense_reference_attention`` (TF32 off: outputs within RING_ATOL, each
+    gradient within RING_GRAD_RTOL of its largest magnitude); (b) the block
+    merge over RING_BLOCKS blocks of one sequence at n = 4,096
+    (``blockwise_self_attention``, the rotation by indexing) against the
+    same; the ring's, the merge's, dense attention's and the fp32 flash
+    pair's ms (forward and backward, events); (c) the flagship step (her2st
+    widths, B = 128, the Paeth shears) under a (1, 1) ("data", "seq") mesh
+    with attn_backend "ring" (2 steps: row_shift's shears, no flash
+    launch; its spot-tower gradients against "xla", ``_check_spot_grads``) and
+    under a (1, 1) ("data", "model") mesh after ``shard_train_state`` with
+    "flash" (2 steps: the shears and head_layers flash launches of each
+    kernel a step; at model 1 ``shard_params`` replicates, as JAX's does,
+    so this is [train-dp]'s step: the same first loss), each beside
+    [train-dp]'s step (dp, ring, tp, tp, ring, dp), with peak memory.
+    Returns {"ring": row_shift launches, "tp": (flash launches, row_shift
+    launches)}."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.ops.flash_attention import flash_attention
+    from mclstexp_tpu_torch.parallel import ring_attention as ring
+    from mclstexp_tpu_torch.parallel import tp
+    from mclstexp_tpu_torch.parallel.mesh import active_mesh, make_mesh
+    from mclstexp_tpu_torch.train.state import create_train_state
+    from mclstexp_tpu_torch.train.step import batch_shard
+
+    t_phase = time.perf_counter()
+    group = torch.distributed.group.WORLD
+    m = fcfg.model
+    h, d = m.heads_num, m.heads_dim
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for n in RING_NS:
+        q, k, v, up = (torch.randn((n, h, d), generator=g, device="cuda") for _ in range(4))
+        with _no_tf32():
+            want = _attention_with_grads(ring.dense_reference_attention, q, k, v, up)
+            text = _check_attention(f"the ring at world 1, n = {n}", _attention_with_grads(
+                lambda a, b, c: ring.ring_self_attention(a, b, c, group), q, k, v, up), want)
+            log(f"[ring-tp] ring_self_attention over the one-rank group at (n, h, d) = "
+                f"({n}, {h}, {d}) against dense attention (TF32 off): {text}")
+            if n == RING_NS[-1]:
+                text = _check_attention(f"the block merge over {RING_BLOCKS} blocks",
+                                        _attention_with_grads(
+                                            lambda a, b, c: ring.blockwise_self_attention(
+                                                a, b, c, RING_BLOCKS), q, k, v, up), want)
+                log(f"[ring-tp] the block merge over {RING_BLOCKS} blocks of {n // RING_BLOCKS}"
+                    f" rows in one process (the ring's schedule, rotated by indexing): {text}")
+        del want
+    torch.cuda.empty_cache()
+
+    def flash_pair(a, b, c):
+        return flash_attention(a.transpose(0, 1)[None], b.transpose(0, 1)[None],
+                               c.transpose(0, 1)[None], d**-0.5)[0].transpose(0, 1)
+
+    pairs = {"ring": lambda a, b, c: ring.ring_self_attention(a, b, c, group),
+             f"merge over {RING_BLOCKS}": lambda a, b, c: ring.blockwise_self_attention(
+                 a, b, c, RING_BLOCKS),
+             "dense": ring.dense_reference_attention, "flash pair": flash_pair}
+    ms, peaks = {}, {}
+    for name, fn in pairs.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms[name] = _pair_ms(fn, q, k, v, up)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[ring-tp] forward + backward at (n, h, d) = ({RING_NS[-1]}, {h}, {d}), fp32, events "
+        f"(TF32 {torch.backends.cuda.matmul.allow_tf32}): "
+        + ", ".join(f"{k} {v:.3f} ms (peak {peaks[k]:.2f} GiB)" for k, v in ms.items())
+        + f" on {card_line()}")
+    del q, k, v, up
+    torch.cuda.empty_cache()
+
+    # (c) the two flagship steps beside [train-dp]'s
+    rcfg = fcfg.replace(model=dataclasses.replace(m, attn_backend="ring"))
+    seq_mesh = make_mesh((1, 1), ("data", "seq"), device="cuda")
+    model_mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    batch, draws = _step_batch(fcfg, sections)
+    n = fcfg.train.batch_size
+    shard = batch_shard(seq_mesh, n)
+    dp_state = create_train_state(m, fcfg.train, "cuda")
+    ring_state = create_train_state(rcfg.model, rcfg.train, "cuda")
+    tp_state = tp.shard_train_state(create_train_state(m, fcfg.train, "cuda"), model_mesh)
+    rules = tp.tp_param_placements(tp_state.model)
+    n_rules = sum(type(p).__name__ == "Shard" for p in rules.values())
+    if any(isinstance(p, DTensor) for p in tp_state.model.parameters()):
+        raise AssertionError("shard_params placed DTensors on a 'model' axis of 1")
+
+    # one step's spot-tower gradients, ring against xla, same weights and batch
+    xla_model = MclSTExp(dataclasses.replace(m, attn_backend="xla"), device="cuda")
+    xla_model.load_state_dict(ring_state.model.state_dict())
+    with torch.no_grad():
+        img_emb = ring_state.model.eval().encode_image(
+            augment.train_augment_inline(batch["image_u8"], draws))
+    with _no_tf32():
+        with active_mesh(seq_mesh):
+            got = _spot_grads(ring_state.model, img_emb, batch)
+        want_grads = _spot_grads(xla_model, img_emb, batch)
+        grad_text = _check_spot_grads(got, want_grads, xla_model, img_emb, batch)
+    ring_state.model.zero_grad(set_to_none=True)
+    del xla_model, img_emb, got, want_grads
+
+    runs = {}
+    for name, state, mesh in (("dp", dp_state, seq_mesh), ("ring", ring_state, seq_mesh),
+                              ("tp", tp_state, model_mesh)):
+        runs[name] = _mesh_steps(fcfg, state, batch, draws, shard, mesh)
+    want = m.head_layers * 2
+    if runs["ring"][1:3] != ((0, 0, 0), _shear_launches(2)) or \
+            runs["tp"][1:3] != ((want, want, want), _shear_launches(2)):
+        raise AssertionError(f"[ring-tp] launches: ring {runs['ring'][1:3]}, tp "
+                             f"{runs['tp'][1:3]}")
+    if runs["tp"][0][0] != runs["dp"][0][0]:
+        raise AssertionError(f"[ring-tp] the step at model 1 against [train-dp]'s: first loss "
+                             f"{runs['tp'][0][0]} against {runs['dp'][0][0]}")
+    log(f"[ring-tp] 2 steps each from the same weights, batch and draws (B={n}): losses "
+        + "; ".join(f"{k} {v[0]}" for k, v in runs.items())
+        + f"; launches forward/dK-dV/dQ ring {runs['ring'][1]}, tp {runs['tp'][1]}; row_shift "
+        f"ring {runs['ring'][2]}, tp {runs['tp'][2]}; peak memory "
+        + ", ".join(f"{k} {v[3]:.2f} GiB" for k, v in runs.items())
+        + f"; spot-tower gradients (TF32 off): {grad_text}; at model 1 shard_params "
+        f"replicates every parameter, as "
+        f"JAX's does ({n_rules} would shard on a longer 'model' axis): tensor parallelism "
+        f"across cards is not measured on one card")
+    times = {"dp": [], "ring": [], "tp": []}
+    for name in ("dp", "ring", "tp", "tp", "ring", "dp"):
+        state = {"dp": dp_state, "ring": ring_state, "tp": tp_state}[name]
+        times[name].append(_mesh_step_ms(rcfg if name == "ring" else fcfg, state, batch, draws,
+                                         shard, model_mesh if name == "tp" else seq_mesh))
+    log(f"[ring-tp] ms/step at B={n} (dp, ring, tp, tp, ring, dp; 3 steps each): [train-dp]'s "
+        f"step {times['dp']}, ('data', 'seq') with 'ring' {times['ring']}, ('data', 'model') "
+        f"with 'flash' {times['tp']} on {card_line()}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del dp_state, ring_state, tp_state
+    torch.cuda.empty_cache()
+    return {"ring": runs["ring"][2], "tp": (runs["tp"][1], runs["tp"][2])}
 
 
 _STREAM_CHILD = """import dataclasses, json, os, sys
@@ -3780,6 +4048,8 @@ def phase_cli_dp(sections, ref_scores: dict) -> int:
 def main() -> int:
     import torch
 
+    from mclstexp_tpu_torch.parallel import distributed
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
@@ -3801,6 +4071,10 @@ def main() -> int:
     fcfg, steps, counts = phase_train_flash(cfg, sections, state)
     phase_resume(fcfg, sections, steps)
     dp_counts, dp_shifts = phase_train_dp(fcfg, sections, steps)
+    try:
+        ring_tp = phase_ring_tp(fcfg, sections)
+    finally:
+        distributed.shutdown()
     stream_shifts = phase_stream()
     phase_tenx(cfg, sections, state)
     eval_model, eval_launches = phase_eval(cfg, sections)
@@ -3830,23 +4104,32 @@ def main() -> int:
         entry["launches"] = hcount  # the Hist2ST fold, this slice's main path
         entry["launches_by_path"] = {"hist2st_fold": hcount, "histogene_fold": count,
                                      "thitogene_fold": other}
-    # Launches on this slice's main path, data-parallel flash training; the
-    # one-process fold's and the forward's eval and serving counts beside them.
-    flash_entry["launches"] = dp_counts[0]
-    flash_entry["launches_by_path"] = {"train_dp": dp_counts[0], "train_flash": counts[0],
-                                       "eval": eval_launches, "serve": serve_launches}
-    for entry, count, dp_count in zip(bwd_entries, counts[1:], dp_counts[1:]):
-        entry["launches"] = dp_count
-        entry["launches_by_path"] = {"train_dp": dp_count, "train_flash": count}
-    # row_shift on this slice's main path, the data-parallel fold, beside
-    # [train], the streamed fold, [cli] and the tutorial
+    # Launches on this slice's main path, the tensor-parallel flash step
+    # ([ring-tp]); the data-parallel and one-process folds' and the
+    # forward's eval and serving counts beside them.
+    tp_counts, tp_shifts = ring_tp["tp"]
+    flash_entry["launches"] = tp_counts[0]
+    flash_entry["launches_by_path"] = {"tp_step": tp_counts[0], "train_dp": dp_counts[0],
+                                       "train_flash": counts[0], "eval": eval_launches,
+                                       "serve": serve_launches}
+    for entry, count, dp_count, tp_count in zip(bwd_entries, counts[1:], dp_counts[1:],
+                                                tp_counts[1:]):
+        entry["launches"] = tp_count
+        entry["launches_by_path"] = {"tp_step": tp_count, "train_dp": dp_count,
+                                     "train_flash": count}
+    # row_shift on this slice's main path, the sequence- and tensor-parallel
+    # steps, beside the data-parallel fold, [train], the streamed fold,
+    # [cli] and the tutorial
     for entry in entries:
-        entry["launches_by_path"] = {"train_dp": dp_shifts[entry["kernel"]],
+        kernel = entry["kernel"]
+        entry["launches_by_path"] = {"ring_step": ring_tp["ring"][kernel],
+                                     "tp_step": tp_shifts[kernel],
+                                     "train_dp": dp_shifts[kernel],
                                      "train": entry["launches"],
-                                     "stream": stream_shifts[entry["kernel"]],
-                                     "cli": cli_launches["row_shift"][entry["kernel"]],
-                                     "tutorial": tutorial_launches[entry["kernel"]]}
-        entry["launches"] = dp_shifts[entry["kernel"]]
+                                     "stream": stream_shifts[kernel],
+                                     "cli": cli_launches["row_shift"][kernel],
+                                     "tutorial": tutorial_launches[kernel]}
+        entry["launches"] = ring_tp["ring"][kernel] + tp_shifts[kernel]
     # extract_patches on this slice's main path, the torchrun train and
     # baseline --dp children's pre-cuts
     patch_entry["launches_by_path"] = {"cli_dp": cli_dp_launches,

@@ -40,7 +40,8 @@ class ModelConfig:
     # Spot-attention backend: "xla" runs the plain fp32-softmax path,
     # "flash" the CUDA flash-attention kernels on the card (forward, and the
     # dK/dV and dQ kernels when training; the plain versions on the CPU),
-    # and "ring" raises: ring attention is not ported yet (ROADMAP.md).
+    # "ring" the sequence-parallel ring attention over the "seq" axis of the
+    # active mesh (parallel/mesh.active_mesh; it raises without one).
     attn_backend: str = "xla"
     # torch .pt of an ImageNet-pretrained image tower (torchvision/timm
     # state_dict), grafted into the fresh model (models/image/torch_import.py)

@@ -14,8 +14,11 @@ with -1e30; ``ops.flash_attention.attention_plain``), "flash" the CUDA
 flash-attention kernels (``ops.flash_attention``: the forward, and under
 autograd the dK/dV and dQ kernels in the backward; a padded sequence's mask
 becomes their segment ids; on a CPU tensor the plain versions and the key
-mask, as the JAX build falls back off a TPU). "ring" raises: the port has no
-device mesh yet.
+mask, as the JAX build falls back off a TPU), "ring" the sequence-parallel
+attention over the "seq" axis of the active mesh (``parallel.mesh.
+active_mesh``; ``parallel.ring_attention.sequence_parallel_attention``),
+with JAX's refusals: no such mesh or an n the axis does not divide raise
+``ValueError``, a mask ``NotImplementedError``.
 
 Initialization reproduces torch defaults as the JAX build does (Linear
 U(+-1/sqrt(fan_in)), Embedding N(0, 1)), drawn from an explicit
@@ -48,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention, widen
+from mclstexp_tpu_torch.parallel.ring_attention import sequence_parallel_attention
 
 # variance_scaling(2.0, "fan_out", "truncated_normal") of the JAX build:
 # the std of a unit normal truncated to [-2, 2].
@@ -179,21 +183,22 @@ class MultiHeadSelfAttention(nn.Module):
     ViT towers: ``qkv_bias``), per-head scale ``dim_head**-0.5``, output
     projection (present whenever heads != 1 or dim_head != dim).
 
-    backend: "xla" (plain path) or "flash" (the CUDA kernels on a CUDA
-    tensor, forward and backward; the plain versions on a CPU one); "ring"
-    raises NotImplementedError.
+    backend: "xla" (plain path), "flash" (the CUDA kernels on a CUDA
+    tensor, forward and backward; the plain versions on a CPU one) or
+    "ring" (the sequence-parallel path for mega-slides: the sequence is
+    split over the active mesh's "seq" axis (JAX's default ``ring_axis``)
+    and K/V blocks rotate around its ranks; needs ``parallel.mesh.
+    active_mesh`` of a mesh with that axis, whose size divides n; no mask).
+    Every rank of the axis gives and gets the whole sequence.
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  dropout: float = 0.0, device=None, backend: str = "xla",
                  qkv_bias: bool = False):
         super().__init__()
-        if backend == "ring":
-            raise NotImplementedError(
-                "attn_backend='ring' (sequence-parallel attention over a device mesh) is not "
-                "ported yet (ROADMAP.md Queue 1 item 4, ring attention)")
-        if backend not in ("xla", "flash"):
-            raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash'")
+        if backend not in ("xla", "flash", "ring"):
+            raise ValueError(f"unknown attention backend {backend!r}; have 'xla', 'flash', "
+                             f"'ring'")
         self.heads, self.dim_head, self.backend = heads, dim_head, backend
         inner = heads * dim_head
         self.to_qkv = DenseT(dim, inner * 3, bias=qkv_bias, device=device)
@@ -206,6 +211,13 @@ class MultiHeadSelfAttention(nn.Module):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         qkv = self.to_qkv(x).reshape(b, n, 3, h, d)
+        if self.backend == "ring":
+            if mask is not None:
+                raise NotImplementedError("backend='ring' does not support masks; shard the "
+                                          "un-padded sequence instead")
+            out = sequence_parallel_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], "seq",
+                                              d**-0.5)
+            return self.to_out(out.reshape(b, n, h * d))
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, d) views
         attend = flash_attention if self.backend == "flash" else attention_plain
         out = attend(q, k, v, d**-0.5, mask)

@@ -30,6 +30,7 @@ from typing import Iterable
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 class _GatherRows(torch.autograd.Function):
@@ -56,14 +57,22 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 def average_gradients(params: Iterable[torch.nn.Parameter], group) -> None:
     """Replace each parameter's gradient by its mean over the ranks of
     ``group``: one flat all-reduce, so every rank holds the same bits; the
-    new gradients are views into the flat buffer (no copy back)."""
+    new gradients are views into the flat buffer (no copy back). A
+    tensor-parallel parameter's gradient (a DTensor, ``parallel.tp``)
+    contributes its local shard, which the ranks of ``group`` (the "data"
+    axis) hold for the same part of the parameter."""
     params = [p for p in params if p.grad is not None]
     if not params:
         return
-    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    local = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in local])
     dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)
     offset = 0
-    for p in params:
-        p.grad = flat[offset:offset + p.numel()].view_as(p)
-        offset += p.numel()
+    for p, part in zip(params, local):
+        view = flat[offset:offset + part.numel()].view_as(part)
+        offset += part.numel()
+        g = p.grad
+        p.grad = view if not isinstance(g, DTensor) else DTensor.from_local(
+            view, g.device_mesh, g.placements, run_check=False, shape=g.shape,
+            stride=g.stride())

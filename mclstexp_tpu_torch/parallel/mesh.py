@@ -15,16 +15,27 @@ rank's rows under that rule.
 loop builds one from ``TrainConfig.mesh_shape`` / ``mesh_axes``: the
 configured shape, else one "data" axis over every rank when a process group
 exists; one process without a group and without a configured shape trains
-with no mesh. The port's training is data-parallel only: a mesh axis other
-than "data" longer than 1 raises (``check_data_mesh``).
+with no mesh. As in JAX's loop the batch is sharded on "data" only: the
+ranks along any other axis ("seq", "model") hold replicas of the step
+(``check_data_mesh`` asks for a "data" axis).
+
+``active_mesh(mesh)`` is the port's ``with mesh:``: inside it
+``current_mesh()`` returns the mesh, which the attention's "ring" backend
+reads for its "seq" axis (``parallel.ring_attention``), as JAX's layer reads
+the ambient mesh. JAX's ``train_fold`` enters no ``with mesh:``, so a "ring"
+model trained by it raises; the port's ``train_fold`` enters no
+``active_mesh`` either. Tensor-parallel parameter layouts on a "model" axis
+are ``parallel.tp``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import os
 import tempfile
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -83,17 +94,29 @@ def shard_batch(batch: Dict[str, object], mesh: DeviceMesh, axis: str = "data"):
 
 
 def check_data_mesh(mesh: DeviceMesh) -> None:
-    """Raise unless ``mesh`` has a "data" axis and every other axis is of
-    length 1: the port trains data-parallel only."""
+    """Raise unless ``mesh`` has a "data" axis, the axis a training batch is
+    sharded on; the ranks along its other axes hold replicas."""
     names = tuple(mesh.mesh_dim_names or ())
     if "data" not in names:
         raise ValueError(f"a training mesh needs a 'data' axis; got axes {names}")
-    wide = {n: mesh.size(i) for i, n in enumerate(names) if n != "data" and mesh.size(i) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: the port trains data-parallel only; sequence- and "
-            f"tensor-parallel layouts (ring attention, the 'model' axis) are not ported yet "
-            f"(ROADMAP.md Queue 1 items 4-5)")
+
+
+_ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("active_mesh", default=None)
+
+
+@contextlib.contextmanager
+def active_mesh(mesh: DeviceMesh) -> Iterator[DeviceMesh]:
+    """Make ``mesh`` the ambient mesh of the block (JAX's ``with mesh:``)."""
+    token = _ACTIVE_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH.reset(token)
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    """The mesh of the innermost ``active_mesh`` block, or None."""
+    return _ACTIVE_MESH.get()
 
 
 def train_mesh(shape: Optional[Tuple[int, ...]], axes: Tuple[str, ...],

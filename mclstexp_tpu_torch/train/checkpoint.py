@@ -12,7 +12,8 @@ restore the whole train state (what resuming a fold needs), as the JAX
 build's functions of the same names do.
 
 ``save_checkpoint_on_lead`` is the write of a data-parallel run: rank 0
-writes, and every rank waits at a barrier until the file is whole.
+writes, and every rank waits at a barrier until the file is whole. A
+tensor-parallel state's shards are gathered whole first, on every rank.
 
 ``load_torch_state_dict`` reads a reference ``.pt`` (a bare ``state_dict``)
 with the reference's key shims: a ``module.`` prefix stripped (DataParallel
@@ -26,6 +27,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from mclstexp_tpu_torch.parallel import distributed
 from mclstexp_tpu_torch.train.state import TrainState
@@ -38,23 +40,49 @@ def fold_checkpoint_dir(root: str, dataset: str, section_name: str, fold: int) -
     return os.path.join(root, dataset, section_name, f"best_{fold}")
 
 
-def save_checkpoint(path: str, state: TrainState) -> str:
-    """Write ``state`` to ``<path>/state.pt``; returns the file's path."""
+def _whole(obj):
+    """``obj`` (a state dict, nested dicts and lists) with every DTensor
+    gathered whole: a collective over its mesh, which every rank joins."""
+    if isinstance(obj, DTensor):
+        return obj.full_tensor()
+    if isinstance(obj, dict):
+        return {k: _whole(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_whole(v) for v in obj)
+    return obj
+
+
+def checkpoint_payload(state: TrainState) -> Dict[str, Any]:
+    """What ``state.pt`` holds: the step, the model ``state_dict`` and the
+    optimizer's, tensor-parallel parameters and their Adam moments whole
+    (``parallel.tp``), so that one process loads it."""
+    return {"step": state.step, "model": _whole(state.model.state_dict()),
+            "optimizer": _whole(state.optimizer.state_dict())}
+
+
+def write_checkpoint(path: str, payload: Dict[str, Any]) -> str:
+    """Write ``payload`` to ``<path>/state.pt``; returns the file's path."""
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, STATE_FILE)
     tmp = out + ".tmp"
-    torch.save({"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict()}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, out)  # a crash mid-save never leaves a torn checkpoint
     return out
 
 
+def save_checkpoint(path: str, state: TrainState) -> str:
+    """Write ``state`` to ``<path>/state.pt``; returns the file's path."""
+    return write_checkpoint(path, checkpoint_payload(state))
+
+
 def save_checkpoint_on_lead(path: str, state: TrainState) -> None:
-    """``save_checkpoint`` on rank 0 of the process group (the only process
-    without one), then a barrier over the group: every rank's state is the
+    """Every rank gathers the payload (a tensor-parallel model's shards
+    whole), rank 0 of the process group (the only process without one)
+    writes it, then a barrier over the group: every rank's state is the
     same, one copy is written, and no rank goes on to read it early."""
+    payload = checkpoint_payload(state)
     if distributed.rank() == 0:
-        save_checkpoint(path, state)
+        write_checkpoint(path, payload)
     distributed.sync_hosts("checkpoint")
 
 

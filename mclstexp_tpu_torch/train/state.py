@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from mclstexp_tpu_torch.config import ModelConfig, TrainConfig
 from mclstexp_tpu_torch.core.layers import init_parameters
@@ -28,8 +29,13 @@ class TrainState:
 
 
 def torch_adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
+    """Adam over ``params``; one tensor at a time where tensor-parallel
+    DTensors (``parallel.tp``) sit beside plain tensors, which one
+    ``foreach`` kernel cannot take together."""
+    params = list(params)
+    foreach = False if any(isinstance(p, DTensor) for p in params) else None
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, foreach=foreach)
 
 
 def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,

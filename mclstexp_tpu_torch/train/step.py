@@ -17,6 +17,16 @@ the backward ``parallel.collectives.average_gradients`` gives every rank
 the one-process gradient, and each takes the same Adam step. A batch whose
 length the ranks do not divide is replicated: every rank takes the
 one-process step on all of it, and the average keeps the ranks equal.
+
+On a mesh with other axes beside "data" (JAX's (data, seq) and (data,
+model) meshes) the ``Shard``'s group is the "data" axis's
+(``batch_shard``): the batch norms, the gathered loss and the gradient
+average act over it alone, and the ranks along "seq" and "model" compute
+the same step, so their gradients are already equal. Under
+``parallel.mesh.active_mesh`` a "ring" spot tower splits its sequence over
+the mesh's "seq" axis; a model placed by ``parallel.tp.shard_params``
+computes its sharded products over "model", and ``average_gradients``
+reduces its gradients' local shards.
 """
 
 from __future__ import annotations

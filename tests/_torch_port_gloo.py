@@ -1,11 +1,14 @@
-"""One rank of the port's multi-process test job (gloo, on the CPU).
+"""One rank of the port's multi-process test jobs (gloo, on the CPU).
 
 ``tests/test_torch_port_sharded.py`` starts ``world`` processes on
 ``run``; each joins a gloo group through a ``FileStore`` under ``work``
 (no TCP port, so parallel test workers cannot collide), runs the sharded
 paths on the inputs the test wrote to ``work/inputs.pt`` and saves what it
-got to ``work/result_<world>_<rank>.pt`` for the test to compare. This
-module imports no JAX.
+got to ``work/result_<world>_<rank>.pt`` for the test to compare.
+``tests/test_torch_port_dp.py`` does the same with ``run_dp``,
+``tests/test_torch_port_ring.py`` with ``run_ring`` and
+``tests/test_torch_port_tp.py`` with ``run_tp``. This module imports no
+JAX.
 """
 
 import contextlib
@@ -204,13 +207,13 @@ def _run_dp(rank: int, world: int, work: str) -> None:
 
     # only rank 0 writes: count the checkpoint writes of this rank
     writes = []
-    save = checkpoint.save_checkpoint
+    write = checkpoint.write_checkpoint
 
-    def counting_save(path, state):
+    def counting_write(path, payload):
         writes.append(path)
-        return save(path, state)
+        return write(path, payload)
 
-    checkpoint.save_checkpoint = counting_save
+    checkpoint.write_checkpoint = counting_write
 
     # (a) the flagship fold, resident and streamed; (d) resume at world 2
     fold = inputs["fold"]
@@ -238,12 +241,9 @@ def _run_dp(rank: int, world: int, work: str) -> None:
         out["whole"] = run_fold("whole", max_epochs=2)
         run_fold("split", max_epochs=1)
         out["resumed"] = run_fold("split", resume=True, max_epochs=2)
-        try:  # (h) a mesh with a "model" axis
-            train_fold(fold_cfg("model_axis", mesh_shape=(1, 2), mesh_axes=("data", "model")),
-                       sections, 0, device="cpu")
-            out["model_axis"] = "no error"
-        except NotImplementedError as e:
-            out["model_axis"] = str(e)
+        # (h) a ("data", "model") mesh: the model ranks hold replicas
+        out["model_axis"] = run_fold("model_axis", mesh_shape=(1, 2),
+                                     mesh_axes=("data", "model"))
 
     # one step's gradients: a sharded batch of 6 and a replicated one of 5
     from mclstexp_tpu_torch.parallel.mesh import make_mesh
@@ -289,3 +289,128 @@ def _run_dp(rank: int, world: int, work: str) -> None:
         finally:
             os.chdir(cwd)
     torch.save(out, os.path.join(work, f"dp_result_{world}_{rank}.pt"))
+
+
+# ------------------------------------------------------------------------
+# The sequence- and tensor-parallel jobs (tests/test_torch_port_ring.py,
+# tests/test_torch_port_tp.py): each rank saves what it got to
+# ``work/<job>_result_<world>_<rank>.pt``.
+
+def _run_job(job, rank: int, world: int, work: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work}/{job.__name__}_store_{world}",
+                            world_size=world, rank=rank)
+    try:
+        inputs = torch.load(os.path.join(work, f"{job.__name__}_inputs.pt"), weights_only=False)
+        out = job(rank, world, work, inputs)
+        torch.save(out, os.path.join(work, f"{job.__name__}_result_{world}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def step_outcome(cfg, tcfg, batch, mesh=None, attn_backend="xla", tp=False):
+    """One flagship step (augment "none", dropout from a generator seeded 3)
+    from the initial parameters of ``cfg``: (loss, {name: gradient before
+    Adam}, state_dict after Adam), tensors whole. Under ``mesh`` (a
+    ("data", "seq") or ("data", "model") mesh) the rank takes its rows of
+    the images (``batch_shard``) and runs inside ``active_mesh``; ``tp``
+    places the parameters by ``parallel.tp.shard_train_state``."""
+    from torch.distributed.tensor import DTensor
+
+    from mclstexp_tpu_torch.ops import augment
+    from mclstexp_tpu_torch.parallel import tp as tp_layouts
+    from mclstexp_tpu_torch.parallel.mesh import active_mesh
+    from mclstexp_tpu_torch.train.state import create_train_state
+    from mclstexp_tpu_torch.train.step import batch_shard, make_train_step
+
+    state = create_train_state(dataclasses.replace(cfg, attn_backend=attn_backend), tcfg, "cpu")
+    if tp:
+        state = tp_layouts.shard_train_state(state, mesh)
+    shard = batch_shard(mesh, len(batch["expression"]))
+    if shard is not None:
+        batch = dict(batch, image_u8=batch["image_u8"][shard.rows])
+    generator = augment.reseed(torch.Generator(), 3, 0, 0)
+    with active_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        loss = make_train_step("none")(state, batch, None, generator, shard)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t.detach().clone()
+
+    grads = {n: whole(p.grad) for n, p in state.model.named_parameters() if p.grad is not None}
+    return float(loss), grads, {k: whole(v) for k, v in state.model.state_dict().items()}, state
+
+
+def ring_job(rank: int, world: int, work: str, inputs: dict) -> dict:
+    from mclstexp_tpu_torch.config import ModelConfig, TrainConfig
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.parallel.mesh import active_mesh, make_mesh
+    from mclstexp_tpu_torch.parallel.ring_attention import ring_self_attention
+
+    out = {}
+    if world in (2, 3):
+        # the function over the world group, this rank's blocks
+        att = inputs["attention"]
+        per = len(att["q"]) // world
+        rows = slice(rank * per, (rank + 1) * per)
+        q, k, v = (torch.tensor(att[name][rows], requires_grad=True) for name in "qkv")
+        got = ring_self_attention(q, k, v, dist.group.WORLD)
+        (got * torch.from_numpy(att["upstream"][rows])).sum().backward()
+        out["ring"] = (got.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy())
+        q16, k16, v16 = (torch.from_numpy(att[name][rows]).bfloat16() for name in "qkv")
+        out["ring_bf16"] = ring_self_attention(q16, k16, v16, dist.group.WORLD).float().numpy()
+
+        # the spot tower with "ring" under a (1, world) ("data", "seq") mesh
+        mesh = make_mesh((1, world), ("data", "seq"), device="cpu")
+        spots = inputs["spots"]
+        model = MclSTExp(ModelConfig(**spots["cfg"], attn_backend="ring"), device="cpu")
+        model.load_state_dict(spots["state_dict"], strict=True)
+        expression, position = (torch.from_numpy(spots[k]) for k in ("expression", "position"))
+        with torch.no_grad(), active_mesh(mesh):
+            out["encode_spots"] = model.encode_spots(expression, position).numpy()
+            try:  # 8 spots do not divide a ring of 3
+                model.encode_spots(expression[:8], position[:8])
+                out["undivided"] = "no error"
+            except ValueError as e:
+                out["undivided"] = str(e)
+    step = inputs["step"]
+    cfg, tcfg = ModelConfig(**step["cfg"]), TrainConfig(**step["train"])
+    for shape in step["meshes"][world]:
+        mesh = make_mesh(shape, ("data", "seq"), device="cpu")
+        out[("step", shape)] = step_outcome(cfg, tcfg, step["batch"], mesh, "ring")[:3]
+    return out
+
+
+def tp_job(rank: int, world: int, work: str, inputs: dict) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from mclstexp_tpu_torch.config import ModelConfig, TrainConfig
+    from mclstexp_tpu_torch.models.mclstexp import MclSTExp
+    from mclstexp_tpu_torch.parallel.mesh import make_mesh
+    from mclstexp_tpu_torch.parallel.tp import shard_params
+    from mclstexp_tpu_torch.train import checkpoint
+
+    out = {}
+    shape = (world // 2, 2)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    for tag, kw in inputs["layouts"].items():
+        model = shard_params(MclSTExp(ModelConfig(**kw), device="cpu"), mesh)
+        out[("layout", tag)] = {
+            n: (tuple(p.placements), tuple(p.to_local().shape)) if isinstance(p, DTensor)
+            else None for n, p in model.named_parameters()}
+    tcfg = TrainConfig(**inputs["train"])
+    for tag, kw in inputs["steps"].items():
+        loss, grads, after, state = step_outcome(ModelConfig(**kw), tcfg, inputs["batch"], mesh,
+                                                 tp=True)
+        out[("step", tag)] = (loss, grads, after)
+        ckpt = os.path.join(work, f"ckpt_{world}_{tag}")
+        checkpoint.save_checkpoint_on_lead(ckpt, state)
+        out[("ckpt", tag)] = ckpt
+    return out
+
+
+def run_ring(rank: int, world: int, work: str) -> None:
+    _run_job(ring_job, rank, world, work)
+
+
+def run_tp(rank: int, world: int, work: str) -> None:
+    _run_job(tp_job, rank, world, work)

@@ -4,15 +4,17 @@ against the JAX module, and the flash wrapper's CPU path and shape rule.
 On the CPU "flash" runs the plain fp32-softmax path (the JAX module does
 the same off a TPU), so "flash" in the port equals the JAX module run with
 ``backend="flash"`` on the CPU. Float math is held to rtol/atol 1e-5 (both
-fp32; only the summation order differs). "ring" raises in the port: it has
-no device mesh yet, and the JAX module raises without one too. The CUDA
-kernel itself is tested on the card (``tests/test_torch_port_kernels.py``).
+fp32; only the summation order differs). "ring" refuses what the JAX module
+refuses (no mesh with a "seq" axis, a mask, an undivided sequence); its
+results are tests/test_torch_port_ring.py's. The CUDA kernel itself is
+tested on the card (``tests/test_torch_port_kernels.py``).
 """
 
 import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from mclstexp_tpu import config as jax_config
 from mclstexp_tpu.core import layers as jax_layers
@@ -22,6 +24,7 @@ from mclstexp_tpu_torch.core import layers
 from mclstexp_tpu_torch.interop import params_from_jax
 from mclstexp_tpu_torch.models.mclstexp import MclSTExp
 from mclstexp_tpu_torch.ops import flash_attention as fa
+from mclstexp_tpu_torch.parallel.mesh import active_mesh
 
 torch.set_num_threads(1)
 
@@ -63,16 +66,41 @@ def test_flash_backend_with_mask_on_cpu_matches_jax():
 
 
 def test_ring_backend_raises_like_jax_without_a_mesh():
-    """The JAX module needs an active mesh for "ring" and raises without
-    one; the port has no mesh yet and raises for every "ring" module."""
+    """"ring" follows the JAX module's refusals: without an active mesh
+    with a "seq" axis ValueError naming the axis, a mask
+    NotImplementedError, a sequence the axis does not divide ValueError
+    (8 spots on a "seq" axis of 3: JAX's mesh of 3 CPU devices; for the
+    port a stand-in with the names and sizes a mesh reports, which the
+    check reads before any collective; tests/test_torch_port_ring.py runs
+    the same case on a real 3-rank group). The module builds either way."""
     x = np.zeros((1, 8, 24), np.float32)
+    mask = np.ones((1, 8), bool)
     jmod = jax_layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, backend="ring")
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="needs an active mesh with a 'seq' axis"):
         jmod.init(jax.random.PRNGKey(0), x)
-    with pytest.raises(NotImplementedError, match="ring"):
-        layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, device="cpu", backend="ring")
-    with pytest.raises(NotImplementedError, match="ring"):
-        MclSTExp(config.ModelConfig(**{**TINY, "attn_backend": "ring"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="masks"):
+        jmod.init(jax.random.PRNGKey(0), x, mask=mask)
+    with Mesh(np.array(jax.devices()[:3]), ("seq",)):
+        with pytest.raises(ValueError, match=r"sequence length 8 must divide the 'seq' axis \(3\)"):
+            jmod.init(jax.random.PRNGKey(0), x)
+
+    tmod = layers.MultiHeadSelfAttention(24, heads=2, dim_head=16, device="cpu", backend="ring")
+    MclSTExp(config.ModelConfig(**{**TINY, "attn_backend": "ring"}), device="cpu")
+    with pytest.raises(ValueError, match="needs an active mesh with a 'seq' axis"):
+        tmod(torch.from_numpy(x))
+    with pytest.raises(NotImplementedError, match="masks"):
+        tmod(torch.from_numpy(x), torch.from_numpy(mask))
+
+    class SeqOfThree:
+        mesh_dim_names = ("seq",)
+
+        @staticmethod
+        def size(dim):
+            return 3
+
+    with active_mesh(SeqOfThree()):
+        with pytest.raises(ValueError, match=r"sequence length 8 must divide the 'seq' axis \(3\)"):
+            tmod(torch.from_numpy(x))
     with pytest.raises(ValueError, match="unknown attention backend"):
         layers.MultiHeadSelfAttention(24, device="cpu", backend="sdpa")
 

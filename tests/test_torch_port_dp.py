@@ -18,7 +18,7 @@ once for this module (``tests/_torch_port_gloo.py::run_dp``; a
 * (f) slide-DP of HisToGene and Hist2ST at narrow widths, one slide per
   rank (at world 2 a replicated last slide);
 * (g) at world 2, ``cmd_train`` and ``cmd_baseline --dp`` under the group;
-* (h) at world 2, a mesh with a "model" axis.
+* (h) at world 2, the fold on a (1, 2) ("data", "model") mesh: replicas.
 
 Tolerances: the N-rank run against one process on the global batch, one
 step's gradients (a sharded batch and a replicated one, the flagship's and
@@ -367,7 +367,7 @@ def test_resume_at_world_two_and_only_rank_zero_writes(dp_job):
                 assert torch.equal(a[key], b[key])
     work = dp_job["work"]
     assert sorted(os.path.relpath(p, work).split(os.sep)[0] for p in ranks[0]["writes"]) == \
-        ["fold_2", "split", "split", "stream_2", "whole"]
+        ["fold_2", "model_axis", "split", "split", "stream_2", "whole"]
     assert ranks[1]["writes"] == []
     with open(os.path.join(work, "whole", "log.jsonl")) as f:
         lines = [json.loads(line) for line in f]
@@ -376,11 +376,24 @@ def test_resume_at_world_two_and_only_rank_zero_writes(dp_job):
                                                          "S1", 0))
 
 
-def test_model_axis_raises(dp_job):
-    """(h) A mesh axis other than "data" longer than 1: NotImplementedError
-    naming the roadmap's items."""
-    for out in dp_job["results"][2]:
-        assert "Queue 1 items 4-5" in out["model_axis"] and "'model': 2" in out["model_axis"]
+def test_model_axis_raises(dp_job, tmp_path):
+    """(h) A (1, 2) ("data", "model") mesh (it raised before the
+    tensor-parallel layouts were ported; the name stays): ``train_fold``
+    shards the batch on "data" only, as JAX's loop does, so the two model
+    ranks train replicas, each the one-process fold, the same bits on
+    both."""
+    logger = MetricLogger(echo=False)
+    want = loop.train_fold(_fold_cfg(tmp_path), dp_sections(**FOLD["sections"]), 0, logger,
+                           device="cpu")
+    loose = _ill_conditioned("flagship", _fold_cfg(tmp_path), FOLD["sections"])
+    ranks = dp_job["results"][2]
+    for out in ranks:
+        got = out["model_axis"]
+        assert got["step"] == want.step == 3
+        np.testing.assert_allclose([v for *_, v in got["losses"]],
+                                   [v for *_, v in _losses(logger)], rtol=RTOL)
+        _states_close(got["state"], want.model.state_dict(), LR, want.step, loose)
+        _states_equal(got["state"], ranks[0]["model_axis"]["state"])
 
 
 def _ill_conditioned(kind, cfg, secs):
