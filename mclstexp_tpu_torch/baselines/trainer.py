@@ -61,6 +61,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from mclstexp_tpu_torch.baselines import losses as bl
 from mclstexp_tpu_torch.baselines.graph import knn_adjacency
@@ -338,18 +339,24 @@ def baseline_lr(cfg: BaselineConfig, step: int, steps_per_epoch: int = 1) -> flo
 def make_slide_step(cfg: BaselineConfig, steps_per_epoch: int = 1) -> Callable:
     """The step: (state, padded slide tensors, dropout generator[, Hist2ST's
     bakes]) -> loss, one optimizer step on ``slide_loss`` at
-    ``baseline_lr``; updates the state in place."""
+    ``baseline_lr``; updates the state in place. A torch.profiler trace
+    shows it as a "slide_step" range around the flagship step's phase
+    names, "forward", "backward" and "optimizer"."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator, bakes=None) -> torch.Tensor:
-        loss = slide_loss(state.model, cfg, batch, generator, bakes)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in state.optimizer.param_groups:
-            group["lr"] = baseline_lr(cfg, state.step, steps_per_epoch)
-        state.optimizer.step()
-        state.step += 1
-        return loss.detach()
+        with record_function("slide_step"):
+            with record_function("forward"):
+                loss = slide_loss(state.model, cfg, batch, generator, bakes)
+            with record_function("backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with record_function("optimizer"):
+                for group in state.optimizer.param_groups:
+                    group["lr"] = baseline_lr(cfg, state.step, steps_per_epoch)
+                state.optimizer.step()
+            state.step += 1
+            return loss.detach()
 
     return step
 

@@ -16,6 +16,12 @@ Port of ``mclstexp_tpu/infer/serve.py``:
   execution plans among them) stay warm across requests, where a fresh
   thread per request would start cold every time.
 
+The service counts its predictions on that worker thread (``stats()``,
+also under ``"stats"`` in ``GET /info``): requests answered, their rows,
+the zero rows of bucket padding, the seconds they waited in the queue and
+the seconds the worker spent on them. In a ``torch.profiler`` trace each
+prediction is a ``predict`` range around its ``embed`` and ``retrieve``.
+
 Query patches are embedded exactly as sent: the Visium eval path's random
 flips and rotations do not apply to a server, which must give the same
 patch the same prediction; only the ``raw_scale`` (0-255 input) quirk
@@ -26,6 +32,8 @@ from __future__ import annotations
 
 import base64
 import json
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
@@ -45,6 +53,14 @@ def _bucket_size(n: int, max_batch: int) -> int:
     where the next power of two overshoots it (``_bucket_size(150, 200) ==
     200``), since ``max_batch`` bounds the memory of one tower call."""
     return min(max_batch, 1 << max(n - 1, 0).bit_length())
+
+
+def _padded_rows(n: int, max_batch: int) -> int:
+    """The zero rows that bucket padding adds to ``n`` patches: the tower
+    runs them in chunks of ``max_batch``, and only the last, short chunk is
+    padded."""
+    rest = n % max_batch
+    return _bucket_size(rest, max_batch) - rest if rest else 0
 
 
 class PredictionService:
@@ -98,6 +114,10 @@ class PredictionService:
         # patch size turns them away with a 400.
         self.patch_size = None if patch_size is None else int(patch_size)
         self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prediction-service")
+        # written on the worker thread, read by stats() from any thread
+        self._stats = {"requests": 0, "rows": 0, "padded_rows": 0, "queue_wait_s": 0.0,
+                       "worker_s": 0.0}
+        self._stats_lock = threading.Lock()
 
     @classmethod
     def from_sections(cls, model: MclSTExp, sections, *, batch_size: int = 32,
@@ -173,13 +193,25 @@ class PredictionService:
             self.model.train(was_training)
         return torch.cat(out)
 
-    def _predict(self, patches: np.ndarray) -> np.ndarray:
-        with record_function("embed"):
-            query = self._embed(patches)
-        with record_function("retrieve"):
-            _, pred = retrieve_and_aggregate(
-                self.key_emb, self.key_expr, query, top_k=self.top_k,
-                weight_ord=self.weight_ord, key_mask=self.key_mask, device=self.device)
+    def _predict(self, patches: np.ndarray, submitted: float) -> np.ndarray:
+        """(B, G) predictions on the worker thread; ``submitted`` is the
+        ``time.perf_counter()`` of the ``predict`` call that queued it."""
+        start = time.perf_counter()
+        with record_function("predict"):
+            with record_function("embed"):
+                query = self._embed(patches)
+            with record_function("retrieve"):
+                _, pred = retrieve_and_aggregate(
+                    self.key_emb, self.key_expr, query, top_k=self.top_k,
+                    weight_ord=self.weight_ord, key_mask=self.key_mask, device=self.device)
+        n = patches.shape[0]
+        with self._stats_lock:
+            stats = self._stats
+            stats["requests"] += 1
+            stats["rows"] += n
+            stats["padded_rows"] += _padded_rows(n, self.max_batch)
+            stats["queue_wait_s"] += start - submitted
+            stats["worker_s"] += time.perf_counter() - start
         return pred
 
     def _run_on_worker(self, fn, *args):
@@ -195,11 +227,21 @@ class PredictionService:
     def predict(self, patches_u8: np.ndarray) -> np.ndarray:
         """(B, G) predicted expression for a batch of uint8 NHWC patches."""
         patches = self._check_patches(patches_u8)
-        return self._run_on_worker(self._predict, patches)
+        return self._run_on_worker(self._predict, patches, time.perf_counter())
 
     def close(self) -> None:
         """Stop the worker thread once the requests in flight are answered."""
         self._worker.shutdown(wait=True)
+
+    def stats(self) -> dict:
+        """The counters of the predictions answered since the service
+        started: ``requests``, their ``rows`` (patches), ``padded_rows``
+        (the zero rows of bucket padding the tower ran besides),
+        ``queue_wait_s`` (summed seconds from each ``predict`` call to the
+        worker's start on it) and ``worker_s`` (summed seconds the worker
+        spent on them)."""
+        with self._stats_lock:
+            return dict(self._stats)
 
     def info(self) -> dict:
         return {
@@ -214,6 +256,7 @@ class PredictionService:
             "encoder": self.model.config.encoder_name,
             "projection_dim": int(self.key_emb.shape[1]),
             **({"gene_names": self.gene_names} if self.gene_names else {}),
+            "stats": self.stats(),
         }
 
 

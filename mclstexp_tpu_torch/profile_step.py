@@ -23,7 +23,8 @@ step costs before any card is added. Prints one JSON object:
   * ``device_busy_ms_per_step`` and ``idle_share``: the union of kernel
     intervals against the profiled window;
   * ``phases``: device time of the kernels launched inside each of the
-    step's named ranges (augment, forward, backward, optimizer);
+    step's named ranges (augment, forward, backward, optimizer; the slide
+    step's forward, backward, optimizer);
   * ``categories`` and ``top_kernels``: device time by kernel family/name.
 Needs a CUDA card; the Chrome trace goes to
 ``<checkout>/build/profile_step_trace.json``. To compare a parent commit
@@ -52,6 +53,7 @@ from mclstexp_tpu_torch.train.state import create_train_state
 from mclstexp_tpu_torch.train.step import make_train_step
 
 PHASES = ("augment", "forward", "backward", "optimizer")
+SLIDE_PHASES = ("forward", "backward", "optimizer")
 TIMED_STEPS, PROFILED_STEPS = 10, 3
 SLIDE_SIDE = 63  # the whole slide: a 63 x 63 grid, 3,969 spots
 SLIDE_FAMILIES = ("histogene", "hist2st")
@@ -150,7 +152,7 @@ def flagship_step(dtype: str, dp: bool = False):
 
 def slide_step(dtype: str, family: str = "histogene", side: int = SLIDE_SIDE):
     """run(i) of one whole-slide step of ``family`` with "flash", and its
-    phases (none: the slide step names no ranges)."""
+    phases."""
     from mclstexp_tpu_torch.baselines import trainer
     from mclstexp_tpu_torch.data.section import Section
 
@@ -169,7 +171,7 @@ def slide_step(dtype: str, family: str = "histogene", side: int = SLIDE_SIDE):
     state = trainer.init_baseline(cfg, "cuda", "flash")
     step = trainer.make_slide_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return (lambda i: step(state, batch, gen)), ()
+    return (lambda i: step(state, batch, gen)), SLIDE_PHASES
 
 
 def main(argv=None) -> None:

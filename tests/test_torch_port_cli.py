@@ -163,10 +163,11 @@ def test_serve_answers_a_post_as_the_service(tmp_path, monkeypatch, capsys):
         loaded, sections, batch_size=16, exclude_section=1, top_k=8, patch_size=32,
         device="cpu")
     try:
+        info = service.info()  # before a prediction, as the banner's counters are
         want = service.predict(patches)
     finally:
         service.close()
-    assert banner == {"serving": f"http://{host}:{port}", **service.info()}
+    assert banner == {"serving": f"http://{host}:{port}", **info}
     np.testing.assert_array_equal(got, want)
 
 
