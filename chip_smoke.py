@@ -24,7 +24,10 @@ order; any failure exits non-zero and prints no result line:
      dQ) at the training length, the remainder batch's and a ragged one,
      the forward-and-backward pair timed against
      ``F.scaled_dot_product_attention``'s; and all three once at the JAX
-     bench's whole-slide width (1, 16, 4,096, 64);
+     bench's whole-slide width (1, 16, 4,096, 64), on the warpgroup kernels
+     that ``fp32_plan`` picks there. An fp32 flash kernel's bound is the
+     larger of its bytes at 3.35 TB/s and its products as three tf32 ones
+     (3xTF32) at the 495 TFLOP/s tensor-core rate;
   4. patches: extract_patches (the patch gather; ``gather_rows16``, 16-byte
      chunks realigned from aligned slide words, where P * C is whole
      chunks, else ``gather_bytes``) bit-equal to its plain version in small
@@ -136,7 +139,8 @@ order; any failure exits non-zero and prints no result line:
  16. baselines: the flash kernels with segment ids (the padded slide's mask
      as int32, as the JAX package builds ``SegmentIds``) at the slide
      baselines' (1, 16, n, 64): n = 384, 768 and 4,096 with padded tails and
-     one case of interleaved ids, each kernel within 2e-5 of its plain
+     one case of interleaved ids (all on the fp32 warpgroup kernels under
+     ``fp32_plan``), each kernel within 2e-5 of its plain
      segment version, deterministic, padded rows the segment softmax's (not
      the key mask's), timed against the same kernel without ids and against
      ``F.scaled_dot_product_attention`` with the boolean same-segment mask;
@@ -147,7 +151,9 @@ order; any failure exits non-zero and prints no result line:
      padded slide, ``predict_slide`` on the card against the CPU,
      ``evaluate_baseline_fold``, ms per slide step; THItoGene (4 layers, ViT
      width 1,408, GAT) the same fold with "flash"; and one whole-slide
-     HisToGene step at 3,969 spots (padded to 4,096), xla against flash;
+     HisToGene step at 3,969 spots (padded to 4,096), xla against flash,
+     the flash steps' fp32 warpgroup launches counted (``wg_launches``: 8
+     of each kernel a step);
  17. hist2st: Hist2ST at the reference widths (conv patchify, 2 mixers, dim
      1,024, 8 layers of 16 x 64 heads, 4 GraphSAGE blocks, the LSTM, 785
      genes, zinb 0.25, bake 5, lamb 0.5) on [baselines]' sections with
@@ -220,7 +226,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from mclstexp_tpu_torch.profile_kernels import card_line, cuda_ms, graph_ms  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-FP32_FLOPS_PER_S = 67e12  # H100 SXM published fp32 rate outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM published dense tf32 tensor-core rate
 
 
 def log(msg: str) -> None:
@@ -249,6 +255,7 @@ def phase_build():
         return (*build.build_library(source), time.perf_counter() - t)
 
     sources = (row_shift.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+               flash_attention.TF32_SOURCE, flash_attention.TF32_BWD_SOURCE,
                flash_attention.BF16_SOURCE, flash_attention.BF16_BWD_SOURCE, patches.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -500,16 +507,22 @@ FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64))  # eval sweep,
 FLASH_ATOL = 2e-5
 
 
+def _fp32_flash_bound(nbytes, flops):
+    """(bound ms, bound_by) of an fp32 flash kernel: the larger of its bytes
+    at 3.35 TB/s and its products on the tensor cores, each fp32 product
+    three tf32 ones (the 3xTF32 split) at 495 TFLOP/s."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def _flash_fwd_bound(shape):
     """(bound ms, bound_by, bytes, flops) of the forward at ``shape``: q, k,
     v read and out written once (4*b*h*n*d floats), two products of
-    2*b*h*n^2*d flops; the larger of the bytes at 3.35 TB/s and the flops
-    at 67 TFLOP/s."""
+    2*b*h*n^2*d flops; bounded as ``_fp32_flash_bound`` says."""
     b, h, n, d = shape
     nbytes = 4 * b * h * n * d * 4
     flops = 4 * b * h * n * n * d
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops
+    return (*_fp32_flash_bound(nbytes, flops), nbytes, flops)
 
 
 def _flash_fwd_err(q, k, v, scale):
@@ -640,11 +653,10 @@ def _bwd_case(g, shape):
         return torch.autograd.grad(
             (F.scaled_dot_product_attention(sq, sk, sv, scale=scale) * do).sum(), qkv_g)[0]
 
-    def pair():
+    def pair():  # as FlashAttention runs it: one split pass for both backward kernels
         o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True)
         dd = (o * do).sum(-1).contiguous()
-        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale)
-        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale)
+        fa.flash_backward(q, k, v, do, ll, mm, dd, scale)
 
     return (q, k, v, do, l, m, di, scale), pair, library_pair
 
@@ -652,8 +664,8 @@ def _bwd_case(g, shape):
 def _bwd_kernels(shape):
     """(name, kernel, plain version, bound ms, bound_by, bytes, flops) of
     dK/dV and dQ at ``shape``: dK/dV reads q, k, v, dout, l, m, di and
-    writes dk, dv (8*b*h*n^2*d flops), dQ writes dq (6*b*h*n^2*d); the bound
-    is the larger of the bytes at 3.35 TB/s and the flops at 67 TFLOP/s."""
+    writes dk, dv (8*b*h*n^2*d flops), dQ writes dq (6*b*h*n^2*d); bounded
+    as ``_fp32_flash_bound`` says."""
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
     b, h, n, d = shape
@@ -663,9 +675,7 @@ def _bwd_kernels(shape):
             ("bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6)):
         nbytes = (4 + n_out) * b * h * n * d * 4 + 3 * b * h * n * 4
         flops = per_flop * b * h * n * n * d
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        out.append((name, kernel, plain, max(bytes_ms, ops_ms),
-                    "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops))
+        out.append((name, kernel, plain, *_fp32_flash_bound(nbytes, flops), nbytes, flops))
     return out
 
 
@@ -752,7 +762,7 @@ def phase_flash_bwd_long(fwd_entry, entries) -> None:
 
     from mclstexp_tpu_torch.ops import flash_attention as fa
 
-    rows, split, ctas = fa.cluster_plan(*BWD_LONG)
+    design, rows, split, ctas = fa.fp32_plan(*BWD_LONG)
     args, pair, library_pair = _bwd_case(torch.Generator(device="cuda").manual_seed(2), BWD_LONG)
     q, k, v, scale = *args[:3], args[7]
     err = _flash_fwd_err(q, k, v, scale)
@@ -766,7 +776,8 @@ def phase_flash_bwd_long(fwd_entry, entries) -> None:
                          warmup=2)
     plain_ms = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, scale), iters=3, warmup=1)
     bound_ms, bound_by, _, flops = _flash_fwd_bound(BWD_LONG)
-    log(f"[kernels] flash_attention fp32 {BWD_LONG} plan rows={rows} split={split} ctas={ctas}: "
+    log(f"[kernels] flash_attention fp32 {BWD_LONG} plan {design} rows={rows} split={split} "
+        f"ctas={ctas}: "
         f"out/l/m within {err:.3e} of the plain version (atol {FLASH_ATOL}); kernel {ms:.4f} ms, "
         f"with residuals {residuals_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA forward "
         f"{library_ms:.4f} ms, kernel / SDPA {ms / library_ms:.3f}, bound {bound_ms:.4f} ms by "
@@ -776,7 +787,8 @@ def phase_flash_bwd_long(fwd_entry, entries) -> None:
     fwd_entry["long"] = {"shape": list(BWD_LONG), "ms": ms, "residuals_ms": residuals_ms,
                          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "max_abs_err": err,
-                         "plan": {"rows": rows, "split": split, "ctas": ctas}}
+                         "plan": {"design": design, "rows": rows, "split": split,
+                                  "ctas": ctas}}
     pair_ms = cuda_ms(pair, iters=10, warmup=2)
     library_pair_ms = cuda_ms(library_pair, iters=10, warmup=2)
     for entry, (name, kernel, plain, bound_ms, bound_by, _, flops) in zip(
@@ -787,14 +799,16 @@ def phase_flash_bwd_long(fwd_entry, entries) -> None:
                                  f"{FLASH_ATOL}")
         ms = cuda_ms(lambda: kernel(*args), iters=10, warmup=2)
         plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
-        log(f"[kernels] flash_attention[{name}] fp32 {BWD_LONG} plan rows={rows} split={split} "
-            f"ctas={ctas}: max abs err {err:.3e} (atol {FLASH_ATOL}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP), "
-            f"{bound_ms / ms:.1%} of bound ({flops / ms / 1e9:.1f} TFLOP/s fp32 work)")
+        log(f"[kernels] flash_attention[{name}] fp32 {BWD_LONG} plan {design} rows={rows} "
+            f"split={split} ctas={ctas}: max abs err {err:.3e} (atol {FLASH_ATOL}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops / 1e9:.1f} GFLOP), {bound_ms / ms:.1%} of bound "
+            f"({flops / ms / 1e9:.1f} TFLOP/s fp32 work)")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["long"] = {"shape": list(BWD_LONG), "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-                         "plan": {"rows": rows, "split": split, "ctas": ctas},
+                         "plan": {"design": design, "rows": rows, "split": split,
+                                  "ctas": ctas},
                          "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
     log(f"[kernels] flash forward with residuals + dK/dV + dQ {BWD_LONG}: {pair_ms:.4f} ms; "
         f"SDPA forward + backward {library_pair_ms:.4f} ms; pair / SDPA "
@@ -915,6 +929,7 @@ def _reset_counts() -> None:
 
     for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq):
         w.launches = w.segment_launches = w.bf16_launches = w.bf16_segment_launches = 0
+        w.wg_launches = 0
     row_shift.launches = 0
     row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
@@ -1996,11 +2011,10 @@ def _seg_case(g, n, real, kind):
         return torch.autograd.grad((F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=same, scale=scale) * do).sum(), qkv_g)[0]
 
-    def pair():
+    def pair():  # as FlashAttention runs it: one split pass for both backward kernels
         o, ll, mm = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
         dd = (o * do).sum(-1).contiguous()
-        fa.flash_bwd_dkv(q, k, v, do, ll, mm, dd, scale, seg)
-        fa.flash_bwd_dq(q, k, v, do, ll, mm, dd, scale, seg)
+        fa.flash_backward(q, k, v, do, ll, mm, dd, scale, seg)
 
     eager = n >= 4096
     timed = (lambda fn, plain=False: cuda_ms(fn, iters=3 if plain else 10,
@@ -2016,7 +2030,7 @@ def _seg_case(g, n, real, kind):
         "bwd_dq": (lambda: fa.flash_bwd_dq(*args), lambda: fa.flash_bwd_dq(*args[:-1]),
                    lambda: fa.flash_bwd_dq_plain(*args), None)}
     pair_ms, library_pair_ms = timed(pair), timed(library_pair)
-    rows, split, ctas = fa.cluster_plan(*shape)
+    design, rows, split, ctas = fa.fp32_plan(*shape)
     bounds = {"fwd": _flash_fwd_bound(shape)}
     for name, _, _, bound_ms, bound_by, nbytes, flops in _bwd_kernels(shape):
         bounds[name] = (bound_ms, bound_by, nbytes, flops)
@@ -2024,13 +2038,13 @@ def _seg_case(g, n, real, kind):
     for name, (kernel, unmasked, plain, library) in kernels.items():
         _, _, nbytes, flops = bounds[name]
         nbytes += 4 * n  # the segment ids, read once
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        bound_ms, bound_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+        bound_ms, bound_by = _fp32_flash_bound(nbytes, flops)
         ms, plain_ms = timed(kernel), timed(plain, plain=True)
         unmasked_ms = timed(unmasked)
         library_ms = timed(library) if library is not None else None
         log(f"[baselines] {SEG_NAMES[name]} fp32 {shape} {kind} ids"
-            f"{'' if real is None else f' ({real} real rows)'} plan rows={rows} split={split} "
+            f"{'' if real is None else f' ({real} real rows)'} plan {design} rows={rows} "
+            f"split={split} "
             f"ctas={ctas}: max abs err {errs[name]:.3e} (atol {FLASH_ATOL}), deterministic; "
             f"kernel {ms:.5f} ms, without ids {unmasked_ms:.5f} ms, plain {plain_ms:.5f} ms"
             + (f", SDPA with the boolean mask {library_ms:.5f} ms (err {sdpa_err:.1e})"
@@ -2041,7 +2055,8 @@ def _seg_case(g, n, real, kind):
                              "unmasked_ms": unmasked_ms, "plain_ms": plain_ms,
                              "library_ms": library_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "max_abs_err": errs[name],
-                             "plan": {"rows": rows, "split": split, "ctas": ctas},
+                             "plan": {"design": design, "rows": rows, "split": split,
+                                      "ctas": ctas},
                              "pair_ms": pair_ms, "library_pair_ms": library_pair_ms}
     log(f"[baselines] segment pair (forward with residuals + dK/dV + dQ) {shape} {kind}: "
         f"{pair_ms:.5f} ms; SDPA with the boolean mask, forward + backward "
@@ -2061,8 +2076,9 @@ def phase_segment_kernels() -> list:
 
     g = torch.Generator(device="cuda").manual_seed(8)
     entries = {name: {"name": SEG_NAMES[name], "route": "cuda",
-                      "source": "mclstexp_tpu_torch/csrc/" + (
-                          "flash_attention.cu" if name == "fwd" else "flash_attention_bwd.cu"),
+                      "source": "mclstexp_tpu_torch/csrc/" + (  # fp32_plan's design at SEG_CASES
+                          "flash_attention_tf32.cu" if name == "fwd"
+                          else "flash_attention_bwd_tf32.cu"),
                       "replaces": SEG_REPLACES[name], "cases": [], "max_abs_err": 0.0}
                for name in SEG_NAMES}
     for n, real, kind in SEG_CASES:
@@ -2264,6 +2280,7 @@ def phase_baselines():
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     sections = _baseline_sections(785)
@@ -2336,16 +2353,24 @@ def phase_baselines():
     whole_times, peaks = {"xla": [], "flash": []}, {}
     xla = trainer.init_baseline(cfg, "cuda", "xla")
     flash = trainer.init_baseline(cfg, "cuda", "flash")
+    _reset_counts()
     for name in ("xla", "flash", "flash", "xla"):
         torch.cuda.reset_peak_memory_stats()
         whole_times[name].append(_slide_step_ms(xla if name == "xla" else flash, cfg, batch,
                                                 n=2))
         peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    # the fp32 warpgroup kernels (fp32_plan at (1, 16, 4096, 64)): 8 launches
+    # of each a step, 6 flash steps (each timing's warm-up and 2)
+    wg = tuple(w.wg_launches for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq))
+    if wg != (6 * 8,) * 3 or _flash_counts() != wg:
+        raise AssertionError(f"whole-slide steps: warpgroup launches {wg}, launches "
+                             f"{_flash_counts()}; expected 48 of each (8 per step)")
     log(f"[baselines] HisToGene whole-slide step, {n} spots padded to {len(batch['mask'])} "
-        f"(attention (1, 16, 4096, 64) per layer), ms per slide step (xla, flash, flash, xla; "
-        f"2 steps each): xla {whole_times['xla']}, flash {whole_times['flash']}; peak memory "
-        f"(both models and their Adam state resident) xla {peaks['xla']:.1f} GiB, flash "
-        f"{peaks['flash']:.1f} GiB, on {card_line()}")
+        f"(attention (1, 16, 4096, 64) per layer, plan {fa.fp32_plan(1, 16, 4096, 64)}), ms "
+        f"per slide step (xla, flash, flash, xla; 2 steps each): xla {whole_times['xla']}, "
+        f"flash {whole_times['flash']}; warpgroup launches forward/dK-dV/dQ {wg} in 6 steps "
+        f"(8 per step); peak memory (both models and their Adam state resident) xla "
+        f"{peaks['xla']:.1f} GiB, flash {peaks['flash']:.1f} GiB, on {card_line()}")
     del xla, flash, batch
     torch.cuda.empty_cache()
     return counts, tcounts

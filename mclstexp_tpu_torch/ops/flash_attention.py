@@ -26,6 +26,20 @@ All three are deterministic (no atomics) and share one plan,
 cores in the 3xTF32 split, which keeps fp32 accuracy (within 2e-5 of the
 plain versions; one plain TF32 product would not be).
 
+For long sequences each fp32 kernel has a Hopper warpgroup counterpart
+(``csrc/flash_attention_tf32.cu``: forward; ``csrc/flash_attention_bwd_tf32
+.cu``: dK/dV and dQ; ``csrc/flash_tf32.cuh``): 64-row ``wgmma`` tiles in
+tf32, every product still 3xTF32 with fp32 accumulation, one CTA per block
+of 64 rows walking the other side through a TMA ring, the same bits on every
+run. A tf32 ``wgmma`` reads its shared-memory operands K-major only, so a
+pass of its own (``flash_tf32_split``, one launch before the forward and one
+before the backward) first writes the tf32 big and small parts of the
+inputs in the layouts the products read (rows, and transposed). ``fp32_plan``
+picks the design from (b, h, n, d): the warpgroup kernels at d <= 64 and n
+>= ``WG_MIN_N`` with enough 64-row blocks to fill the card, the cluster
+kernels elsewhere. Each wrapper counts the warpgroup launches in
+``wg_launches`` (inside ``launches``).
+
 bfloat16 (``ModelConfig.dtype="bfloat16"``: the JAX modules hand the
 library kernels q, k, v in the compute dtype): each kernel has a bf16
 counterpart (``csrc/flash_attention_bf16.cu``,
@@ -91,6 +105,8 @@ from mclstexp_tpu_torch.ops.build import load_library
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
+TF32_SOURCE = "flash_attention_tf32.cu"  # the split pass and the warpgroup forward
+TF32_BWD_SOURCE = "flash_attention_bwd_tf32.cu"
 BF16_SOURCE = "flash_attention_bf16.cu"
 BF16_BWD_SOURCE = "flash_attention_bwd_bf16.cu"
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
@@ -100,6 +116,13 @@ BF16_ROWS = 64  # the bf16 kernels' tiles: one warpgroup's wgmma rows
 BF16_STAGES = 2  # depth of their ring of walked tiles (csrc/flash_wgmma.cuh kStages)
 MAX_SPLIT = 8  # CTAs of a cluster: the portable cluster size
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
+WG_ROWS = 64  # the fp32 warpgroup kernels' owned rows
+WG_MAX_HEAD_DIM = 64  # their registers and shared memory hold tiles of up to 64 columns
+# Where they take over from the cluster kernels (PERF.md section 6, measured on the
+# card): n >= 320 and at least 80 CTAs; (1, 16, 256, 64) and (1, 8, 512, 64), 64
+# CTAs each, ran faster on the cluster kernels, (1, 16, 320, 64) on these.
+WG_MIN_N = 320
+WG_MIN_CTAS = 80
 
 
 # Every entry point ends in: the segment ids (null for none); strides; b, h,
@@ -133,6 +156,20 @@ def _bwd_entries(dtype: torch.dtype):
     dq.argtypes = head + [ctypes.c_void_p] + _TAIL
     dkv.restype = dq.restype = ctypes.c_int
     return dkv, dq
+
+
+@functools.cache
+def _tf32_entries():
+    """(forward, backward) C entry points of the fp32 warpgroup kernels; each
+    launches the split pass and then its kernels."""
+    fwd = load_library(TF32_SOURCE).flash_attention_fwd_tf32_launch
+    bwd = load_library(TF32_BWD_SOURCE).flash_attention_bwd_tf32_launch
+    tail = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]  # ids, strides, b, h, n, d, scale, stream
+    fwd.argtypes = [ctypes.c_void_p] * 7 + tail  # q, k, v, scratch, out, l, m
+    bwd.argtypes = [ctypes.c_void_p] * 11 + tail  # q, k, v, dout, scratch, l, m, di, dk, dv, dq
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -293,10 +330,40 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     l = m = None
     if residuals:
         l, m = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) for _ in range(2))
-    _launch(_fwd_entry(q.dtype), "flash_attention",
-            (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
+    if _warpgroup(q):
+        _launch_tf32(_tf32_entries()[0], "flash_attention", (q, k, v), 3,
+                     (out, l, m), segment_ids, (q, k, v, out), scale)
+        flash_attention.wg_launches += 1
+    else:
+        _launch(_fwd_entry(q.dtype), "flash_attention",
+                (q, k, v, out, l, m), segment_ids, (q, k, v, out), scale)
     _count(flash_attention, q, segment_ids)
     return (out, l, m) if residuals else out
+
+
+def _warpgroup(q: torch.Tensor) -> bool:
+    """Whether an fp32 q runs the warpgroup kernels (``fp32_plan``)."""
+    return q.dtype == torch.float32 and fp32_plan(*q.shape)[0] == "warpgroup"
+
+
+def _launch_tf32(fn, what: str, inputs, copies: int, outputs, segment_ids, strided,
+                 scale: float) -> None:
+    """``fn(*inputs, scratch, *outputs, segment_ids, strides, b, h, n, d,
+    scale, stream)``: a warpgroup entry point, with ``copies`` split copies
+    of q's shape in one new scratch tensor (``csrc/flash_tf32.cuh``). Raises
+    on a CUDA error."""
+    q = inputs[0]
+    b, h, n, d = q.shape
+    n_pad, dp = -(-n // WG_ROWS) * WG_ROWS, 32 if d <= 32 else 64
+    scratch = torch.empty(copies * 2 * b * h * n_pad * dp, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * (3 * len(strided)))(
+        *(s for t in strided for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = fn(*(None if t is None else t.data_ptr()
+                   for t in (*inputs, scratch, *outputs, segment_ids)),
+                 strides, b, h, n, d, float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
 def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
@@ -321,6 +388,24 @@ def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
         raise ValueError(f"the flash kernels take b * h * split < 2**31, got {b} * {h} * "
                          f"{split}")
     return ROWS, split, blocks * split
+
+
+def fp32_plan(b: int, h: int, n: int, d: int) -> Tuple[str, int, int, int]:
+    """(design, rows, split, ctas) of the fp32 flash kernels at (b, h, n, d).
+
+    "warpgroup" (``csrc/flash_attention{,_bwd}_tf32.cu``): blocks of ``rows``
+    = 64 rows, one CTA each (``split`` = 1), ``ctas`` = b * h * ceil(n / 64),
+    where d <= 64, n >= ``WG_MIN_N``, ctas >= ``WG_MIN_CTAS`` and b * h <=
+    65535 (the split pass's grid). Elsewhere "cluster" with
+    ``cluster_plan``'s rows, split and ctas: where few 64-row blocks would
+    leave SMs idle, a cluster splits each walk. Raises ValueError outside
+    the kernels' limits."""
+    rows, split, ctas = cluster_plan(b, h, n, d)
+    wg_ctas = b * h * -(-n // WG_ROWS)
+    if (d <= WG_MAX_HEAD_DIM and n >= WG_MIN_N and wg_ctas >= WG_MIN_CTAS
+            and b * h <= 65535):
+        return "warpgroup", WG_ROWS, 1, wg_ctas
+    return "cluster", rows, split, ctas
 
 
 def bf16_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int, int]:
@@ -388,36 +473,62 @@ def _check_bwd_inputs(q, k, v, do, l, m, di) -> None:
         raise ValueError("the backward's inputs lie on more than one device")
 
 
+def flash_backward(q, k, v, do, l, m, di, scale: float,
+                   segment_ids: Optional[torch.Tensor] = None, dkv: bool = True,
+                   dq: bool = True):
+    """(dk, dv, dq), None for what was not asked (``dkv``, ``dq``): the
+    plain versions for CPU tensors; the dK/dV and dQ kernels, counted in
+    ``flash_bwd_dkv`` / ``flash_bwd_dq``'s ``launches`` (and
+    ``.segment_launches``, ``.wg_launches``), for CUDA ones. On the
+    warpgroup kernels one split pass serves both."""
+    dk = dv = dq_out = None
+    if not _on_cuda(q, "flash_backward"):
+        if dkv:
+            dk, dv = flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale, segment_ids)
+        if dq:
+            dq_out = flash_bwd_dq_plain(q, k, v, do, l, m, di, scale, segment_ids)
+        return dk, dv, dq_out
+    _check_bwd_inputs(q, k, v, do, l, m, di)
+    _check_segments(q, segment_ids)
+    if _warpgroup(q):
+        dk, dv = (_bhnd_like(q), _bhnd_like(q)) if dkv else (None, None)
+        dq_out = _bhnd_like(q) if dq else None
+        # the split copies: q, k, v, dout by rows; q, dout (dK/dV) and k (dQ)
+        # transposed. q's strides stand in for an output not asked (null).
+        outputs = (dk, dv, dq_out)
+        _launch_tf32(_tf32_entries()[1], "flash_attention backward", (q, k, v, do),
+                     4 + 2 * dkv + dq, (l, m, di, *outputs), segment_ids,
+                     (q, k, v, do, *(q if t is None else t for t in outputs)), scale)
+        flash_bwd_dkv.wg_launches += dkv
+        flash_bwd_dq.wg_launches += dq
+    else:
+        dkv_entry, dq_entry = _bwd_entries(q.dtype)
+        if dkv:
+            dk, dv = _bhnd_like(q), _bhnd_like(q)
+            _launch(dkv_entry, "flash_attention backward", (q, k, v, do, l, m, di, dk, dv),
+                    segment_ids, (q, k, v, do, dk, dv), scale)
+        if dq:
+            dq_out = _bhnd_like(q)
+            _launch(dq_entry, "flash_attention backward", (q, k, v, do, l, m, di, dq_out),
+                    segment_ids, (q, k, v, do, dq_out), scale)
+    if dkv:
+        _count(flash_bwd_dkv, q, segment_ids)
+    if dq:
+        _count(flash_bwd_dq, q, segment_ids)
+    return dk, dv, dq_out
+
+
 def flash_bwd_dkv(q, k, v, do, l, m, di, scale: float,
                   segment_ids: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv): ``flash_bwd_dkv_plain`` for CPU tensors; the dK/dV kernel,
-    counted in ``flash_bwd_dkv.launches`` (and ``.segment_launches``), for
-    CUDA ones."""
-    if not _on_cuda(q, "flash_bwd_dkv"):
-        return flash_bwd_dkv_plain(q, k, v, do, l, m, di, scale, segment_ids)
-    _check_bwd_inputs(q, k, v, do, l, m, di)
-    _check_segments(q, segment_ids)
-    dk, dv = _bhnd_like(q), _bhnd_like(q)
-    _launch(_bwd_entries(q.dtype)[0], "flash_attention backward",
-            (q, k, v, do, l, m, di, dk, dv), segment_ids, (q, k, v, do, dk, dv), scale)
-    _count(flash_bwd_dkv, q, segment_ids)
-    return dk, dv
+    """(dk, dv): ``flash_backward`` without dQ."""
+    return flash_backward(q, k, v, do, l, m, di, scale, segment_ids, dq=False)[:2]
 
 
 def flash_bwd_dq(q, k, v, do, l, m, di, scale: float,
                  segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dq: ``flash_bwd_dq_plain`` for CPU tensors; the dQ kernel, counted in
-    ``flash_bwd_dq.launches`` (and ``.segment_launches``), for CUDA ones."""
-    if not _on_cuda(q, "flash_bwd_dq"):
-        return flash_bwd_dq_plain(q, k, v, do, l, m, di, scale, segment_ids)
-    _check_bwd_inputs(q, k, v, do, l, m, di)
-    _check_segments(q, segment_ids)
-    dq = _bhnd_like(q)
-    _launch(_bwd_entries(q.dtype)[1], "flash_attention backward",
-            (q, k, v, do, l, m, di, dq), segment_ids, (q, k, v, do, dq), scale)
-    _count(flash_bwd_dq, q, segment_ids)
-    return dq
+    """dq: ``flash_backward`` without dK/dV."""
+    return flash_backward(q, k, v, do, l, m, di, scale, segment_ids, dkv=False)[2]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -443,8 +554,7 @@ class FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
             do = do.contiguous()
         di = (widen(out) * widen(do)).sum(dim=-1).contiguous()  # fp32 for bf16, as the library
-        dk, dv = flash_bwd_dkv(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
-        dq = flash_bwd_dq(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
+        dk, dv, dq = flash_backward(q, k, v, do, l, m, di, ctx.scale, ctx.segment_ids)
         return dq, dk, dv, None, None
 
 
@@ -479,4 +589,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 for _wrapper in (flash_attention, flash_bwd_dkv, flash_bwd_dq):
     _wrapper.launches = _wrapper.segment_launches = 0
     _wrapper.bf16_launches = _wrapper.bf16_segment_launches = 0
+    _wrapper.wg_launches = 0
 del _wrapper

@@ -18,7 +18,12 @@
   ragged lengths, the slide baselines' 768 and 4,096 rows), without segment
   ids and, where the package's kernels take them, with them (the last 63
   rows padded), by graph replays below n = 4,096 and by events over eager
-  launches at it (``time_flash``). ``--only flash`` times these alone.
+  launches at it (``time_flash``), each with the fp32 plan's design and the
+  training call's pair (forward with residuals, then dK/dV and dQ as
+  ``FlashAttention`` runs them: one split pass for both on the warpgroup
+  design); and the fp32 pair on both designs at ``CROSSOVER`` shapes
+  (``time_designs``: where ``fp32_plan`` switches). ``--only flash`` times
+  these alone.
 
 Each data-movement case is checked bit-equal to the plain version (the
 flash kernels are checked by ``chip_smoke.py`` and the card tests) and
@@ -50,7 +55,10 @@ I32_MIN = -2**31
 VISIUM_SIDE = 20_000  # a Visium full-resolution image.tif is about 20,000-25,000 px a side
 PATCH = 224
 FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 66, 64), (1, 8, 128, 64), (1, 8, 300, 64),
-                (1, 16, 768, 64), (1, 16, 4096, 64))
+                (1, 16, 384, 64), (1, 16, 768, 64), (1, 16, 4096, 64))
+# around the fp32 plan's crossover: the slide baselines' 16 heads, the flagship's 8
+CROSSOVER = tuple((1, 16, n, 64) for n in (128, 256, 320, 384, 512, 768)) + tuple(
+    (1, 8, n, 64) for n in (300, 512, 640, 1024))
 FLASH_PADDED = 63  # rows of the padded tail in the segment-id case
 
 
@@ -206,10 +214,34 @@ def time_flash(shape, g, segments: bool, dtype=torch.float32) -> dict:
     out, l, m = fa.flash_forward(q, k, v, scale, True, *ids)
     di = (out.float() * do.float()).sum(-1).contiguous()
     timed = (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if n >= 4096 else graph_ms
-    return {"fwd": timed(lambda: fa.flash_forward(q, k, v, scale, False, *ids)),
+
+    def pair():
+        o, ll, mm = fa.flash_forward(q, k, v, scale, True, *ids)
+        dd = (o.float() * do.float()).sum(-1).contiguous()
+        fa.flash_backward(q, k, v, do, ll, mm, dd, scale, *ids)
+
+    return {"design": fa.fp32_plan(*shape)[0] if dtype == torch.float32 else None,
+            "fwd": timed(lambda: fa.flash_forward(q, k, v, scale, False, *ids)),
             "fwd_res": timed(lambda: fa.flash_forward(q, k, v, scale, True, *ids)),
             "bwd_dkv": timed(lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale, *ids)),
-            "bwd_dq": timed(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale, *ids))}
+            "bwd_dq": timed(lambda: fa.flash_bwd_dq(q, k, v, do, l, m, di, scale, *ids)),
+            "pair": timed(pair)}
+
+
+def time_designs(shape, g) -> dict:
+    """Device ms of the fp32 training pair with segment ids at ``shape`` on
+    each design, the plan's crossover moved out of the way for the one it
+    would not pick (``time_flash``'s "pair")."""
+    limits = fa.WG_MIN_N, fa.WG_MIN_CTAS
+    out = {}
+    try:
+        for design, (min_n, min_ctas) in (("warpgroup", (1, 1)), ("cluster", (2**31, 2**31))):
+            fa.WG_MIN_N, fa.WG_MIN_CTAS = min_n, min_ctas
+            out[design] = time_flash(shape, g, True)["pair"]
+    finally:
+        fa.WG_MIN_N, fa.WG_MIN_CTAS = limits
+    out["plan"] = fa.fp32_plan(*shape)[0]
+    return out
 
 
 def main(argv=None) -> None:
@@ -229,8 +261,10 @@ def main(argv=None) -> None:
             flash[key] = {"no_ids": time_flash(shape, g, False, dtype)}
             if has_ids:
                 flash[key]["ids"] = time_flash(shape, g, True, dtype)
+    crossover = {str(shape): time_designs(shape, g) for shape in CROSSOVER}
     if only == "flash":
-        print(json.dumps({"card": card_line(), "flash": flash}), flush=True)
+        print(json.dumps({"card": card_line(), "flash": flash, "crossover": crossover}),
+              flush=True)
         return
     shifts = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -240,7 +274,7 @@ def main(argv=None) -> None:
     patches = time_patches(slide, centers)
     del slide, centers
     print(json.dumps({"card": card_line(), "row_shift": shifts, "extract_patches": patches,
-                      "flash": flash}), flush=True)
+                      "flash": flash, "crossover": crossover}), flush=True)
 
 
 if __name__ == "__main__":

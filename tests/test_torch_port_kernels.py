@@ -322,9 +322,12 @@ def _check_segment_kernels(q, k, v, seg, scale):
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_segment_kernels_match_plain(cuda, n, d, strided, kind):
     """Forward (with and without residuals), dK/dV and dQ with segment ids at
-    (2, 4, n, d): padded tails of 127 and 1 rows and interleaved ids, every
-    split of the plan (128: 4, where a padded row's first ranks see no key of
-    its segment; 4,096: 1)."""
+    (2, 4, n, d): padded tails of 127 and 1 rows and interleaved ids, on the
+    design ``fp32_plan`` picks: the cluster kernels at n <= 384 or d = 128,
+    every split of their plan (128: 4, where a padded row's first ranks see
+    no key of its segment; 4,096 at d = 128: 1), and the warpgroup kernels
+    at n = 1,000 and 4,096 with d <= 64 (the cluster kernels there:
+    ``test_flash_segment_cluster_kernels_at_long_n``)."""
     q, k, v = _qkv(cuda, 2, 4, n, d, strided)
     _check_segment_kernels(q, k, v, _segment_ids(cuda, 2, n, kind), d**-0.5)
 
@@ -336,14 +339,34 @@ def test_flash_segment_kernels_match_plain(cuda, n, d, strided, kind):
 def test_flash_segment_kernels_at_the_baselines_shapes(cuda, shape):
     """The slide baselines' heads at her2st-like lengths, padded to a
     128-multiple ((1, 8, 128, 64) splits each walk 4 ways: a padded row's
-    last rank sees only real keys), and on unaligned inputs (4-byte
-    staging); one 32-row tile at each D (1, 1, 32, 64) is the smallest case
+    last rank sees only real keys; (1, 16, 384 / 768, 64) run the warpgroup
+    kernels under ``fp32_plan``), and on unaligned inputs (4-byte staging on
+    the cluster kernels); one 32-row tile at each D (1, 1, 32, 64) is the smallest case
     at which a form of the dQ kernel that staged its owned rows' ids in
     shared memory raised an illegal address (ptxas -O1 and above)."""
     b, h, n, d = shape
     seg = (torch.arange(n, device="cuda") < n - 50).to(torch.int32)[None]
     _check_segment_kernels(*_qkv(cuda, b, h, n, d, True), seg, 0.125)
     _check_segment_kernels(*_offset_views(cuda, b, h, n, d), seg, 0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind", [((2, 4, 4096, 64), "tail"),
+                                        ((2, 4, 1000, 64), "interleaved"),
+                                        ((1, 16, 768, 64), "tail")])
+def test_flash_segment_cluster_kernels_at_long_n(cuda, monkeypatch, shape, kind):
+    """The cluster kernels with segment ids at lengths where ``fp32_plan``
+    picks the warpgroup kernels (its crossover moved past them), against
+    their plain versions, on the views of a qkv buffer and on unaligned
+    inputs: the design any shape below the crossover runs, held at long n."""
+    monkeypatch.setattr(fa, "WG_MIN_N", 2**31)
+    b, h, n, d = shape
+    assert fa.fp32_plan(*shape)[0] == "cluster"
+    seg = _segment_ids(cuda, b, n, kind)
+    wg = [w.wg_launches for w in (flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq)]
+    _check_segment_kernels(*_qkv(cuda, b, h, n, d, True), seg, d**-0.5)
+    _check_segment_kernels(*_offset_views(cuda, b, h, n, d), seg, d**-0.5)
+    assert [w.wg_launches for w in (flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq)] == wg
 
 
 @pytest.mark.gpu
