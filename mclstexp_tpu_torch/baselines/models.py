@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from mclstexp_tpu_torch.baselines.layers import (
     ConvMixerBlock,
@@ -142,7 +143,10 @@ class Hist2ST(PositionTables):
     ``coef`` (Linear, ReLU, Linear(1)), whose output replaces h on ``aug``
     passes (reference ``His2ST/HIST2ST.py:85-199``). dim = (fig_size //
     patch_size)^2 * channel // 8: 1,024 at the defaults, 16 heads of 64.
-    The LSTM's ``bias_hh`` does not train (``requires_grad`` False)."""
+    The LSTM's ``bias_hh_l{0,1}`` are fixed buffers under their state-dict
+    keys: ``named_parameters()`` lists what trains. A torch.profiler trace
+    shows each pass's ``convmixer`` (patchify to ``down``), ``graph`` (the
+    GraphSAGE blocks) and ``jknet`` (the LSTM and its mean) ranges."""
 
     def __init__(self, n_genes: int, fig_size: int = 112, patch_size: int = 7,
                  channel: int = 32, kernel_size: int = 5, depth1: int = 2, depth2: int = 8,
@@ -165,9 +169,14 @@ class Hist2ST(PositionTables):
         t.layer3 = nn.ModuleList(GraphSAGEBlock(dim, dim, device) for _ in range(depth3))
         t.jknet = nn.ModuleList([nn.LSTM(dim, dim, 2, device=device)])
         # flax's cell has one hidden-side bias, torch's bias_ih + bias_hh:
-        # bias_hh stays fixed, so training moves their sum as JAX moves its one
+        # bias_hh is a fixed buffer, so training moves their sum as JAX moves
+        # its one. nn.LSTM's own setattr keeps its flat weights (cuDNN's) current.
         for layer in range(2):
-            getattr(t.jknet[0], f"bias_hh_l{layer}").requires_grad_(False)
+            name = f"bias_hh_l{layer}"
+            fixed = getattr(t.jknet[0], name).detach()
+            delattr(t.jknet[0], name)
+            t.jknet[0].register_buffer(name, fixed)
+            setattr(t.jknet[0], name, fixed)
         self.gene_head = nn.Sequential(LayerNormT(dim, device=device),
                                        DenseT(dim, n_genes, device=device))
         if zinb and nb:
@@ -186,17 +195,21 @@ class Hist2ST(PositionTables):
                 mask: Optional[torch.Tensor] = None, aug: bool = False):
         n = patches.shape[0]
         t = self.vit.transformer
-        x = self.vit.dropout(self.patch_embedding(patches.permute(0, 3, 1, 2)))
-        for block in t.layer1:
-            x = block(x, mask)
-        g = (t.down(x).reshape(n, -1) + self.position_embed(positions))[None]
+        with record_function("convmixer"):
+            x = self.vit.dropout(self.patch_embedding(patches.permute(0, 3, 1, 2)))
+            for block in t.layer1:
+                x = block(x, mask)
+            x = t.down(x)
+        g = (x.reshape(n, -1) + self.position_embed(positions))[None]
         for block in t.layer2:
             g = block(g, mask)
         g, jk = g[0], []
-        for block in t.layer3:
-            g = block(g, adj)
-            jk.append(g)
-        h = t.jknet[0](widen(torch.stack(jk)))[0].mean(dim=0)  # (depth3, N, dim) -> (N, dim)
+        with record_function("graph"):
+            for block in t.layer3:
+                g = block(g, adj)
+                jk.append(g)
+        with record_function("jknet"):  # (depth3, N, dim) -> (N, dim)
+            h = t.jknet[0](widen(torch.stack(jk)))[0].mean(dim=0)
         pred = widen(self.gene_head(h))
         extra = None
         if self.zinb and self.nb:

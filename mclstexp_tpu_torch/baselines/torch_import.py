@@ -18,7 +18,7 @@ raise.
   reference checkpoint carries a nonzero ``bias_hh``. JAX sums ``bias_ih +
   bias_hh`` into flax's one hidden-side bias; the port's ``nn.LSTM`` keeps
   both, so loading them as they are gives the same sum and the same forward
-  (its ``bias_hh`` stays frozen in training, the JAX rule).
+  (its ``bias_hh`` is a fixed buffer that training leaves, the JAX rule).
 * BLEEP: ``image_encoder.model.*`` is a timm tower (``Bleep/modules.py:
   7-132``) and the two projection heads. The heads' keys are the port's.
   The tower's are not always: the port's resnets number the trunk as the

@@ -282,7 +282,9 @@ def slide_loss(model, cfg: BaselineConfig, batch: Dict[str, torch.Tensor],
     Without one the dropouts keep the generator they have. ``bakes``:
     Hist2ST's ``BakeDraws`` or the baked patches themselves (n_bake, N, P,
     P, 3); by default drawn by ``sample_bake_draws`` from a CPU generator
-    reseeded by (``generator``'s initial seed, 0)."""
+    reseeded by (``generator``'s initial seed, 0). A torch.profiler trace
+    shows each bake, from its patches through its forward, as a "bake"
+    range."""
     model.train()
     if generator is not None:
         seed_dropout(model, generator)
@@ -312,8 +314,9 @@ def slide_loss(model, cfg: BaselineConfig, batch: Dict[str, torch.Tensor],
     for i in range(n_bake):
         if bake_generator is not None:
             seed_dropout(model, augment.reseed(bake_generator, generator.initial_seed(), i + 1))
-        baked = bake_patches(patches, bakes, i) if isinstance(bakes, BakeDraws) else bakes[i]
-        bp, _, bc = model(*_model_args(cfg, baked, batch), mask=mask, aug=model.coef_head)
+        with record_function("bake"):
+            baked = bake_patches(patches, bakes, i) if isinstance(bakes, BakeDraws) else bakes[i]
+            bp, _, bc = model(*_model_args(cfg, baked, batch), mask=mask, aug=model.coef_head)
         preds.append(bp)
         coefs.append(bc)
     if model.coef_head:

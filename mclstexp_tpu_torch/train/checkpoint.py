@@ -95,8 +95,17 @@ def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
 def apply_checkpoint(state: TrainState, restored: Dict[str, Any]) -> TrainState:
     """Put a restored checkpoint into ``state`` in place (the model with
     ``strict=True``, the Adam moments and step counts, the step); returns
-    it."""
+    it. An optimizer state that indexes other parameters than the model
+    trains is refused."""
     state.model.load_state_dict(restored["model"], strict=True)
+    saved = [len(g["params"]) for g in restored["optimizer"]["param_groups"]]
+    trained = [len(g["params"]) for g in state.optimizer.param_groups]
+    if saved != trained:
+        raise ValueError(
+            f"the checkpoint's optimizer state indexes {saved} parameters, the model trains "
+            f"{trained}: a Hist2ST fold checkpoint written while its LSTM's bias_hh_l0 and "
+            "bias_hh_l1 were frozen parameters (they are fixed buffers now) lists those two "
+            "as well; retrain the fold, or drop their two places from the saved param group")
     state.optimizer.load_state_dict(restored["optimizer"])
     state.step = int(restored["step"])
     return state

@@ -392,8 +392,10 @@ def test_three_slide_steps_match_jax(monkeypatch):
                            opt_state=tx.init(variables["params"]), tx=tx)
     state = TrainState(_carried(tmodel, variables),
                        trainer.baseline_optimizer(tcfg, tmodel.parameters()))
-    frozen = {name for name, p in tmodel.named_parameters() if not p.requires_grad}
-    assert frozen == {"vit.transformer.jknet.0.bias_hh_l0", "vit.transformer.jknet.0.bias_hh_l1"}
+    fixed = {"vit.transformer.jknet.0.bias_hh_l0", "vit.transformer.jknet.0.bias_hh_l1"}
+    assert fixed <= {name for name, _ in tmodel.named_buffers()}
+    assert not fixed & {name for name, _ in tmodel.named_parameters()}
+    assert all(p.requires_grad for p in tmodel.parameters())
     step = trainer.make_slide_step(tcfg, steps_per_epoch=3)
     held = {}
     monkeypatch.setattr(jax_trainer, "_bake_augment", lambda key, patches, n: held["baked"])
@@ -422,7 +424,7 @@ def test_three_slide_steps_match_jax(monkeypatch):
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
         want_after = interop.baseline_params_from_jax(tmodel, jax.device_get(jstate.params),
                                                       jax.device_get(jstate.batch_stats))
-        grads = {name: p.grad for name, p in tmodel.named_parameters() if name not in frozen}
+        grads = {name: p.grad for name, p in tmodel.named_parameters()}
         _assert_step_matches(tmodel, before, grads, want_grads, want_after, lr, i,
                              near_zero=NEAR_ZERO, loose=COEF, loose_tol=COEF_GRAD_TOL)
         for name, e in exact.items():
