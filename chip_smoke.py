@@ -28,6 +28,15 @@ order; any failure exits non-zero and prints no result line:
      that ``fp32_plan`` picks there. An fp32 flash kernel's bound is the
      larger of its bytes at 3.35 TB/s and its products as three tf32 ones
      (3xTF32) at the 495 TFLOP/s tensor-core rate;
+  3a. linear: the fp32 linear kernel (``ops/linear.py``, 3xTF32 on
+     ``wgmma`` after a split pass) at HisToGene's six products on a whole
+     slide's 4,096 rows (the patch embedding's 37,632-deep input and the
+     785-wide gene head included): forward, dX and dW each against float64
+     within twice cuBLAS fp32's own error on the same inputs, a bound that
+     cuBLAS with TF32 fails; through autograd the same bits on a second run
+     and three products counted; each product (with its split pass) timed
+     by CUDA-graph replays beside its 3xTF32 bound (3 * 2 m n k at 495
+     TFLOP/s), cuBLAS fp32 and cuBLAS with TF32;
   4. patches: extract_patches (the patch gather; ``gather_rows16``, 16-byte
      chunks realigned from aligned slide words, where P * C is whole
      chunks, else ``gather_bytes``) bit-equal to its plain version in small
@@ -153,7 +162,9 @@ order; any failure exits non-zero and prints no result line:
      width 1,408, GAT) the same fold with "flash"; and one whole-slide
      HisToGene step at 3,969 spots (padded to 4,096), xla against flash,
      the flash steps' fp32 warpgroup launches counted (``wg_launches``: 8
-     of each kernel a step);
+     of each kernel a step), and the linear kernel's products
+     (``linear_fp32.wg_launches``: 34 in a step's forward, 67 in its
+     backward, in the xla steps as in the flash ones);
  17. hist2st: Hist2ST at the reference widths (conv patchify, 2 mixers, dim
      1,024, 8 layers of 16 x 64 heads, 4 GraphSAGE blocks, the LSTM, 785
      genes, zinb 0.25, bake 5, lamb 0.5) on [baselines]' sections with
@@ -164,7 +175,8 @@ order; any failure exits non-zero and prints no result line:
      float64 evaluation), ``predict_slide``
      card against CPU (8 forward launches), ms per slide step at 768 rows
      (xla, flash, flash, xla) and one whole-slide step (4,096 rows) with
-     peak memory;
+     peak memory and the linear kernel's products (245 forward and 460
+     backward a step);
  18. bleep: BLEEP (resnet50, 224 px, batch 128) on [train]'s sections:
      ``train_bleep_fold`` for fold 0 (the reference's 4 epochs),
      ``bleep_embeddings`` (the held-out
@@ -823,6 +835,78 @@ PATCH_SMALL_CENTERS = ((10, 12), (40, 30), (0, 0), (79, 59), (80, 60), (-5, 30),
 PATCH_SIZES = (15, 16, 32, 224)
 
 
+LINEAR_STEP = (34, 67)  # HisToGene's products a whole-slide step: forward, backward
+HIST2ST_LINEAR_STEP = 245 + 460  # Hist2ST's: 6 passes and their backward
+
+
+def phase_linear() -> list:
+    """[linear] (module docstring, phase 3a): one entry per product
+    (forward, dX, dW) with the qkv shape's numbers, (4,096, 3,072, 1,024),
+    and every shape's under ``shapes``."""
+    import torch
+
+    from mclstexp_tpu_torch.ops import linear as lin
+    from mclstexp_tpu_torch.profile_kernels import LINEAR_SHAPES, time_linear
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    products = {"fwd": "", "dx": "_dx", "dw": "_dw"}
+    shapes = {name: {} for name in products}
+    for m, n, k in LINEAR_SHAPES:
+        shape = (m, n, k)
+        if lin.linear_plan(*shape) != "warpgroup":
+            raise AssertionError(f"linear_plan leaves {shape} on cuBLAS")
+        x = torch.randn((m, k), generator=g, device="cuda", requires_grad=True)
+        w = torch.randn((n, k), generator=g, device="cuda", requires_grad=True)
+        b = torch.randn((n,), generator=g, device="cuda", requires_grad=True)
+        dy = torch.randn((m, n), generator=g, device="cuda")
+
+        def run():
+            y = lin.linear_fp32(x, w, b)
+            return (y.detach(), *torch.autograd.grad(y, (x, w, b), dy))
+
+        before = lin.linear_fp32.wg_launches
+        first = run()
+        if lin.linear_fp32.wg_launches != before + 3:
+            raise AssertionError(f"linear_fp32 {shape}: {lin.linear_fp32.wg_launches - before} "
+                                 "products on the kernel, not 3")
+        if not all(torch.equal(u, v) for u, v in zip(first, run())):
+            raise AssertionError(f"linear_fp32 {shape}: two runs differ")
+        del x, w, b, dy, first
+        t = time_linear(shape, g)
+        text = []
+        for name, part in products.items():
+            err, lib_err, tf32_err = (t[key + part] for key in (
+                "err_kernel", "err_cublas", "err_cublas_tf32"))
+            if not err <= 2 * lib_err < tf32_err:
+                raise AssertionError(f"linear {name} {shape}: error against float64 {err:.2e}, "
+                                     f"cuBLAS fp32 {lib_err:.2e}, TF32 {tf32_err:.2e}; want the "
+                                     "kernel within twice cuBLAS fp32's, and TF32 beyond")
+            ms = t["kernel" + part]
+            shapes[name][str(shape)] = {
+                "ms": ms, "bound_ms": t["bound"], "library_ms": t["cublas" + part],
+                "library_tf32_ms": t["cublas_tf32" + part], "rel_err": err,
+                "library_rel_err": lib_err, "library_tf32_rel_err": tf32_err}
+            text.append(f"{name} {ms:.4f} ms ({t['bound'] / ms:.1%} of bound, cuBLAS fp32 "
+                        f"{t['cublas' + part]:.4f}, TF32 {t['cublas_tf32' + part]:.4f}; err "
+                        f"{err:.1e} / {lib_err:.1e} / {tf32_err:.1e})")
+        log(f"[linear] linear_fp32 {shape}: bound {t['bound']:.4f} ms a product; "
+            f"{'; '.join(text)}; backward with db {t['backward']:.4f} ms against cuBLAS "
+            f"{t['cublas_backward']:.4f} ms; deterministic")
+    torch.cuda.empty_cache()
+    entries = []
+    for name, by_shape in shapes.items():
+        head = by_shape[str(LINEAR_SHAPES[1])]
+        entries.append({
+            "name": f"linear_fp32[{name}]", "route": "cuda",
+            "source": "mclstexp_tpu_torch/csrc/linear_tf32.cu", "replaces": None,
+            "ms": head["ms"], "plain_ms": head["library_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "operations", "library_ms": head["library_ms"],
+            "library_tf32_ms": head["library_tf32_ms"],
+            "max_rel_err": max(v["rel_err"] for v in by_shape.values()), "shapes": by_shape})
+    return entries
+
+
 def _residue_centers(w: int, h: int, patch: int):
     """Centers whose crop starts x0 = x - P//2 run over every residue mod 16,
     inside the slide and across both of its side edges, on rows inside,
@@ -925,11 +1009,13 @@ def _flash_counts(segments: bool = False, prefix: str = "") -> tuple:
 
 def _reset_counts() -> None:
     from mclstexp_tpu_torch.ops import flash_attention as fa
+    from mclstexp_tpu_torch.ops.linear import linear_fp32
     from mclstexp_tpu_torch.ops.row_shift import row_shift
 
     for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq):
         w.launches = w.segment_launches = w.bf16_launches = w.bf16_segment_launches = 0
         w.wg_launches = 0
+    linear_fp32.wg_launches = 0
     row_shift.launches = 0
     row_shift.kernel_launches = dict.fromkeys(row_shift.kernel_launches, 0)
 
@@ -2273,14 +2359,17 @@ def _whole_slide():
 def phase_baselines():
     """HisToGene and THItoGene at the her2st flow's widths on the card (see
     the module docstring, phase 15). Returns the segment launches of the
-    HisToGene fold (the main path) and of the THItoGene fold."""
+    HisToGene fold (the main path) and of the THItoGene fold, and the linear
+    kernel's products in a whole-slide step (forward, backward)."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.ops import augment
     from mclstexp_tpu_torch.ops import flash_attention as fa
+    from mclstexp_tpu_torch.ops import linear as lin
 
     t0 = time.perf_counter()
     sections = _baseline_sections(785)
@@ -2353,6 +2442,18 @@ def phase_baselines():
     whole_times, peaks = {"xla": [], "flash": []}, {}
     xla = trainer.init_baseline(cfg, "cuda", "xla")
     flash = trainer.init_baseline(cfg, "cuda", "flash")
+    # the linear kernel's products in one step's forward and backward
+    lin.linear_fp32.wg_launches = 0
+    loss = trainer.slide_loss(flash.model, cfg, batch,
+                              augment.reseed(torch.Generator(device="cuda"), 0, 1))
+    linear = [lin.linear_fp32.wg_launches]
+    loss.backward()
+    linear.append(lin.linear_fp32.wg_launches - linear[0])
+    flash.model.zero_grad(set_to_none=True)
+    del loss
+    if tuple(linear) != LINEAR_STEP:
+        raise AssertionError(f"whole-slide step: {linear} linear products on the kernel "
+                             f"(forward, backward), not {LINEAR_STEP}")
     _reset_counts()
     for name in ("xla", "flash", "flash", "xla"):
         torch.cuda.reset_peak_memory_stats()
@@ -2365,15 +2466,21 @@ def phase_baselines():
     if wg != (6 * 8,) * 3 or _flash_counts() != wg:
         raise AssertionError(f"whole-slide steps: warpgroup launches {wg}, launches "
                              f"{_flash_counts()}; expected 48 of each (8 per step)")
+    steps_linear = lin.linear_fp32.wg_launches
+    if steps_linear != 12 * sum(LINEAR_STEP):
+        raise AssertionError(f"whole-slide steps: {steps_linear} linear products on the "
+                             f"kernel in 12 steps, not {12 * sum(LINEAR_STEP)}")
     log(f"[baselines] HisToGene whole-slide step, {n} spots padded to {len(batch['mask'])} "
         f"(attention (1, 16, 4096, 64) per layer, plan {fa.fp32_plan(1, 16, 4096, 64)}), ms "
         f"per slide step (xla, flash, flash, xla; 2 steps each): xla {whole_times['xla']}, "
         f"flash {whole_times['flash']}; warpgroup launches forward/dK-dV/dQ {wg} in 6 steps "
-        f"(8 per step); peak memory (both models and their Adam state resident) xla "
+        f"(8 per step); linear products on the kernel {linear[0]} forward + {linear[1]} "
+        f"backward a step, {steps_linear} in the 12 timed steps; peak memory (both models and "
+        f"their Adam state resident) xla "
         f"{peaks['xla']:.1f} GiB, flash {peaks['flash']:.1f} GiB, on {card_line()}")
     del xla, flash, batch
     torch.cuda.empty_cache()
-    return counts, tcounts
+    return counts, tcounts, linear
 
 
 HIST2ST_PER_STEP = 48  # 6 train-mode passes (the slide, 5 bakes) x 8 attention layers
@@ -2411,6 +2518,7 @@ def phase_hist2st():
     import torch
 
     from mclstexp_tpu_torch.baselines import trainer
+    from mclstexp_tpu_torch.ops.linear import linear_fp32
 
     sections = _baseline_sections(785)
     cfg = trainer.BaselineConfig(model="hist2st", n_genes=785, patch_size=112, max_epochs=1)
@@ -2460,11 +2568,16 @@ def phase_hist2st():
     whole = _whole_slide()
     batch = trainer.slide_tensors(trainer.pad_slide(whole, cfg.bucket, True, cfg), "cuda")
     torch.cuda.reset_peak_memory_stats()
+    linear_fp32.wg_launches = 0
     ms = [_slide_step_ms(state, cfg, batch, n=2)]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if linear_fp32.wg_launches != 3 * HIST2ST_LINEAR_STEP:
+        raise AssertionError(f"Hist2ST whole-slide steps: {linear_fp32.wg_launches} linear "
+                             f"products on the kernel in 3 steps, not {3 * HIST2ST_LINEAR_STEP}")
     log(f"[hist2st] Hist2ST whole-slide step, {whole.num_spots} spots padded to "
         f"{len(batch['mask'])} (6 passes of 8 layers of attention (1, 16, 4096, 64) with ids), "
-        f"flash: {ms} ms per slide step (2 steps after one); peak memory {peak:.1f} GiB (the "
+        f"flash: {ms} ms per slide step (2 steps after one), {HIST2ST_LINEAR_STEP} linear "
+        f"products a step on the kernel; peak memory {peak:.1f} GiB (the "
         f"model, its Adam state and the step's six graphs) on {card_line()}")
     del state, batch
     torch.cuda.empty_cache()
@@ -4087,6 +4200,7 @@ def main() -> int:
     flash_entry = phase_flash_kernels()
     bwd_entries = phase_flash_bwd_kernels()
     phase_flash_bwd_long(flash_entry, bwd_entries)
+    linear_entries = phase_linear()
     patch_entry = phase_patches()
     cfg, state, sections, launches = phase_train()
     for entry in entries:
@@ -4109,7 +4223,7 @@ def main() -> int:
     baseline_launches, histogene_scores = phase_cli_baseline()
     cli_dp_launches = phase_cli_dp(sections, histogene_scores)
     seg_entries = phase_segment_kernels()
-    seg_counts, thitogene_counts = phase_baselines()
+    seg_counts, thitogene_counts, linear_step = phase_baselines()
     hist2st_counts = phase_hist2st()
     phase_bleep(sections)
     bf16_entries = phase_bf16_kernels()
@@ -4163,7 +4277,14 @@ def main() -> int:
                                        "cli_baseline": baseline_launches,
                                        "shard_eval": shard_eval_launches}
     patch_entry["launches"] = cli_dp_launches
-    entries += [flash_entry, *bwd_entries, patch_entry, *seg_entries, *bf16_entries]
+    # the linear kernel's products on this slice's main path, a whole-slide
+    # HisToGene step (forward, then dX and dW for each product of the backward)
+    fwd, bwd = linear_step  # dW for every product, dX for all but the patch embedding's
+    for entry, count in zip(linear_entries, (fwd, bwd - fwd, fwd)):
+        entry["launches"] = count
+        entry["launches_by_path"] = {"histogene_whole_slide": count}
+    entries += [flash_entry, *bwd_entries, *linear_entries, patch_entry, *seg_entries,
+                *bf16_entries]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)

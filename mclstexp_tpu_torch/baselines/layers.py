@@ -34,6 +34,7 @@ from torch import nn
 
 from mclstexp_tpu_torch.core.layers import Conv2dT, SeededDropout, as_compute, gelu_exact, widen
 from mclstexp_tpu_torch.models.image.common import MaskedBatchNormT
+from mclstexp_tpu_torch.ops.linear import linear
 
 
 class ConvMixerBlock(nn.Module):
@@ -69,8 +70,8 @@ class GraphSAGEBlock(nn.Module):
     """GraphSAGE with gcn=True (Hist2ST's): the neighbours' mean, (adj /
     where(deg == 0, 1, deg)) @ x in fp32 (the JAX module's adjacency is fp32,
     which promotes a bf16 x), a Linear without bias (``weight`` (out, in),
-    xavier-uniform) in ``compute_dtype``, ReLU, then each row divided by
-    max(its L2 norm, 1e-12)."""
+    xavier-uniform) in ``compute_dtype`` (in fp32 ``ops.linear.linear``, as
+    ``DenseT``), ReLU, then each row divided by max(its L2 norm, 1e-12)."""
 
     compute_dtype = torch.float32
 
@@ -82,7 +83,7 @@ class GraphSAGEBlock(nn.Module):
         dt = self.compute_dtype
         deg = adj.sum(dim=1, keepdim=True)
         neigh = (adj / torch.where(deg == 0, torch.ones_like(deg), deg)) @ widen(x)
-        h = F.relu(F.linear(as_compute(neigh, dt), as_compute(self.weight, dt)))
+        h = F.relu(linear(as_compute(neigh, dt), as_compute(self.weight, dt)))
         norm = torch.sqrt((h * h).sum(dim=1, keepdim=True))
         return h / torch.clamp(norm, min=1e-12)
 

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention, widen
+from mclstexp_tpu_torch.ops.linear import linear
 from mclstexp_tpu_torch.parallel.ring_attention import sequence_parallel_attention
 
 # variance_scaling(2.0, "fan_out", "truncated_normal") of the JAX build:
@@ -130,7 +131,8 @@ def compute_dtype_of(name: str) -> torch.dtype:
 class DenseT(nn.Linear):
     """Dense layer: fp32 parameters (torch-default init), the product in
     ``compute_dtype``. In bf16: bf16(x) @ bf16(W)^T, a bf16 result, plus the
-    bias cast to bf16 (the JAX ``DenseT``)."""
+    bias cast to bf16 (the JAX ``DenseT``). In fp32: ``ops.linear.linear``,
+    the 3xTF32 kernel where its plan picks it on a card, else ``F.linear``."""
 
     compute_dtype = torch.float32
 
@@ -140,7 +142,7 @@ class DenseT(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
-            return super().forward(x)
+            return linear(x, self.weight, self.bias)
         y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
 

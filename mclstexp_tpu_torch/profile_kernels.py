@@ -23,7 +23,15 @@
   ``FlashAttention`` runs them: one split pass for both on the warpgroup
   design); and the fp32 pair on both designs at ``CROSSOVER`` shapes
   (``time_designs``: where ``fp32_plan`` switches). ``--only flash`` times
-  these alone.
+  these alone;
+* the fp32 linear maps (``ops.linear``) at ``LINEAR_SHAPES`` (HisToGene's
+  products at 4,096 rows): the 3xTF32 kernel's forward, dX and dW (each
+  with its split pass) and its whole backward (dX, dW, db), against cuBLAS
+  in fp32 (the plain version) and with TF32 allowed, each with its error
+  against float64 (``time_linear``); and a layer's forward and backward on
+  each side of ``linear_plan``'s crossover (``LINEAR_CROSSOVER``,
+  ``time_linear_designs``): device ms, and the ms of an eager call, host
+  included. ``--only linear`` times these alone.
 
 Each data-movement case is checked bit-equal to the plain version (the
 flash kernels are checked by ``chip_smoke.py`` and the card tests) and
@@ -41,12 +49,14 @@ from __future__ import annotations
 import inspect
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
 
 from mclstexp_tpu_torch.ops import augment
 from mclstexp_tpu_torch.ops import flash_attention as fa
+from mclstexp_tpu_torch.ops import linear as lin
 from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain
 from mclstexp_tpu_torch.ops.row_shift import row_shift, row_shift_plain
 
@@ -60,6 +70,12 @@ FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 66, 64), (1, 8, 128, 64), (1, 8, 300, 64)
 CROSSOVER = tuple((1, 16, n, 64) for n in (128, 256, 320, 384, 512, 768)) + tuple(
     (1, 8, n, 64) for n in (300, 512, 640, 1024))
 FLASH_PADDED = 63  # rows of the padded tail in the segment-id case
+# (m, n, k): HisToGene's patch embedding, qkv, out, MLP up and down, gene head
+LINEAR_SHAPES = ((4096, 1024, 37632), (4096, 3072, 1024), (4096, 1024, 1024),
+                 (4096, 2048, 1024), (4096, 1024, 2048), (4096, 785, 1024))
+LINEAR_CROSSOVER = tuple((m, n, k) for m in (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
+                         for n, k in ((3072, 1024), (1024, 1024), (1024, 2048)))
+TF32_FLOPS = 495e12
 
 
 def card_line() -> str:
@@ -82,6 +98,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Host ms per call of ``fn``: the host's clock around ``iters`` eager
+    calls that queue their work without waiting for it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e3
 
 
 def graph_ms(fn, reps: int = 20, iters: int = 20) -> float:
@@ -244,15 +274,91 @@ def time_designs(shape, g) -> dict:
     return out
 
 
+def _rel_err(x, exact) -> float:
+    return (torch.linalg.norm((x.double() - exact).flatten())
+            / torch.linalg.norm(exact.flatten())).item()
+
+
+def time_linear(shape, g) -> dict:
+    """Device ms and float64 errors of y = x w^T + b at (m, n, k): the
+    kernel's forward, dX and dW (each with its split pass) and its whole
+    backward (dX, dW, db); cuBLAS fp32 (``F.linear``, the plain version) and
+    cuBLAS with TF32 allowed, the same; the 3xTF32 bound of one product."""
+    m, n, k = shape
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = (torch.rand((n, k), generator=g, device="cuda") * 2 - 1) * k**-0.5
+    b = torch.randn((n,), generator=g, device="cuda")
+    dy = torch.randn((m, n), generator=g, device="cuda")
+    f = torch.nn.functional.linear
+    exact = (f(x.double(), w.double(), b.double()), dy.double() @ w.double(),
+             dy.double().T @ x.double())
+    timed = lambda fn: graph_ms(fn, reps=5, iters=5)  # noqa: E731
+    kernel = {"": lambda: lin._forward(x, w, b), "_dx": lambda: lin._backward(x, w, dy, True,
+                                                                              False)[0],
+              "_dw": lambda: lin._backward(x, w, dy, False, True)[1]}
+    library = {"": lambda: f(x, w, b), "_dx": lambda: dy @ w, "_dw": lambda: dy.T @ x}
+    out = {"bound": 3 * 2 * m * n * k / TF32_FLOPS * 1e3,
+           "backward": timed(lambda: (lin._backward(x, w, dy, True, True), dy.sum(0))),
+           "cublas_backward": timed(lambda: (dy @ w, dy.T @ x, dy.sum(0)))}
+    for (part, fn), want in zip(kernel.items(), exact):
+        out["kernel" + part], out["err_kernel" + part] = timed(fn), _rel_err(fn(), want)
+    for (part, fn), want in zip(library.items(), exact):
+        out["cublas" + part], out["err_cublas" + part] = timed(fn), _rel_err(fn(), want)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for (part, fn), want in zip(library.items(), exact):
+            out["cublas_tf32" + part] = timed(fn)
+            out["err_cublas_tf32" + part] = _rel_err(fn(), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def time_linear_designs(shape, g) -> dict:
+    """A linear layer's forward and backward (dX, dW, db) at (m, n, k) on the
+    kernel and on cuBLAS: device ms (graph replays), the ms of an eager
+    autograd call (``linear`` under ``torch.autograd.grad``: the larger of
+    the host's and the device's time, as a layer alone runs) and the host's
+    ms alone, the plan's crossover moved out of the way for the design it
+    would not pick."""
+    m, n, k = shape
+    x = torch.randn((m, k), generator=g, device="cuda", requires_grad=True)
+    w = torch.randn((n, k), generator=g, device="cuda", requires_grad=True)
+    b = torch.randn((n,), generator=g, device="cuda", requires_grad=True)
+    dy = torch.randn((m, n), generator=g, device="cuda")
+    f = torch.nn.functional.linear
+    device = {"warpgroup": lambda: (lin._forward(x, w, b), lin._backward(x, w, dy, True, True),
+                                    dy.sum(0)),
+              "cublas": lambda: (f(x, w, b), dy @ w, dy.T @ x, dy.sum(0))}
+    limits = lin.WG_MIN_ROWS, lin.WG_MIN_WIDTH
+    out = {"plan": lin.linear_plan(*shape)}
+    try:
+        for design, (rows, width) in (("warpgroup", (1, 1)), ("cublas", (2**62, 2**62))):
+            lin.WG_MIN_ROWS, lin.WG_MIN_WIDTH = rows, width
+            out[design] = graph_ms(device[design], reps=5, iters=5)
+            call = lambda: torch.autograd.grad(lin.linear(x, w, b), (x, w, b), dy)  # noqa: E731
+            out[design + "_eager"] = cuda_ms(call, iters=20, warmup=5)
+            out[design + "_host"] = host_ms(call, iters=20, warmup=5)
+    finally:
+        lin.WG_MIN_ROWS, lin.WG_MIN_WIDTH = limits
+    return out
+
+
 def main(argv=None) -> None:
     import argparse
 
     parser = argparse.ArgumentParser(prog="profile_kernels")
-    parser.add_argument("--only", choices=["all", "flash"], default="all")
+    parser.add_argument("--only", choices=["all", "flash", "linear"], default="all")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
+    if only == "linear":
+        linear = {str(shape): time_linear(shape, g) for shape in LINEAR_SHAPES}
+        designs = {str(shape): time_linear_designs(shape, g) for shape in LINEAR_CROSSOVER}
+        print(json.dumps({"card": card_line(), "linear": linear, "crossover": designs}),
+              flush=True)
+        return
     has_ids = "segment_ids" in inspect.signature(fa.flash_forward).parameters
     flash = {}
     for dtype in (torch.float32, torch.bfloat16):
