@@ -34,12 +34,12 @@
   included. ``--only linear`` times these alone.
 
 Each data-movement case is checked bit-equal to the plain version (the
-flash kernels are checked by ``chip_smoke.py`` and the card tests) and
-timed two ways: ``ms``, CUDA events over eager launches (the wrapper's host
-cost included when it exceeds the kernel's time), and ``graph_ms``,
-CUDA-graph replays (device time alone). Prints one JSON object with the
-card's name and power limit. ``chip_smoke.py`` takes its kernel timings
-from here; to compare a parent commit in one chip call, unpack it into
+flash and linear kernels are checked by the card tests,
+``tests/test_torch_port_*.py -m gpu``) and timed two ways: ``ms``, CUDA
+events over eager launches (the wrapper's host cost included when it
+exceeds the kernel's time), and ``graph_ms``, CUDA-graph replays (device
+time alone). Prints one JSON object with the card's name and power limit.
+To compare a parent commit in one chip call, unpack it into
 ``build/parent``, copy this file into its package and run parent, change,
 change, parent.
 """

@@ -22,10 +22,10 @@ land on the other side of a bf16 rounding boundary. l and m are fp32 on
 both sides: rtol 1e-5.
 
 The card tests (``gpu`` marker, skipped without a card) hold the CUDA bf16
-kernels to the plain bf16 versions at the shapes of chip_smoke's [bf16]
-phase and at d 32 / 64 / 128 and n 1 / 66 / 300, with the same tolerance
-plus 1e-5 absolute (at n = 1 dk and dq are rounding noise around 0), and
-check that two runs give the same bits. JAX is imported inside the CPU
+kernels to the plain bf16 versions at the tile edges, the flagship's and
+the slide baselines' shapes and at d 32 / 64 / 128 and n 1 / 66 / 300,
+with the same tolerance plus 1e-5 absolute (at n = 1 dk and dq are
+rounding noise around 0), and check that two runs give the same bits. JAX is imported inside the CPU
 fixture, so the card tests run where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_port_flash_bf16.py -m gpu
@@ -242,3 +242,74 @@ def test_bf16_kernels_with_segment_ids(cuda, n, real):
     assert fa.flash_attention.bf16_segment_launches == before + 2
     for name, g, w in zip(("out", "l", "m", "dk", "dv", "dq"), got, want):
         _check(g, w, name)
+
+
+def _bf16_outputs_match(q, k, v, do, seg, what):
+    """The three bf16 kernels (the forward with residuals, dK/dV and dQ fed
+    the plain l and m) against their plain bf16 versions: the bf16 outputs
+    within 2**-7 of their largest magnitude + 1e-5, l within 1e-5 relative,
+    m 1e-5; the same bits on a second run."""
+    scale = q.shape[-1]**-0.5
+    ro, rl, rm = fa.flash_forward_plain(q, k, v, scale, seg)
+    di = (ro.float() * do.float()).sum(-1).contiguous()
+    args = (q, k, v, do, rl, rm, di, scale, seg)
+    want = (ro, rl, rm, *fa.flash_bwd_dkv_plain(*args), fa.flash_bwd_dq_plain(*args))
+
+    def run():
+        return (*fa.flash_forward(q, k, v, scale, True, seg), *fa.flash_bwd_dkv(*args),
+                fa.flash_bwd_dq(*args))
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), what
+    for i, (x, w) in enumerate(zip(got, want)):
+        if i == 1:
+            off, tol = float(((x - w) / w).abs().max()), 1e-5
+        elif i == 2:
+            off, tol = float((x - w).abs().max()), 1e-5
+        else:
+            assert x.dtype == torch.bfloat16, (what, i)
+            off = float((x.float() - w.float()).abs().max())
+            tol = REL * float(w.float().abs().max()) + 1e-5
+        assert off <= tol, (what, i, off, tol)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_at_tile_edges_and_the_card_shapes(cuda):
+    """Drawn in turn from seed 10: the tile edges (1, 2, n, d), n = 1, 63,
+    64, 65, 127, 129 at d = 32 / 64 / 128, without and with interleaved ids,
+    then d % 8 != 0 and views 2 bytes past a 16-byte boundary (the
+    plain-load variant; ``tma_ok`` as expected); the flagship's (1, 8, 32 /
+    128 / 300, 64) and (1, 8, 128, 32 / 128); the slide baselines' (1, 16,
+    384 / 768, 64) with padded tails (346, 705 real rows) and interleaved
+    ids at 768; and (1, 16, 4,096, 64)."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    edges = [((1, 2, n, d), ids, 0) for d in (32, 64, 128) for n in (1, 63, 64, 65, 127, 129)
+             for ids in (False, True)]
+    edges += [((1, 3, 65, 36), False, 0), ((1, 2, 300, 20), True, 0),
+              ((2, 2, 129, 64), True, 1), ((1, 2, 70, 100), False, 1)]
+    for (b, h, n, d), ids, shift in edges:
+        buf = torch.randn((b, n, 3, h, d + shift), generator=g, device="cuda").bfloat16()
+        q, k, v = (buf[:, :, i, :, shift:shift + d].transpose(1, 2) for i in range(3))
+        do = torch.randn((b, h, n, d), generator=g, device="cuda").bfloat16()
+        seg = (torch.randint(0, 3, (b, n), generator=g, device="cuda", dtype=torch.int32)
+               if ids else None)
+        _bf16_outputs_match(q, k, v, do, seg, ((b, h, n, d), ids, shift))
+        assert fa.tma_ok(q, k, v, do) == (shift == 0 and d % 8 == 0), (b, h, n, d)
+
+    cases = [(shape, None) for shape in ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64),
+                                         (1, 8, 128, 32), (1, 8, 128, 128))]
+    cases += [((1, 16, n, 64), (n, real)) for n, real in ((384, 346), (768, 705), (768, None))]
+    cases += [((1, 16, 4096, 64), None)]
+    for shape, ids in cases:
+        seg = None
+        if ids is not None:
+            n, real = ids
+            seg = (torch.randint(0, 3, (1, n), generator=g, device="cuda", dtype=torch.int32)
+                   if real is None else (torch.arange(n, device="cuda") < real).to(
+                       torch.int32)[None])
+        b, h, n, d = shape
+        qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda").bfloat16()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        _bf16_outputs_match(q, k, v, do, seg, (shape, ids))

@@ -7,7 +7,7 @@ side in tiles of 64 through a two-stage ring (``bf16_plan``); inputs that
 TMA cannot take run a variant that stages the same tiles by plain loads
 (``tma_ok`` says which). On the CPU:
 
-  (a) ``bf16_plan`` at every shape chip_smoke launches, and its limits; the
+  (a) ``bf16_plan`` at every shape the card tests launch, and its limits; the
       plan a bf16 dQ (and every bf16 launch) hands its C entry point;
   (b) ``tma_ok``: which views take TMA;
   (c) the tiles' maps (``csrc/flash_wgmma.cuh``): the 128-byte swizzle, the
@@ -75,10 +75,11 @@ def test_bf16_plan_at_the_launched_shapes(shape, ctas):
     assert ctas == b * h * -(-n // 64)
 
 
-# every shape chip_smoke.py launches the bf16 dQ at: the tile edges ([bf16]
-# ``BF16_EDGES``, then d % 8 != 0 and misaligned views), ``BF16_SHAPES``, the
-# segment shapes, the whole slide, the flagship fold's remainder batch and
-# the HisToGene folds' padded slides
+# every shape the card tests launch the bf16 dQ at: the tile edges and the
+# flagship's and slides' shapes of test_torch_port_flash_bf16.py::
+# test_bf16_kernels_at_tile_edges_and_the_card_shapes (then d % 8 != 0 and
+# misaligned views), the whole slide, the flagship fold's remainder batch and
+# the HisToGene folds' padded slides (tests/test_torch_port_card_*.py)
 DQ_SHAPES = ([(1, 2, n, d) for d in (32, 64, 128) for n in (1, 63, 64, 65, 127, 129)]
              + [(1, 3, 65, 36), (1, 2, 300, 20), (2, 2, 129, 64), (1, 2, 70, 100)]
              + [(1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64), (1, 8, 128, 32),
@@ -108,7 +109,7 @@ def _entry_plan(monkeypatch, dtype, shape):
 @pytest.mark.parametrize("shape", DQ_SHAPES, ids=str)
 def test_bf16_dq_launches_under_bf16_plan(monkeypatch, shape):
     """A bf16 dQ runs under ``bf16_plan`` (64 rows, split 1, one CTA per
-    block of 64 queries) at every shape chip_smoke launches it; fp32 keeps
+    block of 64 queries) at every shape the card tests launch it; fp32 keeps
     ``cluster_plan``."""
     b, h, n, _ = shape
     assert fa.bf16_plan(*shape) == (64, 1, b * h * -(-n // 64), 2)

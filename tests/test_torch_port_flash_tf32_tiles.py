@@ -9,7 +9,7 @@ since a tf32 ``wgmma`` reads its shared-memory operands K-major only).
 ``fp32_plan`` picks that design or the cluster kernels from (b, h, n, d).
 On the CPU:
 
-  (a) ``fp32_plan`` at every shape the benchmark's cells and chip_smoke
+  (a) ``fp32_plan`` at every shape the benchmark's cells and the card tests
       launch, its crossover and its limits;
   (b) that ``flash_forward`` and the backward route an fp32 tensor by the
       plan, with and without segment ids (stand-in entry points record the

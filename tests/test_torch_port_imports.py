@@ -1,13 +1,16 @@
 """The port stands alone: importing every one of its modules loads neither
 JAX nor the JAX package, nor pandas, PIL or OpenCV (the card's machine has
 none of them), and no module builds a kernel or needs a card when it is
-imported."""
+imported. The card tests (``tests/test_torch_port_card_*.py``) import none
+of them either, and skip without a card."""
 
 import os
 import pkgutil
 import subprocess
 import sys
+from xml.etree import ElementTree
 
+import pytest
 import torch
 
 import mclstexp_tpu_torch
@@ -56,11 +59,18 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
-def test_chip_smoke_imports_no_jax_pandas_pil_or_cv2():
-    """chip_smoke.py at import time, as the port's modules."""
+CARD_MODULES = sorted(f for f in os.listdir(os.path.join(REPO, "tests"))
+                      if f.startswith("test_torch_port_card_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", CARD_MODULES)
+def test_card_tests_import_no_jax_pandas_pil_or_cv2(module):
+    """Each card test module at import time, as the port's modules: the
+    card's machine has none of them."""
     code = (
-        "import sys\n"
-        "import chip_smoke\n"
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        f"importlib.import_module({module[:-3]!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mclstexp_tpu', 'pandas', 'PIL', 'cv2'))\n"
         "assert not bad, bad\n"
@@ -70,13 +80,23 @@ def test_chip_smoke_imports_no_jax_pandas_pil_or_cv2():
     assert out.returncode == 0, out.stderr
 
 
-def test_chip_smoke_refuses_without_a_card():
-    """Without CUDA the smoke script exits non-zero and prints no result."""
+def test_card_tests_skip_without_a_card(tmp_path):
+    """Without CUDA every card test is collected without the tests' conftest
+    (which imports JAX) and skips: no failure, no error, nothing run."""
+    assert len(CARD_MODULES) >= 4
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
+    report = tmp_path / "card.xml"
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q", "-p",
+         "no:cacheprovider", f"--junitxml={report}"]
+        + [os.path.join("tests", m) for m in CARD_MODULES],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    suite = ElementTree.parse(report).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    counts = {k: int(suite.get(k)) for k in ("tests", "skipped", "errors", "failures")}
+    assert counts["tests"] > 0 and counts["skipped"] == counts["tests"], counts
+    assert counts["errors"] == counts["failures"] == 0, counts
 
 
 def test_profile_summary_attributes_kernels_to_phases():

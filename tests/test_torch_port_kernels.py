@@ -5,8 +5,9 @@ without one. On the card:
 
     python -m pytest --noconftest tests/test_torch_port_kernels.py -m gpu
 
-row_shift and the patch gather are bit-equal to their plain versions (both
-copy raw words or bytes), on every kernel path their plans choose.
+Every ``csrc/*.cu`` builds. row_shift and the patch gather are bit-equal to
+their plain versions (both copy raw words or bytes), on every kernel path
+their plans choose, the gather also on a 20,000 x 20,000 Visium slide.
 Flash-attention tolerances: atol 2e-5 for the forward and both backward
 kernels against their plain versions, the forward's l relative (fp32 on
 both sides; sums in another order, the forward's online softmax rescaling,
@@ -16,11 +17,13 @@ kernels are deterministic: the cluster ranks' partials are merged in a
 fixed order.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import pytest
 import torch
 
 from mclstexp_tpu_torch.core.layers import MultiHeadSelfAttention
-from mclstexp_tpu_torch.ops import augment
+from mclstexp_tpu_torch.ops import augment, build
 from mclstexp_tpu_torch.ops import flash_attention as fa
 from mclstexp_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 from mclstexp_tpu_torch.ops.patches import extract_patches, extract_patches_plain, patch_plan
@@ -35,6 +38,19 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.gpu
+def test_every_kernel_source_builds(cuda):
+    """Each ``csrc/*.cu`` compiles for sm_90a (one nvcc process each, started
+    together) into a library that loads."""
+    sources = sorted(path.name for path in build.CSRC.glob("*.cu"))
+    assert "linear_tf32.cu" in sources and len(sources) >= 9
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build.build_library, sources)))
+    for source, (path, _) in built.items():
+        assert path.is_file(), source
+        build.load_library(source)
 
 
 @pytest.mark.gpu
@@ -189,6 +205,29 @@ def test_flash_forward_unaligned_inputs_and_determinism(cuda, n):
     second = (flash_attention(q, k, v, 0.125), *fa.flash_forward(q, k, v, 0.125, residuals=True))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+FLAGSHIP_SHAPES = ((1, 8, 32, 64), (1, 8, 128, 64), (1, 8, 300, 64))  # eval sweep, train, ragged
+
+
+@pytest.mark.gpu
+def test_flash_forward_at_the_flagship_shapes(cuda):
+    """The eval sweep's (1, 8, 32, 64), the training shape n = 128 (at least
+    128 CTAs) and a ragged n = 300, read in place from a (b, n, 3, h, d) qkv
+    buffer as the spot tower gives it, drawn in turn from seed 0: within
+    2e-5 of the plain versions with and without residuals, and the same
+    bits on a second run."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, d in FLAGSHIP_SHAPES:
+        if n == 128:
+            assert fa.cluster_plan(b, h, n, d)[2] >= 128
+        qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        got, *residuals = _check_forward(q, k, v, d**-0.5)
+        assert torch.equal(flash_attention(q, k, v, d**-0.5), got)
+        for x, y in zip(fa.flash_forward(q, k, v, d**-0.5, True),
+                        fa.flash_forward(q, k, v, d**-0.5, True)):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -370,6 +409,43 @@ def test_flash_segment_cluster_kernels_at_long_n(cuda, monkeypatch, shape, kind)
 
 
 @pytest.mark.gpu
+def test_flash_segment_kernels_at_the_slides(cuda):
+    """The three kernels with segment ids at (1, 16, n, 64), the slide
+    baselines' heads, drawn in turn from seed 8: padded tails of 384 rows (346
+    real), 768 (705), 4,096 (3,969: the whole slide) and interleaved ids at
+    768, on the design ``fp32_plan`` picks. Each within 2e-5 of its plain
+    version (the forward with and without residuals; l relative), the same
+    bits on a second run, and the padded rows' output the segment softmax's,
+    not the key mask's."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for n, real, kind in ((384, 346, "tail"), (768, 705, "tail"), (4096, 3969, "tail"),
+                          (768, None, "interleaved")):
+        q, k, v, do, _, _, _, scale = _kernel_residuals_case(g, (1, 16, n, 64))
+        if kind == "interleaved":
+            seg = torch.randint(0, 3, (1, n), generator=g, device="cuda", dtype=torch.int32)
+        else:
+            seg = (torch.arange(n, device="cuda") < real).to(torch.int32)[None]
+        out, l, m = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
+        alone = fa.flash_forward(q, k, v, scale, segment_ids=seg)
+        want, want_l, want_m = fa.flash_forward_plain(q, k, v, scale, seg)
+        args = (q, k, v, do, want_l, want_m, (want * do).sum(-1).contiguous(), scale, seg)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        dq = fa.flash_bwd_dq(*args)
+        for got, ref in ((out, want), (alone, want), (m, want_m),
+                         *zip((dk, dv), fa.flash_bwd_dkv_plain(*args)),
+                         (dq, fa.flash_bwd_dq_plain(*args))):
+            torch.testing.assert_close(got, ref, rtol=0, atol=FLASH_ATOL, msg=f"{n} {kind}")
+        torch.testing.assert_close(l, want_l, rtol=FLASH_ATOL, atol=0)
+        again = (*fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg),
+                 *fa.flash_bwd_dkv(*args), fa.flash_bwd_dq(*args))
+        assert all(torch.equal(a, b) for a, b in zip((out, l, m, dk, dv, dq), again))
+        padded = seg[0] == 0
+        if padded.any():
+            key_mask = fa.attention_plain(q, k, v, scale, seg != 0)
+            assert float((out - key_mask)[:, :, padded].abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [100, 384])
 def test_flash_segment_autograd_matches_plain_autograd(cuda, n):
     """torch.autograd.grad through flash_attention with a mask (the segment
@@ -521,6 +597,53 @@ def test_flash_backward_is_deterministic(cuda, n):
         assert torch.equal(a, b)
 
 
+def _kernel_residuals_case(g, shape):
+    """The backward kernels' arguments at ``shape``: q, k, v as the views of a
+    (b, n, 3, h, d) qkv buffer and dout, drawn from ``g``; the kernel
+    forward's l and m, and di = rowsum(out * dout)."""
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, h, n, d), generator=g, device="cuda")
+    out, l, m = fa.flash_forward(q, k, v, d**-0.5, residuals=True)
+    return q, k, v, do, l, m, (out * do).sum(-1).contiguous(), d**-0.5
+
+
+@pytest.mark.gpu
+def test_flash_backward_at_the_flagship_shapes(cuda):
+    """dK/dV and dQ fed the kernel forward's l and m at the training shape
+    (1, 8, 128, 64) (at least 128 CTAs), the remainder batch's n = 66 and a
+    ragged n = 300, drawn in turn from seed 1: within 2e-5 of their plain
+    versions."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for shape in ((1, 8, 128, 64), (1, 8, 66, 64), (1, 8, 300, 64)):
+        if shape[2] == 128:
+            assert fa.cluster_plan(*shape)[2] >= 128
+        args = _kernel_residuals_case(g, shape)
+        for got, want in ((fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*args)),
+                          ((fa.flash_bwd_dq(*args),), (fa.flash_bwd_dq_plain(*args),))):
+            for x, y in zip(got, want):
+                torch.testing.assert_close(x, y, rtol=0, atol=FLASH_ATOL, msg=str(shape))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_at_the_whole_slide_attention(cuda):
+    """(1, 16, 4,096, 64) from seed 2, on the design ``fp32_plan`` picks: the
+    forward with residuals within 2e-5 of ``flash_forward_plain`` (l
+    relative), dK/dV and dQ fed its l and m within 2e-5 of their plain
+    versions."""
+    q, k, v, do, l, m, di, scale = args = _kernel_residuals_case(
+        torch.Generator(device="cuda").manual_seed(2), (1, 16, 4096, 64))
+    got, want = fa.flash_forward(q, k, v, scale, residuals=True), fa.flash_forward_plain(
+        q, k, v, scale)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=FLASH_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=FLASH_ATOL, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=FLASH_ATOL)
+    for x, y in zip((*fa.flash_bwd_dkv(*args), fa.flash_bwd_dq(*args)),
+                    (*fa.flash_bwd_dkv_plain(*args), fa.flash_bwd_dq_plain(*args))):
+        torch.testing.assert_close(x, y, rtol=0, atol=FLASH_ATOL)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [66, 128])
 def test_flash_autograd_matches_plain_autograd(cuda, n):
@@ -624,3 +747,39 @@ def test_extract_patches_kernel_edges(cuda):
         extract_patches(slide.transpose(0, 1), centers, 16)
     with pytest.raises(ValueError, match="on cpu"):
         extract_patches(slide, centers.cpu(), 16)
+
+
+@pytest.mark.gpu
+def test_extract_patches_kernel_small_cases_then_visium_slide(cuda):
+    """From seed 4, bit-equal to the plain version: 60 x 80 and 50 x 83
+    slides at C 1, 3, 4 and P 15, 16, 32, 224 (the centers of
+    ``test_extract_patches_kernel_matches_plain`` and crop starts at every
+    residue mod 16), both of ``patch_plan``'s kernels, N = 0; then a 20,000 x
+    20,000 x 3 slide (a Visium full-resolution image, 1.2 GB) with 4,992 grid
+    centers and 64 at and past its border, P = 224."""
+    from mclstexp_tpu_torch.profile_kernels import PATCH, patch_input
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    small = torch.tensor(PATCH_CENTERS, device="cuda")
+    kernels = set()
+    for c in (1, 3, 4):
+        slide = torch.randint(0, 256, (60, 80, c), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        odd = torch.randint(0, 256, (50, 83, c), generator=g, device="cuda", dtype=torch.uint8)
+        for p in (15, 16, 32, 224):
+            r = p // 2
+            xs = torch.arange(r - 20, r + 83 + 4)
+            ys = torch.tensor([r, 25, 49, -r + 3, 50 + r - 3, -250])
+            residues = torch.stack([xs, ys[xs % len(ys)]], 1).cuda()
+            for s, centers in ((slide, small), (odd, residues)):
+                assert torch.equal(extract_patches(s, centers, p),
+                                   extract_patches_plain(s, centers, p)), (tuple(s.shape), p)
+            kernels.add(patch_plan(len(small), p, c).kernel)
+        assert extract_patches(slide, small[:0], 16).shape == (0, 16, 16, c)
+    assert kernels == {"gather_rows16", "gather_bytes"}
+
+    slide, _, centers = patch_input(g)
+    got = extract_patches(slide, centers, PATCH)
+    assert torch.equal(got, extract_patches_plain(slide, centers, PATCH))
+    del slide, got
+    torch.cuda.empty_cache()

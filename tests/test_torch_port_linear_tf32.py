@@ -604,3 +604,54 @@ def test_dense_autograd_on_the_card(cuda):
                                [x, ref.weight, ref.bias])
     for g, w in zip(got, want):
         assert _rel(g, w) < 1e-6
+
+
+# HisToGene's products at 4,096 rows: patch embedding, qkv, out, MLP up and down, gene head
+HISTOGENE_SHAPES = [(4096, 1024, 37632), (4096, 3072, 1024), (4096, 1024, 1024),
+                    (4096, 2048, 1024), (4096, 1024, 2048), (4096, 785, 1024)]
+
+
+@pytest.mark.gpu
+def test_kernel_at_histogene_whole_slide_products(cuda):
+    """Each of HisToGene's whole-slide products, drawn in turn from seed 0:
+    on the kernel by ``linear_plan``, three products counted a forward and
+    backward, the same bits on a second run; the forward, dX and dW (each
+    with its split pass) against float64 within twice cuBLAS fp32's error,
+    and cuBLAS with TF32 allowed farther off than that."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m, n, k in HISTOGENE_SHAPES:
+        assert lin.linear_plan(m, n, k) == "warpgroup", (m, n, k)
+        x = torch.randn((m, k), generator=g, device="cuda", requires_grad=True)
+        w = torch.randn((n, k), generator=g, device="cuda", requires_grad=True)
+        b = torch.randn((n,), generator=g, device="cuda", requires_grad=True)
+        dy = torch.randn((m, n), generator=g, device="cuda")
+
+        def run():
+            y = lin.linear_fp32(x, w, b)
+            return (y.detach(), *torch.autograd.grad(y, (x, w, b), dy))
+
+        before = lin.linear_fp32.wg_launches
+        first = run()
+        assert lin.linear_fp32.wg_launches == before + 3
+        assert all(torch.equal(u, v) for u, v in zip(first, run())), (m, n, k)
+        del x, w, b, dy, first
+
+        x = torch.randn((m, k), generator=g, device="cuda")
+        w = (torch.rand((n, k), generator=g, device="cuda") * 2 - 1) * k**-0.5
+        b = torch.randn((n,), generator=g, device="cuda")
+        dy = torch.randn((m, n), generator=g, device="cuda")
+        exact = (F.linear(x.double(), w.double(), b.double()), dy.double() @ w.double(),
+                 dy.double().T @ x.double())
+        kernel = (lin._forward(x, w, b), lin._backward(x, w, dy, True, False)[0],
+                  lin._backward(x, w, dy, False, True)[1])
+        library = (F.linear(x, w, b), dy @ w, dy.T @ x)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = (F.linear(x, w, b), dy @ w, dy.T @ x)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for name, got, lib_, t32, ex in zip(("y", "dx", "dw"), kernel, library, tf32, exact):
+            err, lib_err, tf32_err = _rel(got, ex), _rel(lib_, ex), _rel(t32, ex)
+            assert err <= 2 * lib_err < tf32_err, ((m, n, k), name, err, lib_err, tf32_err)
+        del x, w, b, dy, exact, kernel, library, tf32
+    torch.cuda.empty_cache()
