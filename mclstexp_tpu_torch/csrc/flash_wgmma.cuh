@@ -240,6 +240,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // wait until the phase of parity `parity` of the barrier has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;

@@ -95,11 +95,6 @@ __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int 
 #undef ACC16
 #undef ACC4
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(flash::smem_addr(bar))
-               : "memory");
-}
-
 // ---- the product --------------------------------------------------------------------
 
 // A consumer warpgroup's 64 x 128 sums (+ bias) into rows r0.., columns n0..
@@ -236,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg::wgmma_commit();
       wg::wgmma_wait();
       wg::fence_regs(acc);
-      if (lane == 0) mbar_arrive(empty + s);  // the stage is read: hand it back
+      if (lane == 0) wg::mbar_arrive(empty + s);  // the stage is read: hand it back
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) sum[i] += acc[i];
       if (++s == kStages) {

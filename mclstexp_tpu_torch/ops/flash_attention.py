@@ -38,7 +38,9 @@ inputs in the layouts the products read (rows, and transposed). ``fp32_plan``
 picks the design from (b, h, n, d): the warpgroup kernels at d <= 64 and n
 >= ``WG_MIN_N`` with enough 64-row blocks to fill the card, the cluster
 kernels elsewhere. Each wrapper counts the warpgroup launches in
-``wg_launches`` (inside ``launches``).
+``wg_launches`` (inside ``launches``). Where enough CTAs fill the card, dK/dV
+runs as CTAs of two warpgroups that own 128 keys and share each walked tile
+(``flash_bwd_dkv.wg128_launches``, inside ``wg_launches``).
 
 bfloat16 (``ModelConfig.dtype="bfloat16"``: the JAX modules hand the
 library kernels q, k, v in the compute dtype): each kernel has a bf16
@@ -123,6 +125,12 @@ WG_MAX_HEAD_DIM = 64  # their registers and shared memory hold tiles of up to 64
 # CTAs each, ran faster on the cluster kernels, (1, 16, 320, 64) on these.
 WG_MIN_N = 320
 WG_MIN_CTAS = 80
+WG128_ROWS = 128  # keys a CTA of the 128-key dK/dV kernel owns: two warpgroups of 64
+# Where it takes over from the 64-key kernel, in its CTAs (PERF.md section 6, measured on
+# the card): a 128-key CTA takes ~1.25-1.4x a 64-key CTA's time for twice the keys, so it
+# wins once the 64-key CTAs need a second wave on the 132 SMs; at (1, 16, n, 64) it lost at
+# n = 384 (48 CTAs) and won from n = 768 (96).
+WG128_MIN_CTAS = 67
 
 
 # Every entry point ends in: the segment ids (null for none); strides; b, h,
@@ -160,16 +168,19 @@ def _bwd_entries(dtype: torch.dtype):
 
 @functools.cache
 def _tf32_entries():
-    """(forward, backward) C entry points of the fp32 warpgroup kernels; each
-    launches the split pass and then its kernels."""
+    """(forward, backward, backward with the 128-key dK/dV) C entry points of
+    the fp32 warpgroup kernels; each launches the split pass and then its
+    kernels."""
     fwd = load_library(TF32_SOURCE).flash_attention_fwd_tf32_launch
-    bwd = load_library(TF32_BWD_SOURCE).flash_attention_bwd_tf32_launch
+    lib = load_library(TF32_BWD_SOURCE)
+    bwd, bwd128 = lib.flash_attention_bwd_tf32_launch, lib.flash_attention_bwd_tf32_dkv128_launch
     tail = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]  # ids, strides, b, h, n, d, scale, stream
     fwd.argtypes = [ctypes.c_void_p] * 7 + tail  # q, k, v, scratch, out, l, m
-    bwd.argtypes = [ctypes.c_void_p] * 11 + tail  # q, k, v, dout, scratch, l, m, di, dk, dv, dq
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    for fn in (bwd, bwd128):  # q, k, v, dout, scratch, l, m, di, dk, dv, dq
+        fn.argtypes = [ctypes.c_void_p] * 11 + tail
+    fwd.restype = bwd.restype = bwd128.restype = ctypes.c_int
+    return fwd, bwd, bwd128
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -390,22 +401,32 @@ def cluster_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int]:
     return ROWS, split, blocks * split
 
 
-def fp32_plan(b: int, h: int, n: int, d: int) -> Tuple[str, int, int, int]:
-    """(design, rows, split, ctas) of the fp32 flash kernels at (b, h, n, d).
+def fp32_plan(b: int, h: int, n: int, d: int) -> Tuple[str, int, int, int, int]:
+    """(design, rows, split, ctas, dkv_rows) of the fp32 flash kernels at (b,
+    h, n, d).
 
     "warpgroup" (``csrc/flash_attention{,_bwd}_tf32.cu``): blocks of ``rows``
     = 64 rows, one CTA each (``split`` = 1), ``ctas`` = b * h * ceil(n / 64),
     where d <= 64, n >= ``WG_MIN_N``, ctas >= ``WG_MIN_CTAS`` and b * h <=
     65535 (the split pass's grid). Elsewhere "cluster" with
     ``cluster_plan``'s rows, split and ctas: where few 64-row blocks would
-    leave SMs idle, a cluster splits each walk. Raises ValueError outside
-    the kernels' limits."""
+    leave SMs idle, a cluster splits each walk.
+
+    ``dkv_rows``: the keys a dK/dV CTA owns. On the warpgroup design 128
+    (``flash_bwd_dkv128_tf32``: two warpgroups of 64 keys walk one ring of
+    query tiles, each tile's bytes feeding twice the keys, one's exponentials
+    under the other's products) where its b * h * ceil(n / 128) CTAs are at
+    least ``WG128_MIN_CTAS``; below that the 64-key CTAs take the card in
+    one wave and run faster, and 64 (``flash_bwd_dkv_tf32``, one warpgroup a
+    CTA) runs. On the cluster design ``rows``. Raises ValueError outside the
+    kernels' limits."""
     rows, split, ctas = cluster_plan(b, h, n, d)
     wg_ctas = b * h * -(-n // WG_ROWS)
     if (d <= WG_MAX_HEAD_DIM and n >= WG_MIN_N and wg_ctas >= WG_MIN_CTAS
             and b * h <= 65535):
-        return "warpgroup", WG_ROWS, 1, wg_ctas
-    return "cluster", rows, split, ctas
+        wide = b * h * -(-n // WG128_ROWS) >= WG128_MIN_CTAS
+        return "warpgroup", WG_ROWS, 1, wg_ctas, WG128_ROWS if wide else WG_ROWS
+    return "cluster", rows, split, ctas, rows
 
 
 def bf16_plan(b: int, h: int, n: int, d: int) -> Tuple[int, int, int, int]:
@@ -479,8 +500,9 @@ def flash_backward(q, k, v, do, l, m, di, scale: float,
     """(dk, dv, dq), None for what was not asked (``dkv``, ``dq``): the
     plain versions for CPU tensors; the dK/dV and dQ kernels, counted in
     ``flash_bwd_dkv`` / ``flash_bwd_dq``'s ``launches`` (and
-    ``.segment_launches``, ``.wg_launches``), for CUDA ones. On the
-    warpgroup kernels one split pass serves both."""
+    ``.segment_launches``, ``.wg_launches``; the 128-key dK/dV kernel also
+    in ``flash_bwd_dkv.wg128_launches``), for CUDA ones. On the warpgroup
+    kernels one split pass serves both."""
     dk = dv = dq_out = None
     if not _on_cuda(q, "flash_backward"):
         if dkv:
@@ -496,10 +518,12 @@ def flash_backward(q, k, v, do, l, m, di, scale: float,
         # the split copies: q, k, v, dout by rows; q, dout (dK/dV) and k (dQ)
         # transposed. q's strides stand in for an output not asked (null).
         outputs = (dk, dv, dq_out)
-        _launch_tf32(_tf32_entries()[1], "flash_attention backward", (q, k, v, do),
-                     4 + 2 * dkv + dq, (l, m, di, *outputs), segment_ids,
+        keys128 = dkv and fp32_plan(*q.shape)[4] == WG128_ROWS
+        _launch_tf32(_tf32_entries()[2 if keys128 else 1], "flash_attention backward",
+                     (q, k, v, do), 4 + 2 * dkv + dq, (l, m, di, *outputs), segment_ids,
                      (q, k, v, do, *(q if t is None else t for t in outputs)), scale)
         flash_bwd_dkv.wg_launches += dkv
+        flash_bwd_dkv.wg128_launches += keys128
         flash_bwd_dq.wg_launches += dq
     else:
         dkv_entry, dq_entry = _bwd_entries(q.dtype)
@@ -591,3 +615,4 @@ for _wrapper in (flash_attention, flash_bwd_dkv, flash_bwd_dq):
     _wrapper.bf16_launches = _wrapper.bf16_segment_launches = 0
     _wrapper.wg_launches = 0
 del _wrapper
+flash_bwd_dkv.wg128_launches = 0

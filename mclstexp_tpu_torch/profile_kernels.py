@@ -21,9 +21,11 @@
   launches at it (``time_flash``), each with the fp32 plan's design and the
   training call's pair (forward with residuals, then dK/dV and dQ as
   ``FlashAttention`` runs them: one split pass for both on the warpgroup
-  design); and the fp32 pair on both designs at ``CROSSOVER`` shapes
-  (``time_designs``: where ``fp32_plan`` switches). ``--only flash`` times
-  these alone;
+  design); the fp32 pair on both designs at ``CROSSOVER`` shapes
+  (``time_designs``: where ``fp32_plan`` switches); and the fp32 dK/dV with
+  segment ids on 64-key and on 128-key CTAs at ``DKV_CROSSOVER`` shapes
+  (``time_dkv_designs``: where ``fp32_plan`` gives dK/dV 128 keys a CTA).
+  ``--only flash`` times these alone;
 * the fp32 linear maps (``ops.linear``) at ``LINEAR_SHAPES`` (HisToGene's
   products at 4,096 rows): the 3xTF32 kernel's forward, dX and dW (each
   with its split pass) and its whole backward (dX, dW, db), against cuBLAS
@@ -69,6 +71,10 @@ FLASH_SHAPES = ((1, 8, 32, 64), (1, 8, 66, 64), (1, 8, 128, 64), (1, 8, 300, 64)
 # around the fp32 plan's crossover: the slide baselines' 16 heads, the flagship's 8
 CROSSOVER = tuple((1, 16, n, 64) for n in (128, 256, 320, 384, 512, 768)) + tuple(
     (1, 8, n, 64) for n in (300, 512, 640, 1024))
+# around the crossover of the warpgroup dK/dV's two designs (64 or 128 keys a CTA): 48 to
+# 512 CTAs of 128 keys
+DKV_CROSSOVER = tuple((1, 16, n, 64) for n in (384, 512, 576, 768, 1024, 1152, 2048, 4096)) + (
+    (1, 8, 1024, 64), (1, 8, 1088, 64), (1, 16, 4096, 32))
 FLASH_PADDED = 63  # rows of the padded tail in the segment-id case
 # (m, n, k): HisToGene's patch embedding, qkv, out, MLP up and down, gene head
 LINEAR_SHAPES = ((4096, 1024, 37632), (4096, 3072, 1024), (4096, 1024, 1024),
@@ -230,10 +236,10 @@ def time_patches(slide, centers) -> dict:
                                  iters=5)}
 
 
-def time_flash(shape, g, segments: bool, dtype=torch.float32) -> dict:
-    """ms per call of the flash forward (without and with residuals), dK/dV
-    and dQ at ``shape`` in ``dtype`` on the views of one qkv buffer, with
-    segment ids (the last ``FLASH_PADDED`` rows padded) or without."""
+def flash_case(shape, g, segments: bool, dtype=torch.float32):
+    """(q, k, v, do, ids, l, m, di, scale) at ``shape`` in ``dtype``: q, k, v
+    the views of one qkv buffer, ``ids`` () or (segment ids with the last
+    ``FLASH_PADDED`` rows padded,), l, m and di from the forward kernel."""
     b, h, n, d = shape
     qkv = torch.randn((b, n, 3, h, d), generator=g, device="cuda").to(dtype)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -243,7 +249,20 @@ def time_flash(shape, g, segments: bool, dtype=torch.float32) -> dict:
            .expand(b, n).contiguous(),) if segments else ()
     out, l, m = fa.flash_forward(q, k, v, scale, True, *ids)
     di = (out.float() * do.float()).sum(-1).contiguous()
-    timed = (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if n >= 4096 else graph_ms
+    return q, k, v, do, ids, l, m, di, scale
+
+
+def flash_timer(n: int):
+    """Events over eager calls at n >= 4,096, graph replays below."""
+    return (lambda fn: cuda_ms(fn, iters=10, warmup=2)) if n >= 4096 else graph_ms
+
+
+def time_flash(shape, g, segments: bool, dtype=torch.float32) -> dict:
+    """ms per call of the flash forward (without and with residuals), dK/dV
+    and dQ at ``shape`` in ``dtype`` on the views of one qkv buffer, with
+    segment ids (the last ``FLASH_PADDED`` rows padded) or without."""
+    q, k, v, do, ids, l, m, di, scale = flash_case(shape, g, segments, dtype)
+    timed = flash_timer(shape[2])
 
     def pair():
         o, ll, mm = fa.flash_forward(q, k, v, scale, True, *ids)
@@ -271,6 +290,26 @@ def time_designs(shape, g) -> dict:
     finally:
         fa.WG_MIN_N, fa.WG_MIN_CTAS = limits
     out["plan"] = fa.fp32_plan(*shape)[0]
+    return out
+
+
+def time_dkv_designs(shape, g) -> dict:
+    """ms of the fp32 dK/dV with segment ids at ``shape`` (with its split
+    pass, as ``time_flash``'s "bwd_dkv") on 64-key and on 128-key CTAs, the
+    plan's threshold moved out of the way for the one it would not pick; the
+    128-key design's CTAs and the keys a CTA the plan picks."""
+    q, k, v, do, ids, l, m, di, scale = flash_case(shape, g, True)
+    b, h, n, _ = shape
+    limit = fa.WG128_MIN_CTAS
+    out = {"ctas128": b * h * -(-n // fa.WG128_ROWS)}
+    try:
+        for design, minimum in (("keys64", 2**31), ("keys128", 1)):
+            fa.WG128_MIN_CTAS = minimum
+            out[design] = flash_timer(n)(
+                lambda: fa.flash_bwd_dkv(q, k, v, do, l, m, di, scale, *ids))
+    finally:
+        fa.WG128_MIN_CTAS = limit
+    out["plan"] = fa.fp32_plan(*shape)[4]
     return out
 
 
@@ -368,9 +407,10 @@ def main(argv=None) -> None:
             if has_ids:
                 flash[key]["ids"] = time_flash(shape, g, True, dtype)
     crossover = {str(shape): time_designs(shape, g) for shape in CROSSOVER}
+    dkv_crossover = {str(shape): time_dkv_designs(shape, g) for shape in DKV_CROSSOVER}
     if only == "flash":
-        print(json.dumps({"card": card_line(), "flash": flash, "crossover": crossover}),
-              flush=True)
+        print(json.dumps({"card": card_line(), "flash": flash, "crossover": crossover,
+                          "dkv_crossover": dkv_crossover}), flush=True)
         return
     shifts = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -380,7 +420,8 @@ def main(argv=None) -> None:
     patches = time_patches(slide, centers)
     del slide, centers
     print(json.dumps({"card": card_line(), "row_shift": shifts, "extract_patches": patches,
-                      "flash": flash, "crossover": crossover}), flush=True)
+                      "flash": flash, "crossover": crossover, "dkv_crossover": dkv_crossover}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -52,6 +52,7 @@ def reset_counts() -> None:
     for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq):
         w.launches = w.segment_launches = w.bf16_launches = w.bf16_segment_launches = 0
         w.wg_launches = 0
+    fa.flash_bwd_dkv.wg128_launches = 0
     linear_fp32.wg_launches = 0
     extract_patches.launches = 0
     row_shift.launches = 0

@@ -162,12 +162,16 @@ def _flash_vs_xla_grads(flash_model, cfg, batch, near_zero=()):
 
 def test_histogene_fold(sections):
     """HisToGene (dim 1,024, 8 layers, 16 x 64 heads, mlp 2,048) with
-    "flash": 8 segment launches of each kernel a slide step; one padded
+    "flash": 8 segment launches of each kernel a slide step, dK/dV's at the
+    training slides' buckets (640 and 768 rows: 80 and 96 CTAs of 128 keys)
+    on 128-key CTAs (``fp32_plan``); one padded
     slide's gradients against "xla"; ``predict_slide`` on the held-out
     section within 1e-3 of the CPU's; finite fold metrics."""
     cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
                                  max_epochs=1)
     state = _fold(cfg, sections, 8)
+    assert fa.flash_bwd_dkv.wg128_launches == 8 * (len(sections) - 1), (
+        fa.flash_bwd_dkv.wg128_launches)
     batch = trainer.slide_tensors(trainer.pad_slide(sections[2], cfg.bucket, False, cfg), "cuda")
     _flash_vs_xla_grads(state.model, cfg, batch)
     test = sections[0]
@@ -204,7 +208,7 @@ def test_histogene_whole_slide_step(whole_slide):
     34 linear products on the 3xTF32 kernel in the forward and 67 in the
     backward; a train step with "flash" and one with "xla", each 101
     products, the flash step 8 launches of each flash kernel, all on the
-    warpgroup design (``fp32_plan``)."""
+    warpgroup design (``fp32_plan``), dK/dV's on 128-key CTAs."""
     cfg = trainer.BaselineConfig(model="histogene", n_genes=785, patch_size=112, n_layers=8,
                                  max_epochs=1)
     batch = trainer.slide_tensors(trainer.pad_slide(whole_slide, cfg.bucket, False, cfg), "cuda")
@@ -227,6 +231,7 @@ def test_histogene_whole_slide_step(whole_slide):
     torch.cuda.synchronize()
     wg = tuple(w.wg_launches for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq))
     assert wg == (8, 8, 8) and flash_counts() == wg, (wg, flash_counts())
+    assert fa.flash_bwd_dkv.wg128_launches == 8, fa.flash_bwd_dkv.wg128_launches
     assert linear_fp32.wg_launches == 2 * sum(LINEAR_STEP), linear_fp32.wg_launches
 
 

@@ -6,14 +6,16 @@ For long sequences the three fp32 kernels run as Hopper warpgroup kernels
 3xTF32, on split copies of the inputs that one plain-load pass writes
 before each pass (the big and small tf32 parts, in rows and transposed,
 since a tf32 ``wgmma`` reads its shared-memory operands K-major only).
-``fp32_plan`` picks that design or the cluster kernels from (b, h, n, d).
-On the CPU:
+``fp32_plan`` picks that design or the cluster kernels from (b, h, n, d),
+and on the warpgroup design dK/dV's CTAs of 64 keys (one warpgroup) or of
+128 (two warpgroups on one ring of query tiles). On the CPU:
 
   (a) ``fp32_plan`` at every shape the benchmark's cells and the card tests
-      launch, its crossover and its limits;
+      launch, its crossovers and its limits;
   (b) that ``flash_forward`` and the backward route an fp32 tensor by the
       plan, with and without segment ids (stand-in entry points record the
-      launches), and count the warpgroup launches in ``wg_launches``;
+      launches), and count the warpgroup launches in ``wg_launches`` and the
+      128-key dK/dV's in ``flash_bwd_dkv.wg128_launches``;
   (c) the split copies' layouts: the column form's row order and the
       register A operand it lets the accumulator be, and the 3xTF32 split
       (tf32 rounding, big + small, the three products' error);
@@ -21,11 +23,13 @@ On the CPU:
       in fp32, 3xTF32 products summed per tile, tiles added in fp32) held to
       ``flash_forward_plain``, with and without segment ids.
 
-On the card (``gpu`` marker): the three kernels against their plain versions
-at the slide baselines' (1, 16, 384 / 768 / 4,096, 64) with segment ids, at
-ragged n, at d = 32 (and d = 128, which the plan keeps on the cluster
-kernels), on inputs TMA could not copy as they are (the split pass reads
-them), the same bits on two runs, and autograd through ``flash_attention``:
+On the card (``gpu`` marker), with dK/dV on each of its two designs: the
+three kernels against their plain versions at the slide baselines' (1, 16,
+384 / 768 / 4,096, 64) with segment ids, at ragged n (a last 128-key CTA with
+one warpgroup's keys or a few of the second's), at d = 32 (and d = 128,
+which the plan keeps on the cluster kernels), on inputs TMA could not copy
+as they are (the split pass reads them), the same bits on two runs, and
+autograd through ``flash_attention``:
 
     python -m pytest --noconftest tests/test_torch_port_flash_tf32_tiles.py -m gpu
 """
@@ -48,31 +52,36 @@ LN2 = 0.6931471805599453
 # --- (a) the plan -----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape,want", [
-    ((1, 8, 32, 64), ("cluster", 32, 1, 8)),         # eval sweep, key database
-    ((1, 8, 128, 64), ("cluster", 32, 4, 128)),      # spot tower training (her2st-train)
-    ((1, 8, 66, 64), ("cluster", 32, 3, 72)),        # the fold's remainder batch
-    ((1, 8, 300, 64), ("cluster", 32, 2, 160)),      # ragged
-    ((1, 16, 384, 64), ("warpgroup", 64, 1, 96)),    # HisToGene her2st slides: buckets of 128
-    ((1, 16, 512, 64), ("warpgroup", 64, 1, 128)),
-    ((1, 16, 640, 64), ("warpgroup", 64, 1, 160)),
-    ((1, 16, 768, 64), ("warpgroup", 64, 1, 192)),
-    ((1, 16, 4096, 64), ("warpgroup", 64, 1, 1024)),  # the whole slide (histogene-visium-slide)
-    ((1, 16, 4096, 32), ("warpgroup", 64, 1, 1024)),
-    ((1, 16, 4096, 128), ("cluster", 32, 1, 2048)),  # d > 64: the cluster kernels
-    ((1, 16, 256, 64), ("cluster", 32, 2, 256)),     # below the crossover: n < 320
-    ((1, 16, 320, 64), ("warpgroup", 64, 1, 80)),    # at it
-    ((1, 8, 512, 64), ("cluster", 32, 2, 256)),      # 64 blocks of 64 rows: too few
-    ((1, 8, 640, 64), ("warpgroup", 64, 1, 80)),
-    ((1, 1, 4096, 64), ("cluster", 32, 2, 256)),
-    ((2, 8, 4000, 64), ("warpgroup", 64, 1, 1008)),
+    ((1, 8, 32, 64), ("cluster", 32, 1, 8, 32)),         # eval sweep, key database
+    ((1, 8, 128, 64), ("cluster", 32, 4, 128, 32)),      # spot tower training (her2st-train)
+    ((1, 8, 66, 64), ("cluster", 32, 3, 72, 32)),        # the fold's remainder batch
+    ((1, 8, 300, 64), ("cluster", 32, 2, 160, 32)),      # ragged
+    ((1, 16, 384, 64), ("warpgroup", 64, 1, 96, 64)),    # HisToGene her2st slides: buckets of 128
+    ((1, 16, 512, 64), ("warpgroup", 64, 1, 128, 64)),
+    ((1, 16, 576, 64), ("warpgroup", 64, 1, 144, 128)),  # 80 CTAs of 128 keys: the 128-key dK/dV
+    ((1, 16, 640, 64), ("warpgroup", 64, 1, 160, 128)),
+    ((1, 16, 768, 64), ("warpgroup", 64, 1, 192, 128)),
+    ((1, 16, 1024, 64), ("warpgroup", 64, 1, 256, 128)),
+    ((1, 8, 1024, 64), ("warpgroup", 64, 1, 128, 64)),    # 64 CTAs of 128 keys: 64-key ones
+    ((1, 8, 1088, 64), ("warpgroup", 64, 1, 136, 128)),   # 72
+    ((1, 16, 4096, 64), ("warpgroup", 64, 1, 1024, 128)),  # the whole slide (histogene-visium-slide)
+    ((1, 16, 4096, 32), ("warpgroup", 64, 1, 1024, 128)),
+    ((1, 16, 4096, 128), ("cluster", 32, 1, 2048, 32)),  # d > 64: the cluster kernels
+    ((1, 16, 256, 64), ("cluster", 32, 2, 256, 32)),     # below the crossover: n < 320
+    ((1, 16, 320, 64), ("warpgroup", 64, 1, 80, 64)),    # at it
+    ((1, 8, 512, 64), ("cluster", 32, 2, 256, 32)),      # 64 blocks of 64 rows: too few
+    ((1, 8, 640, 64), ("warpgroup", 64, 1, 80, 64)),
+    ((1, 1, 4096, 64), ("cluster", 32, 2, 256, 32)),
+    ((2, 8, 4000, 64), ("warpgroup", 64, 1, 1008, 128)),
 ])
 def test_fp32_plan_at_the_launched_shapes(shape, want):
     """The warpgroup design where d <= 64, n >= 320 and its b * h * ceil(n
-    / 64) CTAs are at least 80; the cluster kernels (``cluster_plan``)
-    elsewhere."""
+    / 64) CTAs are at least 80, its dK/dV on 128-key CTAs where b * h *
+    ceil(n / 128) of them reach ``WG128_MIN_CTAS`` and on 64-key CTAs
+    below; the cluster kernels (``cluster_plan``) elsewhere."""
     assert fa.fp32_plan(*shape) == want
     if want[0] == "cluster":
-        assert want[1:] == fa.cluster_plan(*shape)
+        assert want[1:4] == fa.cluster_plan(*shape) and want[4] == want[1]
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 0), (1, 1, 1, 129), (1, 1, 0, 64), (0, 1, 8, 64),
@@ -91,7 +100,15 @@ def test_fp32_plan_keeps_the_split_pass_grid():
 # --- (b) routing ------------------------------------------------------------------------------
 
 ROUTED = [(1, 8, 128, 64), (1, 8, 32, 64), (1, 16, 384, 64), (1, 16, 768, 64),
-          (1, 16, 4096, 64), (1, 16, 4096, 128), (1, 16, 256, 64), (2, 3, 700, 20)]
+          (1, 16, 4096, 64), (1, 16, 4096, 128), (1, 16, 256, 64), (2, 3, 700, 20),
+          (1, 16, 4096, 32)]
+DKV_DESIGNS = ("keys64", "keys128")
+
+
+def _dkv_design(monkeypatch, design):
+    """dK/dV on 64-key CTAs (``design`` "keys64") or on 128-key CTAs
+    ("keys128") at every shape the warpgroup design takes."""
+    monkeypatch.setattr(fa, "WG128_MIN_CTAS", 1 if design == "keys128" else 2**31)
 
 
 @contextlib.contextmanager
@@ -109,13 +126,17 @@ def _stand_ins(monkeypatch):
         seen.append(("warpgroup", *args[-6:-2]))
         return 0
 
+    def warpgroup128(*args):  # the backward whose dK/dV owns 128 keys a CTA
+        seen.append(("warpgroup128", *args[-6:-2]))
+        return 0
+
     monkeypatch.setattr(fa, "_on_cuda", lambda q, what: True)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(fa, "_fwd_entry", lambda dtype: cluster)
     monkeypatch.setattr(fa, "_bwd_entries", lambda dtype: (cluster, cluster))
-    monkeypatch.setattr(fa, "_tf32_entries", lambda: (warpgroup, warpgroup))
+    monkeypatch.setattr(fa, "_tf32_entries", lambda: (warpgroup, warpgroup, warpgroup128))
     yield seen
 
 
@@ -132,22 +153,26 @@ def _tensors(shape, ids):
 def test_fp32_launches_follow_the_plan(monkeypatch, shape, ids):
     """An fp32 forward and backward launch the design ``fp32_plan`` picks
     (the cluster entries with ``cluster_plan``'s rows and split, or one
-    warpgroup entry a pass for forward and for both backward kernels), with
+    warpgroup entry a pass for forward and for both backward kernels, the
+    backward's with the 128-key dK/dV where the plan gives it 128 keys), with
     or without segment ids, and count it."""
-    design, rows, split, _ = fa.fp32_plan(*shape)
+    design, rows, split, _, dkv_rows = fa.fp32_plan(*shape)
     q, stats, seg = _tensors(shape, ids)
     counters = (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     before = [(w.launches, w.segment_launches, w.wg_launches) for w in counters]
+    wide = fa.flash_bwd_dkv.wg128_launches
     with _stand_ins(monkeypatch) as seen:
         fa.flash_forward(q, q, q, 0.125, residuals=True, segment_ids=seg)
         fa.flash_backward(q, q, q, q, stats, stats, stats, 0.125, seg)
+    keys128 = dkv_rows == 128
     if design == "warpgroup":
-        assert seen == [("warpgroup", *shape)] * 2
+        assert seen == [("warpgroup", *shape), ("warpgroup128" if keys128 else "warpgroup", *shape)]
     else:
         assert seen == [("cluster", *shape, rows, split)] * 3
     wg = design == "warpgroup"
     assert [(w.launches, w.segment_launches, w.wg_launches) for w in counters] == [
         (a + 1, s + ids, g + wg) for a, s, g in before]
+    assert fa.flash_bwd_dkv.wg128_launches == wide + keys128
 
 
 def test_bf16_keeps_its_own_plan(monkeypatch):
@@ -162,22 +187,29 @@ def test_bf16_keeps_its_own_plan(monkeypatch):
     assert seen == [("cluster", *shape, 64, 1)] * 3
 
 
+@pytest.mark.parametrize("design", DKV_DESIGNS)
 @pytest.mark.parametrize("dkv", [True, False], ids=["dkv", "dq"])
-def test_one_backward_kernel_alone(monkeypatch, dkv):
+def test_one_backward_kernel_alone(monkeypatch, dkv, design):
     """``flash_bwd_dkv`` or ``flash_bwd_dq`` alone (``flash_backward`` with
-    one of them) launches the warpgroup entry once and counts only that kernel."""
+    one of them) launches a warpgroup entry once and counts only that
+    kernel: dK/dV alone on the entry of its design (``wg128_launches`` for
+    the 128-key one), dQ alone on the plain backward entry."""
+    _dkv_design(monkeypatch, design)
     shape = (1, 16, 768, 64)
     q, stats, _ = _tensors(shape, False)
-    before = (fa.flash_bwd_dkv.wg_launches, fa.flash_bwd_dq.wg_launches)
+    before = (fa.flash_bwd_dkv.wg_launches, fa.flash_bwd_dq.wg_launches,
+              fa.flash_bwd_dkv.wg128_launches)
     with _stand_ins(monkeypatch) as seen:
         if dkv:
             got = fa.flash_bwd_dkv(q, q, q, q, stats, stats, stats, 0.125)
         else:
             got = (fa.flash_bwd_dq(q, q, q, q, stats, stats, stats, 0.125),)
-    assert seen == [("warpgroup", *shape)]
+    keys128 = dkv and design == "keys128"
+    assert seen == [("warpgroup128" if keys128 else "warpgroup", *shape)]
     assert len(got) == (2 if dkv else 1) and all(t.shape == shape for t in got)
-    assert (fa.flash_bwd_dkv.wg_launches, fa.flash_bwd_dq.wg_launches) == (
-        before[0] + dkv, before[1] + (not dkv))
+    assert (fa.flash_bwd_dkv.wg_launches, fa.flash_bwd_dq.wg_launches,
+            fa.flash_bwd_dkv.wg128_launches) == (before[0] + dkv, before[1] + (not dkv),
+                                                 before[2] + keys128)
 
 
 @pytest.mark.parametrize("dkv,dq", [(True, True), (True, False), (False, True)])
@@ -380,9 +412,11 @@ def _seg(g, b, n, kind):
 def _card_check(g, shape, kind="none", layout="qkv", design="warpgroup"):
     """Forward with residuals, dK/dV and dQ on the card against the plain
     versions (atol 2e-5, l relative), the same bits on a second run, and one
-    launch of each on ``design`` (``wg_launches``)."""
+    launch of each on ``design`` (``wg_launches``; the dK/dV's on the design
+    the plan gives it, ``wg128_launches``)."""
     b, h, n, d = shape
     assert fa.fp32_plan(*shape)[0] == design
+    keys128 = fa.fp32_plan(*shape)[4] == 128
     q, k, v, do = _inputs(g, b, h, n, d, layout)
     seg = _seg(g, b, n, kind)
     scale = d**-0.5
@@ -390,6 +424,7 @@ def _card_check(g, shape, kind="none", layout="qkv", design="warpgroup"):
     di = (ro * do).sum(-1).contiguous()
     counters = (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     before = [(w.launches, w.wg_launches) for w in counters]
+    wide = fa.flash_bwd_dkv.wg128_launches
 
     def run():
         out, l, m = fa.flash_forward(q, k, v, scale, residuals=True, segment_ids=seg)
@@ -402,6 +437,7 @@ def _card_check(g, shape, kind="none", layout="qkv", design="warpgroup"):
     wg = design == "warpgroup"
     assert [(w.launches, w.wg_launches) for w in counters] == [(a + 1, c + wg)
                                                                for a, c in before]
+    assert fa.flash_bwd_dkv.wg128_launches == wide + keys128
     assert all(torch.equal(x, y) for x, y in zip(got, run()))
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, rl, rm, di, scale, seg)
     want_dq = fa.flash_bwd_dq_plain(q, k, v, do, rl, rm, di, scale, seg)
@@ -419,48 +455,62 @@ def _warpgroup_everywhere(monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", DKV_DESIGNS)
 @pytest.mark.parametrize("n", [384, 768, 4096])
 @pytest.mark.parametrize("kind", ["tail", "interleaved", "none"])
-def test_wg_kernels_at_the_slide_shapes(cuda, n, kind):
-    """The slide baselines' heads, (1, 16, n, 64), on the warpgroup design."""
+def test_wg_kernels_at_the_slide_shapes(cuda, monkeypatch, n, kind, design):
+    """The slide baselines' heads, (1, 16, n, 64), on the warpgroup design,
+    its dK/dV on either design."""
+    _dkv_design(monkeypatch, design)
     _card_check(cuda, (1, 16, n, 64), kind)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 16, 4000, 64), (1, 2, 300, 64), (1, 3, 333, 64),
-                                   (2, 3, 129, 64), (1, 2, 1, 64), (1, 1, 65, 64)], ids=str)
-def test_wg_kernels_at_ragged_n(cuda, monkeypatch, shape):
+@pytest.mark.parametrize("design", DKV_DESIGNS)
+@pytest.mark.parametrize("shape", [(1, 16, 4000, 64), (1, 16, 4033, 64), (1, 2, 300, 64),
+                                   (1, 3, 333, 64), (2, 3, 129, 64), (1, 2, 1, 64),
+                                   (1, 1, 65, 64)], ids=str)
+def test_wg_kernels_at_ragged_n(cuda, monkeypatch, shape, design):
     """n that is no multiple of the 32- and 64-row tiles (the last tiles
-    ragged), with tail ids; below the crossover the design is forced."""
+    ragged), with tail ids; below the crossover the design is forced. On
+    128-key CTAs n = 4,000, 300 and 1 leave the last CTA's second warpgroup
+    no key below n; n = 4,033 and 65 give it one."""
     _warpgroup_everywhere(monkeypatch)
+    _dkv_design(monkeypatch, design)
     _card_check(cuda, shape, "tail")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", DKV_DESIGNS)
 @pytest.mark.parametrize("d", [32, 20, 128])
-def test_wg_kernels_at_other_head_widths(cuda, d):
+def test_wg_kernels_at_other_head_widths(cuda, monkeypatch, d, design):
     """d = 32 and d = 20 (tiles of 32 columns, zero past d) on the
-    warpgroup design; d = 128 stays on the cluster kernels (the plan), same
-    checks."""
+    warpgroup design, its dK/dV on either design; d = 128 stays on the
+    cluster kernels (the plan), same checks."""
+    _dkv_design(monkeypatch, design)
     _card_check(cuda, (1, 16, 768, d), "tail", design="warpgroup" if d <= 64 else "cluster")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", DKV_DESIGNS)
 @pytest.mark.parametrize("shape", [(1, 16, 384, 64), (1, 16, 768, 36), (2, 8, 700, 64)],
                          ids=str)
-def test_wg_kernels_on_inputs_tma_cannot_take(cuda, shape):
+def test_wg_kernels_on_inputs_tma_cannot_take(cuda, monkeypatch, shape, design):
     """Views 4 bytes past a 16-byte boundary with rows of d + 1 floats (and
     d = 36): no TMA box could copy them; the split pass reads them with
     plain loads, and the kernels copy its output by TMA."""
+    _dkv_design(monkeypatch, design)
     _card_check(cuda, shape, "tail", layout="shifted")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", DKV_DESIGNS)
 @pytest.mark.parametrize("n", [384, 4096])
-def test_wg_autograd_matches_plain_autograd(cuda, n):
+def test_wg_autograd_matches_plain_autograd(cuda, monkeypatch, n, design):
     """torch.autograd.grad through flash_attention with a mask (one split
-    pass and both backward kernels) against autograd of the plain segment
-    forward, on the views of one qkv buffer."""
+    pass and both backward kernels, dK/dV on either design) against
+    autograd of the plain segment forward, on the views of one qkv buffer."""
+    _dkv_design(monkeypatch, design)
     qkv = torch.randn((1, n, 3, 16, 64), generator=cuda, device="cuda", requires_grad=True)
     cot = torch.randn((1, 16, n, 64), generator=cuda, device="cuda")
     mask = torch.arange(n, device="cuda") < n - 37
@@ -471,8 +521,10 @@ def test_wg_autograd_matches_plain_autograd(cuda, n):
         return torch.autograd.grad((attend(q, k, v) * cot).sum(), qkv)[0]
 
     before = tuple(w.wg_launches for w in (fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq))
+    wide = fa.flash_bwd_dkv.wg128_launches
     got = grad(lambda q, k, v: fa.flash_attention(q, k, v, 0.125, mask))
     assert tuple(w.wg_launches for w in (fa.flash_attention, fa.flash_bwd_dkv,
                                          fa.flash_bwd_dq)) == tuple(x + 1 for x in before)
+    assert fa.flash_bwd_dkv.wg128_launches == wide + (design == "keys128")
     want = grad(lambda q, k, v: fa.flash_forward_plain(q, k, v, 0.125, seg)[0])
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
